@@ -1,0 +1,74 @@
+"""Minimal functional optimizers over parameter trees (``repro.optim``).
+
+``make_optimizer(name)`` returns ``(init_fn, update_fn)`` where
+``update_fn(grads, opt_state, params, lr) -> (new_params, new_opt_state)``.
+Updates are out of place, so they compose with ``torch.func.vmap`` over
+stacked clients.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import tree_leaves, tree_map
+
+
+def sgd():
+    def init(params):
+        return ()
+
+    def update(grads, state, params, lr):
+        new = tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+                       params, grads)
+        return new, state
+    return init, update
+
+
+def momentum(beta: float = 0.9):
+    def init(params):
+        return {"m": tree_map(torch.zeros_like, params)}
+
+    def update(grads, state, params, lr):
+        m = tree_map(lambda m_, g: beta * m_ + g.to(m_.dtype), state["m"],
+                     grads)
+        new = tree_map(lambda p, m_: (p.float() - lr * m_).to(p.dtype),
+                       params, m)
+        return new, {"m": m}
+    return init, update
+
+
+def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    def init(params):
+        def f32(t):
+            return tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), t)
+        device = tree_leaves(params)[0].device
+        return {"m": f32(params), "v": f32(params),
+                "t": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def update(grads, state, params, lr):
+        t = state["t"] + 1
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g.float().square(),
+                     state["v"], grads)
+        c1 = 1 - torch.pow(b1, t.float())
+        c2 = 1 - torch.pow(b2, t.float())
+        new = tree_map(
+            lambda p, m_, v_: (p.float() - lr * (m_ / c1)
+                               / ((v_ / c2).sqrt() + eps)).to(p.dtype),
+            params, m, v)
+        return new, {"m": m, "v": v, "t": t}
+    return init, update
+
+
+OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adam": adam}
+
+
+def make_optimizer(name: str, **kw):
+    return OPTIMIZERS[name](**kw)
+
+
+def paper_lr_schedule(round_idx: int, lr0: float, decay_every: int = 10,
+                      decay: float = 0.99) -> float:
+    """Paper §VI-A: initial lr, decayed every `decay_every` rounds by `decay`."""
+    return lr0 * decay ** (round_idx // decay_every)

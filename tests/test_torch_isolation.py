@@ -1,0 +1,54 @@
+"""The PyTorch port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
+import neither JAX nor the JAX package, so both run on a machine that has
+no JAX installed."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) > 15 and all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, mod) for line, mod in _imported_modules(path)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = ["repro_torch"] + sorted(
+        "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
+                                  .with_suffix("").parts)
+        for p in PORT_FILES[:-1] if p.name != "__init__.py")
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
