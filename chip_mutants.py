@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Show that the LM kernel checks of ``chip_smoke.py`` (phase 7) can fail.
+Run from the repo root on a machine with one NVIDIA GPU and nvcc:
+
+    python3 chip_mutants.py
+
+The tree itself, then each mutant below, runs phases 1, 2 and 7 of
+``chip_smoke.py`` in a fresh process, with every check reported instead of
+raised.  A mutant is one deliberate fault in a kernel source, made in a
+copy of the checkout under a temporary directory; the checkout itself is
+never changed.  The script exits non-zero unless the tree passes every
+check and each mutant fails the bound per element at a main-path shape.
+The last line is a JSON summary: per run, the checks that failed.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CE = "src/repro_torch/kernels/csrc/fused_ce.cu"
+SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
+# name -> (edits (file, old, new), a check that must fail)
+MUTANTS = {
+    "K4b without the softmax term": (
+        [(CE, "p_of(sl[2 * h + i], lse_t, lab, v0 + v, V, ok, scale)",
+          "p_of(-1e30f, lse_t, lab, v0 + v, V, ok, scale)")],
+        "fused_ce_dw [1, 4096, 1024, 151936] bfloat16 per element"),
+    "K4a without the softmax term": (
+        [(CE, "p_of(sl[2 * h], lse_r[h]", "p_of(-1e30f, lse_r[h]"),
+         (CE, "p_of(sl[2 * h + 1], lse_r[h]", "p_of(-1e30f, lse_r[h]")],
+        "fused_ce_dx [1, 4096, 1024, 151936] bfloat16 per element"),
+    "K6 window one kv tile late": (
+        [(SWA, "const int jt0 = max(0, q0 - window + 1) / BK,",
+          "const int jt0 = max(0, q0 - window + 1) / BK "
+          "+ (q0 - window + 1 > 0),")],
+        "swa_attention [1, 8192, 16, 8, 128] W=4096 bfloat16 per element"),
+}
+PHASE7 = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+def report(cond, what):
+    print(("  ok  " if cond else "  FAIL ") + what, flush=True)
+cs.check = report
+cs.phase_device()
+cs.phase_build()
+cs.phase_lm_kernels(torch.device("cuda"))
+"""
+
+
+def run(where: str) -> list:
+    """Phases 1, 2 and 7 in ``where``; returns the failed checks."""
+    r = subprocess.run([sys.executable, "-c", PHASE7], cwd=where,
+                       capture_output=True, text=True, timeout=900)
+    sys.stdout.write(r.stdout)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 7 did not run to its end in {where}:\n"
+                           f"{r.stderr[-3000:]}")
+    return [ln[len("  FAIL "):] for ln in r.stdout.splitlines()
+            if ln.startswith("  FAIL ")]
+
+
+def main() -> int:
+    print("== the tree as it is", flush=True)
+    failed = {"tree": run(ROOT)}
+    ok = not failed["tree"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, (edits, must_fail)) in enumerate(MUTANTS.items()):
+            print(f"\n== mutant: {name}", flush=True)
+            copy = os.path.join(tmp, f"m{i}")
+            shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+                ".git", "build", "chiprun_out"))
+            for path, old, new in edits:
+                p = os.path.join(copy, path)
+                with open(p) as f:
+                    src = f.read()
+                assert src.count(old) == 1, (name, old)
+                with open(p, "w") as f:
+                    f.write(src.replace(old, new))
+            failed[name] = run(copy)
+            caught = any(c.startswith(must_fail) for c in failed[name])
+            print(f"  {'caught' if caught else 'MISSED'}: {must_fail}")
+            ok = ok and caught
+    print(json.dumps({"ok": ok, "failed": failed}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,17 +10,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    and turns TF32 off for convolutions and matmuls (fp32 comparisons below
    need full fp32);
 2. build: compiles the kernels in ``src/repro_torch/kernels/csrc`` with
-   nvcc for sm_90a into ``build/``;
-3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
-   the same inputs, bitwise;
-4. main path: CSE-FSL on the full-width CIFAR-10 split CNN through
+   nvcc for sm_90a into ``build/``, one nvcc per source, all at once;
+3. quantizer vs plain: both quantize kernels against their plain PyTorch
+   version on the same inputs, bitwise;
+4. CNN main path: CSE-FSL on the full-width CIFAR-10 split CNN through
    ``Trainer.run`` with the int8 uplink codec (then fp8, then deterministic
    int8), checking which kernels each run launched, that losses are finite
    and that the metered bytes equal the analytic CommProfile;
-5. CPU vs card: the first rounds on both devices, which draw the same
+5. CNN CPU vs card: the first rounds on both devices, which draw the same
    Philox bits, agree;
-6. times: CUDA-event medians of the kernels, their plain versions and a
-   main-path round, beside each kernel's bound.
+6. CNN times: CUDA-event medians of the quantize kernels, their plain
+   versions and a CNN round, beside each kernel's bound;
+7. LM kernels vs plain: the fused cross-entropy kernels (K3 forward, K4a
+   dx, K4b dw) and sliding-window attention (K6) against their plain
+   versions at the main path's shapes and at ragged small ones;
+8. LM main path: CSE-FSL on full-width Qwen3-0.6B (bf16, the kernels on)
+   through ``Trainer.run``, with per-round launch counts of every kernel,
+   finite losses, state on the card and the meter equal to CommProfile;
+9. LM CPU vs card: reduced Qwen3 in fp32, the kernels on the card and the
+   plain versions on the CPU, agree over 2 rounds;
+10. LM times: the four kernels, their plain versions and library
+   yardsticks at the main shapes, and a main-path round with its device
+   time, idle share, top kernels and peak memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -42,36 +53,89 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.common import bytes_of  # noqa: E402
+from repro_torch.common import bytes_of, tree_leaves  # noqa: E402
 from repro_torch.configs.base import FSLConfig  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.accounting import CommMeter, CostModel  # noqa: E402
-from repro_torch.core.bundle import cnn_bundle  # noqa: E402
+from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
                               synthetic_classification)
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
+from repro_torch.kernels import swa_attention as swa  # noqa: E402
+from repro_torch.launch.train import LMBatcher, build_data  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
 from repro_torch.transport import Int8Codec, Transport  # noqa: E402
 
-# Main path (benchmarks/fig9_codec_tradeoff.py): CIFAR-10 CNN, 4 clients,
-# h=5, B=24, lr=0.15, sgd, int8 uplink -> smashed [24, 6, 6, 64] per client.
+# CNN main path (benchmarks/fig9_codec_tradeoff.py): CIFAR-10 CNN, 4
+# clients, h=5, B=24, lr=0.15, sgd, int8 uplink -> smashed [24, 6, 6, 64].
 N, H, B, LR, SAMPLES, ROUNDS = 4, 5, 24, 0.15, 1200, 10
-# H100 SXM published peaks (NVIDIA data sheet): HBM 3.35 TB/s, fp32 outside
-# the tensor cores 67 TFLOP/s; int32 at half that (64 INT32 lanes per SM
-# beside 128 FP32, Hopper white paper).
-HBM_BPS, FP32_OPS, INT32_OPS = 3.35e12, 67e12, 33.5e12
-KERNEL_SRC = "src/repro_torch/kernels/csrc/quantize.cu"
+# LM main path: full-width qwen3-0.6b (configs/qwen3_0_6b.py) with the
+# kernels on, bf16, swa_window 4096; n=4 clients, h=2, B=1, S=4096, sgd at
+# the training CLI's default lr 0.1, int8 uplink, 3 rounds, 8 sequences
+# per client.
+LM_N, LM_H, LM_B, LM_S, LM_LR, LM_ROUNDS, LM_SAMPLES = 4, 2, 1, 4096, 0.1, 3, 8
+# H100 SXM published peaks (NVIDIA data sheet): HBM 3.35 TB/s, bf16 tensor
+# cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s; int32 at
+# half that (64 INT32 lanes per SM beside 128 FP32, Hopper white paper).
+HBM_BPS, BF16_OPS, FP32_OPS, INT32_OPS = 3.35e12, 989e12, 67e12, 33.5e12
+CSRC = "src/repro_torch/kernels/csrc/"
+REPLACES = {"quantize_bits": "src/repro/kernels/quantize.py:174",
+            "quantize_philox": "src/repro/kernels/quantize.py:162",
+            "fused_ce_fwd": "src/repro/kernels/fused_ce.py:87",
+            "fused_ce_dx": "src/repro/kernels/fused_ce.py:186",
+            "fused_ce_dw": "src/repro/kernels/fused_ce.py:201",
+            "swa_attention": "src/repro/kernels/swa_attention.py:94"}
+SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
+          "fused_ce_fwd": "fused_ce.cu", "fused_ce_dx": "fused_ce.cu",
+          "fused_ce_dw": "fused_ce.cu", "swa_attention": "swa_attention.cu"}
+# K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
+# ragged ones in both dtypes (bf16 and fp32 take different kernels); K6
+# cases (B, S, H, KH, hd, W): the main path's and a longer one the window
+# cuts, then tests/test_kernels.py's four in fp32.
+CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
+            ((1, 4096, 1024, 151936), torch.bfloat16),
+            ((2, 100, 72, 1000), torch.bfloat16),
+            ((3, 37, 16, 130), torch.bfloat16),
+            ((1, 100, 72, 1000), torch.float32),
+            ((3, 37, 16, 130), torch.float32)]
+SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
+             ((1, 8192, 16, 8, 128, 4096), torch.bfloat16)] + [
+    (c, torch.float32) for c in ((1, 128, 2, 2, 16, 32),
+                                 (1, 256, 4, 2, 32, 64),
+                                 (2, 128, 4, 1, 16, 128),
+                                 (1, 256, 2, 2, 64, 200))]
 
 
 def phase(name: str):
     print(f"\n== {name}", flush=True)
+    return time.perf_counter()
+
+
+def done(t0: float):
+    print(f"  phase wall time {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
     print(f"  ok  {what}", flush=True)
+
+
+def reset_counts():
+    for mod in (qk, ce, swa):
+        mod.reset_launches()
+
+
+def counts() -> dict:
+    return {**qk.LAUNCHES, **ce.LAUNCHES, **swa.LAUNCHES}
+
+
+def only(**kw) -> dict:
+    """All launch counts 0 except ``kw``."""
+    return {**{k: 0 for k in counts()}, **kw}
 
 
 def fsl_for(codec: str) -> FSLConfig:
@@ -82,6 +146,13 @@ def make_data():
     x, y = synthetic_classification(SAMPLES, CIFAR10.in_shape,
                                     CIFAR10.num_classes, signal=12.0)
     return partition_iid(x, y, N)
+
+
+def cost_model(bundle, n, d_local):
+    return CostModel(n=n, q=bundle.smashed_bytes_per_sample, d_local=d_local,
+                     w_client=bytes_of(bundle.specs["client"]),
+                     w_server=bytes_of(bundle.specs["server"]),
+                     aux=bytes_of(bundle.specs["aux"]))
 
 
 def payload(n, r, c, seed, wide=False):
@@ -110,10 +181,14 @@ def max_abs(q1, s1, q2, s2) -> float:
     return float(d.abs().max()) if d.numel() else 0.0
 
 
-def event_ms(fn, reps: int = 21, inner: int = 50) -> float:
+def diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def event_ms(fn, reps: int = 21, inner: int = 50, warm: int = 5) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back calls
     between two CUDA events (host launch overhead included)."""
-    for _ in range(5):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -153,35 +228,36 @@ def graph_ms(fn, reps: int = 21, inner: int = 50) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
+    del g
     return statistics.median(times)
 
 
-def sync(dev: torch.device):
-    if dev.type == "cuda":
+def sync(dev):
+    if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
 
 
 def phase_device():
     """Phase 1: the card's name and power limit; TF32 off."""
-    phase("1 device")
+    t0 = phase("1 device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s): "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; {card}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("  TF32 off for cuDNN convolutions and cuBLAS matmuls (fp32 "
           "comparisons with the CPU need full fp32)")
+    done(t0)
     return card
 
 
 def phase_build():
     """Phase 2: nvcc every kernel source (in parallel) into build/."""
-    phase("2 build")
-    t0 = time.perf_counter()
+    t0 = phase("2 build")
     built = _build.build()
     print(f"  built {sorted(built) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -189,12 +265,13 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
+    done(t0)
 
 
 def phase_kernels(dev: torch.device):
-    """Phase 3: each kernel bitwise against its plain version.  Returns the
-    largest dequantized difference seen per kernel."""
-    phase("3 kernels vs plain (bitwise)")
+    """Phase 3: each quantize kernel bitwise against its plain version.
+    Returns the largest dequantized difference seen per kernel."""
+    t0 = phase("3 quantizer vs plain (bitwise)")
     err = {"quantize_bits": 0.0, "quantize_philox": 0.0}
     cases = [((4, 864, 64), False), ((1, 13, 200), False), ((2, 7, 5), False),
              ((2, 16, 256), True)]
@@ -226,26 +303,33 @@ def phase_kernels(dev: torch.device):
             check(same(q2, pq) and same(s2, ps),
                   f"quantize_philox {tag} == plain on the CPU fed the CPU's "
                   "philox_bits")
+    done(t0)
     return err
 
 
-def drive(bundle, fed, cm, tag, codec, rounds, transport=None):
+def drive(tr, make_batcher, cm, tag, rounds, batch_size):
     """``Trainer.run`` for ``rounds`` rounds with the launch counts set to 0
-    just before and read just after; checks losses, device and meter."""
-    dev = bundle.device
-    tr = Trainer(bundle, fsl_for(codec), transport=transport)
+    just before and read just after (and after every round); checks losses,
+    device and meter.  Returns the state, history, meter, the run's launch
+    counts and each round's."""
+    dev = tr.device
     meter = CommMeter()
     state = tr.init(0)
-    batcher = FederatedBatcher(fed, B, H, seed=0)
+    batcher = make_batcher()
+    after = []
     sync(dev)
-    qk.reset_launches()
+    reset_counts()
     t = time.perf_counter()
     state, hist = tr.run(state, batcher, rounds, log_every=1, meter=meter,
-                         cost_model=cm)
+                         cost_model=cm,
+                         callback=lambda *_: after.append(counts()))
     sync(dev)
     dt = time.perf_counter() - t
-    launches = dict(qk.LAUNCHES)
-    print(f"  [{tag}] {rounds} rounds in {dt:.3f} s; launches {launches}")
+    launches = counts()
+    per_round = [{k: c[k] - (after[i - 1][k] if i else 0) for k in c}
+                 for i, c in enumerate(after)]
+    print(f"  [{tag}] {rounds} rounds in {dt:.3f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
     for row in hist:
         print(f"    round {row['round']:2d} client_loss "
               f"{row['client_loss']:.6f} server_loss "
@@ -253,10 +337,11 @@ def drive(bundle, fed, cm, tag, codec, rounds, transport=None):
     check(all(math.isfinite(row[k]) for row in hist
               for k in ("client_loss", "server_loss")),
           f"[{tag}] losses finite")
-    check(all(t.device.type == dev.type
-              for t in state["server"]["params"].values()),
+    check(all(t.device.type == torch.device(dev).type
+              for t in tree_leaves(state["server"]["params"])
+              + tree_leaves(state["clients"]["params"])),
           f"[{tag}] state stayed on {dev}")
-    prof = tr.comm_profile(cm, B, batch=batcher.next_round())
+    prof = tr.comm_profile(cm, batch_size, batch=batcher.next_round())
     want = {"uplink_smashed": rounds * prof.wire_uplink_smashed,
             "uplink_labels": rounds * prof.uplink_labels,
             "downlink_grads": 0,
@@ -265,38 +350,39 @@ def drive(bundle, fed, cm, tag, codec, rounds, transport=None):
     want["total"] = sum(want.values())
     check(meter.as_dict() == want,
           f"[{tag}] CommMeter {meter.as_dict()} == CommProfile")
-    return tr, state, hist, meter, launches
+    return state, hist, meter, launches, per_round
 
 
 def phase_main(dev: torch.device):
-    """Phase 4: the main path and its variants through Trainer.run."""
-    phase("4 main path: CSE-FSL, CIFAR-10 CNN full width, Trainer.run")
+    """Phase 4: the CNN main path and its variants through Trainer.run."""
+    t0 = phase("4 CNN main path: CSE-FSL, CIFAR-10 CNN full width, "
+               "Trainer.run")
     bundle = cnn_bundle(CIFAR10, device=dev)
     fed = make_data()
-    cm = CostModel(n=N, q=bundle.smashed_bytes_per_sample,
-                   d_local=SAMPLES // N,
-                   w_client=bytes_of(bundle.specs["client"]),
-                   w_server=bytes_of(bundle.specs["server"]),
-                   aux=bytes_of(bundle.specs["aux"]))
+    cm = cost_model(bundle, N, SAMPLES // N)
+
+    def run(tag, codec, rounds, transport=None):
+        tr = Trainer(bundle, fsl_for(codec), transport=transport)
+        return (tr, *drive(tr, lambda: FederatedBatcher(fed, B, H, seed=0),
+                           cm, tag, rounds, B))
+
     launches = {}
-    tr8, state8, hist8, meter8, launches["int8"] = drive(
-        bundle, fed, cm, "int8", "int8", ROUNDS)
-    check(launches["int8"] == {"quantize_bits": 0,
-                               "quantize_philox": ROUNDS},
+    tr8, state8, hist8, meter8, launches["int8"], _ = run("int8", "int8",
+                                                          ROUNDS)
+    check(launches["int8"] == only(quantize_philox=ROUNDS),
           f"int8 main path: quantize_philox launched once per round "
-          f"({ROUNDS}), quantize_bits never")
+          f"({ROUNDS}), no other kernel")
     check(meter8.counts["uplink_smashed"] == ROUNDS * N * 55_728,
           f"int8 uplink = {ROUNDS} rounds x {N} clients x 55,728 B")
     check(sum(r["aggregated"] for r in hist8) == ROUNDS,
           "FedAvg every round (C = h)")
-    *_, launches["fp8"] = drive(bundle, fed, cm, "fp8", "fp8", 3)
-    check(launches["fp8"] == {"quantize_bits": 0, "quantize_philox": 3},
+    *_, launches["fp8"], _ = run("fp8", "fp8", 3)
+    check(launches["fp8"] == only(quantize_philox=3),
           "fp8 path: quantize_philox once per round")
-    *_, launches["int8-deterministic"] = drive(
-        bundle, fed, cm, "int8-deterministic", "int8", 2,
+    *_, launches["int8-deterministic"], _ = run(
+        "int8-deterministic", "int8", 2,
         transport=Transport(uplink=Int8Codec(stochastic=False)))
-    check(launches["int8-deterministic"] == {"quantize_bits": 2,
-                                             "quantize_philox": 0},
+    check(launches["int8-deterministic"] == only(quantize_bits=2),
           "deterministic int8 path: quantize_bits once per round")
     xt, yt = synthetic_classification(400, CIFAR10.in_shape, 10, seed=99,
                                       signal=12.0)
@@ -307,29 +393,93 @@ def phase_main(dev: torch.device):
                                             mp["server"], (sm,))
     acc = float((logits.argmax(-1).cpu().numpy() == yt).mean())
     print(f"  held-out accuracy after {ROUNDS} int8 rounds: {acc:.4f}")
+    done(t0)
     return launches, tr8, state8, fed
 
 
+def compare_rounds(hists, dev, rtol):
+    for rc, rg in zip(hists["cpu"], hists[str(dev)]):
+        for k in ("client_loss", "server_loss"):
+            print(f"    round {rc['round']} {k}: cpu {rc[k]:.7f} "
+                  f"{dev} {rg[k]:.7f}")
+            check(math.isclose(rc[k], rg[k], rel_tol=rtol),
+                  f"round {rc['round']} {k} agrees at rtol {rtol:g}")
+
+
 def phase_cpu_vs(dev: torch.device, fed):
-    """Phase 5: the same first rounds on the CPU and on ``dev``."""
-    phase("5 CPU vs card: the same 2 rounds, the same Philox bits")
+    """Phase 5: the same first CNN rounds on the CPU and on ``dev``."""
+    t0 = phase("5 CNN CPU vs card: the same 2 rounds, the same Philox bits")
     hists = {}
     for d in ("cpu", dev):
         tr = Trainer(cnn_bundle(CIFAR10, device=d), fsl_for("int8"))
         _, hists[str(d)] = tr.run(tr.init(0),
                                   FederatedBatcher(fed, B, H, seed=0), 2,
                                   log_every=1)
-    for rc, rg in zip(hists["cpu"], hists[str(dev)]):
-        for k in ("client_loss", "server_loss"):
-            print(f"    round {rc['round']} {k}: cpu {rc[k]:.7f} "
-                  f"{dev} {rg[k]:.7f}")
-            check(math.isclose(rc[k], rg[k], rel_tol=1e-3),
-                  f"round {rc['round']} {k} agrees at rtol 1e-3")
+    compare_rounds(hists, dev, 1e-3)
+    done(t0)
+
+
+def profile_round(step, rounds: int, round_ms: float, top: int = 8):
+    """Device kernel time per round over ``rounds`` profiled rounds (kernel
+    events only; CPU-side aten events also carry their children's device
+    time) against the unprofiled round time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(rounds):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    if busy_ms <= 0:
+        print("  profiler recorded no device time: idle share not measured")
+        return None, None
+    idle = 1 - busy_ms / round_ms
+    print(f"  profiler: {busy_ms:.3f} ms of device kernel time per round"
+          f" ({sum(e.count for e in kernels) / rounds:.0f} kernels) -> device"
+          f" idle share {idle:.4f} of the {round_ms:.3f} ms round")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / rounds / 1e3:10.3f} ms/round "
+              f"{e.count / rounds:7.1f}x  {e.key[:80]}")
+    return busy_ms, idle
+
+
+def time_rounds(step, n: int):
+    per = []
+    for _ in range(n):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(per), per
+
+
+def record(name, launches, err, ms, eager, plain_ms, bytes_, ops, peak,
+           library_ms=None, **extra):
+    bytes_ms = bytes_ / HBM_BPS * 1e3
+    ops_ms = ops / peak * 1e3
+    return {"name": name, "route": "cuda", "source": CSRC + SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "eager_ms": eager,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_, "library_ms": library_ms, **extra}
+
+
+def print_record(r):
+    lib = "null" if r["library_ms"] is None \
+        else f"{r['library_ms'] * 1e3:.3f} us"
+    print(f"  {r['name']}: {r['ms'] * 1e3:.3f} us/launch on device (graph "
+          f"replay), {r['eager_ms'] * 1e3:.3f} us per wrapper call, plain "
+          f"{r['plain_ms'] * 1e3:.3f} us, bound {r['bound_ms'] * 1e3:.3f} us "
+          f"({r['bound_by']}), library {lib}")
 
 
 def phase_times(dev: torch.device, err, launches, tr, state, fed):
-    """Phase 6: kernel, plain-version and round times beside the bounds."""
-    phase("6 times (CUDA events, medians)")
+    """Phase 6: quantize kernel, plain-version and CNN round times beside
+    the bounds."""
+    t0 = phase("6 CNN times (CUDA events, medians)")
     n, r, c = N, B * 6 * 6, 64
     x, bits = payload(n, r, c, seed=7)
     xd, bd = x.to(dev), bits.to(dev)
@@ -342,7 +492,7 @@ def phase_times(dev: torch.device, err, launches, tr, state, fed):
     # fp32 per element: |x|, max, divide, u scale, add, floor, 2 clamps;
     # int32 per element: shift/mask of the bits and the store index, plus,
     # for Philox4x32-10, per 4 elements 10 rounds of 2 mulhi + 2 mullo +
-    # 4 xor + 2 key adds
+    # 4 xor + 2 key adds; expressed as fp32-rate operations
     fp_ops = 8 * elems
     int_ops = {"quantize_bits": 2 * elems,
                "quantize_philox": 2 * elems + (elems // 4) * 10 * 10}
@@ -351,73 +501,341 @@ def phase_times(dev: torch.device, err, launches, tr, state, fed):
     plain = {"quantize_bits": lambda: ref.quantize_2d(xd, bd),
              "quantize_philox": lambda: ref.quantize_2d(
                  xd, ref.philox_bits(seeds.cpu(), r, c).to(dev))}
-    replaces = {"quantize_bits": "src/repro/kernels/quantize.py:174",
-                "quantize_philox": "src/repro/kernels/quantize.py:162"}
     path_of = {"quantize_bits": "int8-deterministic",
                "quantize_philox": "int8"}
     records = []
     for name in ("quantize_bits", "quantize_philox"):
-        ms = graph_ms(run[name])
-        eager = event_ms(run[name])
-        plain_ms = event_ms(plain[name], reps=11, inner=10)
-        bytes_ms = io[name] / HBM_BPS * 1e3
-        ops_ms = (fp_ops / FP32_OPS + int_ops[name] / INT32_OPS) * 1e3
-        bound = max(bytes_ms, ops_ms)
-        records.append({
-            "name": name, "route": "cuda", "source": KERNEL_SRC,
-            "replaces": replaces[name],
-            "launches": launches[path_of[name]][name],
-            "launches_path": path_of[name],
-            "max_abs_err": err[name], "ms": ms, "eager_ms": eager,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": io[name], "library_ms": None})
-        print(f"  {name}: {ms * 1e3:.3f} us/launch on device (graph replay),"
-              f" {eager * 1e3:.3f} us per wrapper call, plain "
-              f"{plain_ms * 1e3:.3f} us, bound {bound * 1e3:.3f} us "
-              f"({records[-1]['bound_by']})")
+        ops = fp_ops + int_ops[name] * FP32_OPS / INT32_OPS
+        records.append(record(
+            name, launches[path_of[name]][name], err[name],
+            graph_ms(run[name]), event_ms(run[name]),
+            event_ms(plain[name], reps=11, inner=10), io[name], ops,
+            FP32_OPS, launches_path=path_of[name]))
+        print_record(records[-1])
 
     batch = tr.to_device(FederatedBatcher(fed, B, H, seed=1).next_round())
-    for _ in range(2):
-        state, _ = tr.step(state, batch, LR)
-    sync(dev)
-    per = []
-    for _ in range(7):
-        t = time.perf_counter()
-        state, m = tr.step(state, batch, LR)
-        state = tr.aggregate(state)
+    box = {"state": state}
+
+    def step():
+        st, m = tr.step(box["state"], batch, LR)
+        box["state"] = tr.aggregate(st)
         float(m["server_loss"])
-        sync(dev)
-        per.append((time.perf_counter() - t) * 1e3)
-    round_ms = statistics.median(per)
-    print(f"  main-path round (int8, n={N}, h={H}, B={B}, step + FedAvg, "
+
+    for _ in range(2):
+        step()
+    round_ms, per = time_rounds(step, 7)
+    print(f"  CNN round (int8, n={N}, h={H}, B={B}, step + FedAvg, "
           f"host clock after synchronize): median {round_ms:.3f} ms of "
           f"{[round(p, 3) for p in per]}")
-
-    # where the time goes: device kernel time per round (kernel events
-    # only; CPU-side aten events also carry their children's device time)
-    # against the unprofiled round time above
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            state, m = tr.step(state, batch, LR)
-            state = tr.aggregate(state)
-        sync(dev)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
-    if busy_ms > 0:
-        print(f"  profiler: {busy_ms:.3f} ms of device kernel time per round"
-              f" ({sum(e.count for e in kernels) / 3:.0f} kernels) -> device"
-              f" idle share {1 - busy_ms / round_ms:.4f} of the {round_ms:.3f}"
-              " ms round")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"    {e.self_device_time_total / 3e3:8.3f} ms/round "
-                  f"{e.count / 3:6.1f}x  {e.key[:80]}")
-    else:
-        print("  profiler recorded no device time: idle share not measured")
+    profile_round(step, 3, round_ms)
+    done(t0)
     return records, round_ms
+
+
+# ---------------------------------------------------------------------------
+# The LM path: full-width Qwen3-0.6B
+# ---------------------------------------------------------------------------
+
+
+def ce_inputs(g, t, d, v, dtype, seed, dev):
+    """x ~ N(0, 1), w ~ N(0, 1/d) (the head's init scale), random labels,
+    per-group loss cotangents g in [0.5, 1.5]."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((g, t, d), generator=gen).to(dtype)
+    w = (torch.randn((g, d, v), generator=gen) * d ** -0.5).to(dtype)
+    lab = torch.randint(0, v, (g, t), generator=gen).to(torch.int32)
+    gs = torch.linspace(0.5, 1.5, g) if g > 1 else torch.ones(1)
+    return [a.to(dev) for a in (x, w, lab, gs)]
+
+
+def swa_inputs(b, s, h, kh, hd, dtype, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, s, n, hd), generator=gen).to(dtype).to(dev)
+            for n in (h, kh, kh)]
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor, ulps: int = 2) -> bool:
+    """|a - b| within ``ulps`` bf16 ulps of max|b|."""
+    m = float(b.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+    return diff(a, b) <= ulps * ulp
+
+
+def worst_ratio(got: torch.Tensor, want: torch.Tensor,
+                bound: torch.Tensor) -> float:
+    """max over elements of |got - want| / bound (<= 1 passes)."""
+    return float(((got.float() - want).abs_() / bound).max())
+
+
+def ce_abs_grads(x, w, lab, lse, gs):
+    """fp32 ``(|P| |w|^T, |x|^T |P|)`` per element, P as the kernels
+    recompute it: rounding every entry of P to bf16 moves dx and dw by at
+    most 2^-8 of these."""
+    wf = w.float()
+    wa = wf.abs().transpose(1, 2)
+    adx = []
+    adw = torch.zeros(wf.shape, dtype=torch.float32, device=w.device)
+    for xc, p in ref._ce_p(x, wf, lab, lse, gs):
+        p.abs_()
+        adx.append(p @ wa)
+        adw += xc.abs().transpose(1, 2) @ p
+    return {"fused_ce_dx": torch.cat(adx, 1), "fused_ce_dw": adw}
+
+
+def phase_lm_kernels(dev):
+    """Phase 7: K3/K4a/K4b/K6 against their plain versions on the card.
+    Returns the largest difference seen per kernel.
+
+    Each case first meets the tolerance of tests/test_kernels.py.  bf16
+    cases then meet a bound per element against the plain version in fp32
+    on the same inputs, tight enough that the small terms (the softmax part
+    of the CE gradients, one kv tile of a window) must be right:
+    * K3: lse and picked within 1e-4.  Both sum exact products of the bf16
+      inputs in fp32, so only the order of summation separates them; one
+      64-column vocab tile left out moves lse by about 64/V, >= 4e-4 here.
+    * K4a/K4b: |got - plain| <= 2^-7 (|plain| + |P||w|^T) for dx and
+      2^-7 (|plain| + |x|^T|P|) for dw.  The kernels round P to bf16 and
+      their output to bf16, each at most 2^-8 of those; the bound allows
+      twice that.  In a dw column no label lands in (all but ~4,000 of
+      the 151,936) the softmax part is the whole value, and in dx it is
+      larger than 2^-7 of the one-hot part for most elements.
+    * K6: |got - plain| <= 2^-7 |plain| + 2^-12 sum_k p|v|.  The kernel
+      differs from the fp32 plain by its bf16 output rounding (<= 2^-8) and
+      fp32 summation order (~1e-6 of sum p|v|); at W = 4096 one 64-key tile
+      left out moves outputs by ~2e-3 against a bound of ~4e-4."""
+    t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
+    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "swa_attention": 0.0}
+    for k, ((g, t, d, v), dtype) in enumerate(CE_CASES):
+        x, w, lab, gs = ce_inputs(g, t, d, v, dtype, k, dev)
+        tag = f"[{g}, {t}, {d}, {v}] {str(dtype)[6:]}"
+        lse, picked = ce.fused_ce_fwd(x, w, lab)
+        plse, ppicked = ref.fused_ce_fwd(x, w, lab)
+        sync(dev)
+        # tests/test_kernels.py: fp32 1e-5; bf16 2e-3
+        tol = 1e-5 if dtype == torch.float32 else 2e-3
+        e = max(diff(lse, plse), diff(picked, ppicked))
+        err["fused_ce_fwd"] = max(err["fused_ce_fwd"], e)
+        check(torch.allclose(lse, plse, rtol=tol, atol=tol)
+              and torch.allclose(picked, ppicked, rtol=tol, atol=tol),
+              f"fused_ce_fwd {tag} == plain at {tol:g} (max |diff| {e:.3g})")
+        if dtype == torch.bfloat16:
+            check(e <= 1e-4, f"fused_ce_fwd {tag} lse, picked within 1e-4 "
+                  f"(max |diff| {e:.3g})")
+        absg = ce_abs_grads(x, w, lab, plse, gs) \
+            if dtype == torch.bfloat16 else None
+        for name in ("fused_ce_dx", "fused_ce_dw"):
+            got = getattr(ce, name)(x, w, lab, plse, gs)
+            want = getattr(ref, name)(x, w, lab, plse, gs)
+            sync(dev)
+            e = diff(got, want)
+            err[name] = max(err[name], e)
+            if dtype == torch.float32:       # tests/test_kernels.py grads
+                ok, how = torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+                    "rtol 1e-4 atol 1e-5"
+            else:
+                ok, how = bf16_ulps(got, want), "2 bf16 ulps of max|plain|"
+            check(ok and got.dtype == want.dtype,
+                  f"{name} {tag} == plain within {how} (max |diff| {e:.3g})")
+            if dtype == torch.bfloat16:
+                del want
+                want = getattr(ref, name)(x.float(), w.float(), lab, plse, gs)
+                bound = absg.pop(name).add_(want.abs()).mul_(2.0 ** -7)
+                r = worst_ratio(got, want, bound)
+                check(r <= 1.0, f"{name} {tag} per element within 2^-7 "
+                      f"(|plain fp32| + |P| products) (worst |diff|/bound "
+                      f"{r:.3g})")
+                del bound
+            del got, want
+        del x, w, lab, lse, picked, plse, ppicked
+        torch.cuda.empty_cache()
+    for k, ((b, s, h, kh, hd, win), dtype) in enumerate(SWA_CASES):
+        q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 100 + k, dev)
+        got = swa.swa_attention_fwd(q, kk, vv, win)
+        want = ref.swa_attention(q, kk, vv, win)
+        sync(dev)
+        tol = 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels
+        e = diff(got, want)
+        err["swa_attention"] = max(err["swa_attention"], e)
+        tag = f"[{b}, {s}, {h}, {kh}, {hd}] W={win} {str(dtype)[6:]}"
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"swa_attention {tag} == plain at {tol:g} (max |diff| {e:.3g})")
+        if dtype == torch.bfloat16:
+            del want
+            want = ref.swa_attention(q.float(), kk, vv, win)
+            bound = ref.swa_attention(q.float(), kk, vv.abs(), win)
+            bound.mul_(2.0 ** -12).add_(want.abs(), alpha=2.0 ** -7)
+            r = worst_ratio(got, want, bound)
+            check(r <= 1.0, f"swa_attention {tag} per element within "
+                  f"2^-7 |plain fp32| + 2^-12 sum p|v| (worst |diff|/bound "
+                  f"{r:.3g})")
+            del bound
+        del q, kk, vv, got, want
+        torch.cuda.empty_cache()
+    done(t0)
+    return err
+
+
+def lm_cfg():
+    return get_config("qwen3-0.6b").with_(use_pallas=True)
+
+
+def phase_lm_main(dev):
+    """Phase 8: CSE-FSL on full-width Qwen3-0.6B through Trainer.run."""
+    t0 = phase("8 LM main path: CSE-FSL, Qwen3-0.6B full width, bf16, "
+               "kernels on, Trainer.run")
+    cfg = lm_cfg()
+    bundle = transformer_bundle(cfg, device=dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8")
+    fed = build_data(cfg, fsl, LM_S, LM_SAMPLES, non_iid=False, seed=0)
+    cm = cost_model(bundle, LM_N, LM_SAMPLES)
+    tr = Trainer(bundle, fsl)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist, meter, launches, per_round = drive(
+        tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
+        "qwen3-0.6b int8", LM_ROUNDS, LM_B)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cut = cfg.resolved_cut
+    heads = LM_H + LM_N                 # h client steps (vmapped) + n server
+    want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
+                fused_ce_dw=heads,
+                swa_attention=cut * (LM_H + 1)
+                + (cfg.num_layers - cut) * LM_N)
+    for i, c in enumerate(per_round):
+        check(c == want, f"round {i + 1} launches {c} == {want}")
+    wire = LM_S * cfg.d_model + (LM_S // 8) * (cfg.d_model // 128) * 4
+    check(wire == 4_210_688 and meter.counts["uplink_smashed"]
+          == LM_ROUNDS * LM_N * wire,
+          f"int8 uplink = {LM_ROUNDS} rounds x {LM_N} clients x 4,210,688 B "
+          f"(raw bf16 {LM_S * cfg.d_model * 2:,} B)")
+    print(f"  peak device memory over the run: {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    done(t0)
+    return tr, state, fed, launches, peak
+
+
+def phase_lm_cpu_vs(dev):
+    """Phase 9: reduced Qwen3 in fp32, 2 rounds on the CPU (plain versions)
+    and on the card (kernels)."""
+    t0 = phase("9 LM CPU vs card: reduced Qwen3, fp32, 2 rounds")
+    cfg = get_config("qwen3-0.6b").reduced().with_(
+        dtype="float32", use_pallas=True, swa_window=64)
+    fsl = FSLConfig(num_clients=2, h=2, lr=0.1, codec="int8")
+    fed = build_data(cfg, fsl, 256, 4, non_iid=False, seed=0)
+    hists, runs = {}, {}
+    for d in ("cpu", dev):
+        tr = Trainer(transformer_bundle(cfg, device=d), fsl)
+        reset_counts()
+        _, hists[str(d)] = tr.run(tr.init(0), LMBatcher(cfg, fed, 1, 2), 2,
+                                  log_every=1)
+        sync(d)
+        runs[str(d)] = counts()
+    check(sum(runs["cpu"].values()) == 0, "CPU run launched no kernel")
+    check(all(runs[str(dev)][k] > 0 for k in REPLACES
+              if k != "quantize_bits"),
+          f"card run launched every LM kernel: {runs[str(dev)]}")
+    compare_rounds(hists, dev, 1e-3)
+    done(t0)
+
+
+def phase_lm_times(dev, err, launches, tr, state, fed, peak):
+    """Phase 10: K3/K4a/K4b/K6 and a main-path round, timed."""
+    t0 = phase("10 LM times (CUDA events, medians)")
+    records = []
+    big = dict(reps=5, inner=2)
+    for tag, (g, t, d, v) in (("server", (1, LM_S, 1024, 151936)),
+                              ("aux", (LM_N, LM_S, 128, 151936))):
+        x, w, lab, gs = ce_inputs(g, t, d, v, torch.bfloat16, 7, dev)
+        lse, _ = ce.fused_ce_fwd(x, w, lab)
+        io_in = 2 * (g * t * d + g * d * v) + 4 * g * t
+        mm = 2 * g * t * d * v
+        work = {"fused_ce_fwd": (io_in + 8 * g * t, mm),
+                "fused_ce_dx": (io_in + 4 * g * t + 4 * g + 2 * g * t * d,
+                                2 * mm),
+                "fused_ce_dw": (io_in + 4 * g * t + 4 * g + 2 * g * d * v,
+                                2 * mm)}
+        run = {"fused_ce_fwd": lambda: ce.fused_ce_fwd(x, w, lab),
+               "fused_ce_dx": lambda: ce.fused_ce_dx(x, w, lab, lse, gs),
+               "fused_ce_dw": lambda: ce.fused_ce_dw(x, w, lab, lse, gs)}
+        plain = {"fused_ce_fwd": lambda: ref.fused_ce_fwd(x, w, lab),
+                 "fused_ce_dx": lambda: ref.fused_ce_dx(x, w, lab, lse, gs),
+                 "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs)}
+        xent = event_ms(lambda: torch.nn.functional.cross_entropy(
+            (x[0] @ w[0]).float(), lab[0].long()), reps=5, inner=2, warm=1)
+        print(f"  {tag} head [{g}, {t}, {d}] x [{d}, {v}]: for scale, "
+              f"cross_entropy(x @ w) of group 0 (logits in memory) "
+              f"{xent * 1e3:.3f} us")
+        for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+            rec = record(name, launches[name], err[name],
+                         graph_ms(run[name], **big),
+                         event_ms(run[name], **big),
+                         event_ms(plain[name], reps=3, inner=1, warm=1),
+                         *work[name], BF16_OPS, shape=[g, t, d, v],
+                         xent_group0_ms=xent)
+            print(f"  [{tag}]", end="")
+            print_record(rec)
+            if tag == "server":
+                records.append(rec)
+            else:
+                records[[r["name"] for r in records].index(name)]["aux"] = {
+                    k: rec[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+        del x, w, lab, gs, lse
+        torch.cuda.empty_cache()
+
+    for tag, (b, s) in (("server", (1, LM_S)), ("client", (LM_N, LM_S))):
+        hh, kh, hd, win = 16, 8, 128, 4096
+        q, k, v = swa_inputs(b, s, hh, kh, hd, torch.bfloat16, 9, dev)
+        pairs = sum(min(i + 1, win) for i in range(s))
+        flops = 4 * hd * hh * b * pairs
+        io = 2 * (2 * q.numel() + 2 * k.numel())
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - win)
+        lib = event_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band, enable_gqa=True), reps=5, inner=3,
+            warm=2)
+        rec = record("swa_attention", launches["swa_attention"],
+                     err["swa_attention"],
+                     graph_ms(lambda: swa.swa_attention_fwd(q, k, v, win),
+                              reps=5, inner=5),
+                     event_ms(lambda: swa.swa_attention_fwd(q, k, v, win),
+                              reps=5, inner=5),
+                     event_ms(lambda: ref.swa_attention(q, k, v, win),
+                              reps=3, inner=1, warm=1),
+                     io, flops, BF16_OPS, library_ms=lib,
+                     shape=[b, s, hh, kh, hd, win])
+        print(f"  [{tag}]", end="")
+        print_record(rec)
+        if tag == "server":
+            records.append(rec)
+        else:
+            records[-1]["client"] = {k_: rec[k_] for k_ in (
+                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                "library_ms")}
+        del q, k, v, qt, kt, vt, band
+        torch.cuda.empty_cache()
+
+    batch = tr.to_device(LMBatcher(lm_cfg(), fed, LM_B, LM_H,
+                                   seed=1).next_round())
+    box = {"state": state}
+
+    def step():
+        st, m = tr.step(box["state"], batch, LM_LR)
+        box["state"] = tr.aggregate(st)
+        float(m["server_loss"])
+
+    step()
+    round_ms, per = time_rounds(step, 3)
+    print(f"  LM round (int8, n={LM_N}, h={LM_H}, B={LM_B}, S={LM_S}, step + "
+          f"FedAvg, host clock after synchronize): median {round_ms:.3f} ms "
+          f"of {[round(p, 3) for p in per]}")
+    busy, idle = profile_round(step, 1, round_ms, top=12)
+    done(t0)
+    return records, {"round_ms": round_ms, "rounds_ms": per,
+                     "device_ms": busy, "idle_share": idle,
+                     "peak_bytes": peak}
 
 
 def main() -> int:
@@ -425,6 +843,7 @@ def main() -> int:
         print("no CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = phase_device()
     phase_build()
@@ -432,9 +851,16 @@ def main() -> int:
     launches, tr, state, fed = phase_main(dev)
     phase_cpu_vs(dev, fed)
     records, round_ms = phase_times(dev, err, launches, tr, state, fed)
+    del tr, state
+    lm_err = phase_lm_kernels(dev)
+    ltr, lstate, lfed, llaunches, peak = phase_lm_main(dev)
+    phase_lm_cpu_vs(dev)
+    lm_records, lm = phase_lm_times(dev, lm_err, llaunches, ltr, lstate,
+                                    lfed, peak)
+    print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
-    print(json.dumps({"kernels": records, "round_ms": round_ms,
-                      "card": card}))
+    print(json.dumps({"kernels": records + lm_records, "round_ms": round_ms,
+                      "lm": lm, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,21 @@
-"""Shared utilities: device resolution and helpers over nested dict/tuple
-trees of tensors (the port's counterpart of JAX pytrees)."""
+"""Shared utilities: dtypes, device resolution and helpers over nested
+dict/tuple trees of tensors (the port's counterpart of JAX pytrees)."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+
+DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "int8": torch.int8,
+}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
 
 
 def resolve_device(device) -> torch.device:

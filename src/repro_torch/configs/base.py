@@ -1,12 +1,83 @@
-"""FSL protocol config (the paper's knobs), mirroring ``repro.configs.base``.
+"""Config schema, mirroring ``repro.configs.base``: the transformer
+``ModelConfig`` and the FSL protocol config (the paper's knobs).
 
-Only the fields this port reads are here: ``unroll`` (a JAX scan knob),
-``grad_clip`` (read only by FSL_OC) and ``model_codec`` (the model-sync
-wire) come with the parts of the port that use them.
+Only the fields this port reads are here.  ``ModelConfig`` carries the
+dense family's fields; MoE, SSM, hybrid and modality fields come with the
+slices that port those families.  ``remat`` is left out: activation
+checkpointing (``torch.utils.checkpoint``) does not compose with the
+``torch.func.grad`` of the client phase, so the port runs without it.  ``unroll`` and ``dryrun_unroll`` (JAX
+scan knobs), ``grad_clip`` (read only by FSL_OC) and ``model_codec`` (the
+model-sync wire) come with the parts of the port that use them.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+
+FAMILIES = ("dense",)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # one of FAMILIES
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0               # 0 -> d_model // num_heads
+    citation: str = ""
+
+    # attention options
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    encoder_only: bool = False
+    swa_window: int = 0             # 0 = full attention; >0 = sliding window
+
+    # split-learning structure
+    cut_layer: int = 0              # 0 -> default max(1, num_layers // 8)
+    aux_kind: str = "lowrank"       # lowrank | mlp
+    aux_rank: int = 128
+
+    # numerics
+    dtype: str = "float32"          # activation / param dtype
+    use_pallas: bool = False        # route hot spots through the kernels
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise NotImplementedError(
+                f"family {self.family!r} is not ported yet (have {FAMILIES})")
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def resolved_cut(self) -> int:
+        if self.cut_layer:
+            return self.cut_layer
+        return max(1, self.num_layers // 8)
+
+    def with_(self, **kw) -> "ModelConfig":
+        return replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model<=256 (the reference's
+        ``reduced`` on the dense family)."""
+        d = min(self.d_model, 256)
+        heads = min(self.num_heads, 4)
+        kv = min(self.num_kv_heads, heads)
+        if self.num_kv_heads < self.num_heads:   # keep GQA nontrivial
+            kv = max(1, heads // 2)
+        return self.with_(
+            num_layers=2, d_model=d, num_heads=heads, num_kv_heads=kv,
+            head_dim=0, d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512), cut_layer=1,
+            aux_rank=min(self.aux_rank, 32))
 
 
 @dataclass(frozen=True)

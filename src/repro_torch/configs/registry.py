@@ -1,0 +1,21 @@
+"""Registry of the architectures the port runs (``repro.configs.registry``).
+
+``get_config(name)`` returns the full-size ModelConfig;
+``get_config(name).reduced()`` is the CPU smoke variant.  The other
+families join as their slices are ported.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import qwen3_0_6b
+
+ARCHS = {
+    "qwen3-0.6b": qwen3_0_6b.CONFIG,
+}
+
+
+def get_config(name: str):
+    return ARCHS[name]
+
+
+def arch_names():
+    return list(ARCHS)

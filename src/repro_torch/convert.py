@@ -1,11 +1,16 @@
 """Weights across: the JAX package's state as numpy arrays <-> the port's.
 
-The reference keeps conv weights HWIO and dense weights ``[din, dout]``
-under ``{layer: {"w", "b"}}``; the port keeps ``nn.Module`` layouts —
-conv ``weight`` OIHW, ``nn.Linear`` ``weight`` ``[dout, din]`` — under
-``{"layer.weight", "layer.bias"}``.  The smashed tensor is NHWC in both,
-so dense weights need only the transpose.  A leading stacked-client dim,
-where present, is carried through.
+CNN params: the reference keeps conv weights HWIO and dense weights
+``[din, dout]`` under ``{layer: {"w", "b"}}``; the port keeps
+``nn.Module`` layouts — conv ``weight`` OIHW, ``nn.Linear`` ``weight``
+``[dout, din]`` — under ``{"layer.weight", "layer.bias"}``.  The smashed
+tensor is NHWC in both, so dense weights need only the transpose.
+
+Transformer params keep the reference's tree, its ``[din, dout]`` weights
+and its stacked ``[L, ...]`` layer axis, so they cross leaf for leaf; only
+the dtype moves (numpy has no bf16: ``ml_dtypes`` bf16 arrays cross as
+their uint16 bit patterns).  A leading stacked-client dim, where present,
+is carried through.
 
 Reference state (``repro`` ``Trainer.init``) -> port state::
 
@@ -24,6 +29,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.common import tree_map
 
 _CLIENT_KEYS = (("params", "client"), ("aux", "aux"))   # reference, port
 
@@ -61,6 +68,49 @@ def _layers_to_numpy(params: Dict[str, torch.Tensor]):
     return out
 
 
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A numpy array (``ml_dtypes`` bf16 included) as a tensor, bit for
+    bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of :func:`tensor_from_numpy` (bf16 -> ``ml_dtypes``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _is_cnn(params, port: bool) -> bool:
+    """A CNN parameter dict: ``{layer: {"w", "b"}}`` (reference) or
+    ``{"layer.weight": ...}`` (port); anything else is a transformer tree."""
+    if not isinstance(params, dict) or not params:
+        return False
+    if port:
+        return all("." in k and isinstance(v, torch.Tensor)
+                   for k, v in params.items())
+    return all(isinstance(v, dict) and set(v) == {"w", "b"}
+               for v in params.values())
+
+
+def _from_numpy(params, device):
+    if _is_cnn(params, port=False):
+        return _layers_from_numpy(params, device)
+    return tree_map(lambda a: tensor_from_numpy(a, device), params)
+
+
+def _to_numpy(params):
+    if _is_cnn(params, port=True):
+        return _layers_to_numpy(params)
+    return tree_map(tensor_to_numpy, params)
+
+
 def _opt_from_numpy(opt, convert_params, device):
     if isinstance(opt, (tuple, list)) and len(opt) == 0:
         return ()
@@ -83,11 +133,10 @@ def state_from_numpy(tree, device="cuda") -> Dict[str, Any]:
     """The reference ``Trainer.init`` state (as numpy arrays) -> the port's
     state on ``device``."""
     def client(p):
-        return {pk: _layers_from_numpy(p[rk], device)
-                for rk, pk in _CLIENT_KEYS}
+        return {pk: _from_numpy(p[rk], device) for rk, pk in _CLIENT_KEYS}
 
     def server(p):
-        return _layers_from_numpy(p, device)
+        return _from_numpy(p, device)
 
     cl, sv = tree["clients"], tree["server"]
     return {
@@ -102,14 +151,14 @@ def state_from_numpy(tree, device="cuda") -> Dict[str, Any]:
 def state_to_numpy(state) -> Dict[str, Any]:
     """Inverse of :func:`state_from_numpy`, in the reference's layout."""
     def client(p):
-        return {rk: _layers_to_numpy(p[pk]) for rk, pk in _CLIENT_KEYS}
+        return {rk: _to_numpy(p[pk]) for rk, pk in _CLIENT_KEYS}
 
     cl, sv = state["clients"], state["server"]
     return {
         "clients": {"params": client(cl["params"]),
                     "opt": _opt_to_numpy(cl["opt"], client)},
-        "server": {"params": _layers_to_numpy(sv["params"]),
-                   "opt": _opt_to_numpy(sv["opt"], _layers_to_numpy)},
+        "server": {"params": _to_numpy(sv["params"]),
+                   "opt": _opt_to_numpy(sv["opt"], _to_numpy)},
         "round": np.int32(state["round"]),
     }
 
@@ -117,9 +166,9 @@ def state_to_numpy(state) -> Dict[str, Any]:
 def params_from_numpy(params, device="cuda") -> Dict[str, Any]:
     """Reference ``bundle.init`` params ``{"client", "aux", "server"}`` (or
     a gradient of them) -> the port's parameter dicts."""
-    return {k: _layers_from_numpy(v, device) for k, v in params.items()}
+    return {k: _from_numpy(v, device) for k, v in params.items()}
 
 
 def params_to_numpy(params) -> Dict[str, Any]:
     """Inverse of :func:`params_from_numpy`."""
-    return {k: _layers_to_numpy(v) for k, v in params.items()}
+    return {k: _to_numpy(v) for k, v in params.items()}

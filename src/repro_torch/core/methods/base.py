@@ -210,9 +210,9 @@ class FSLMethod:
         opt_init, _ = make_optimizer(fsl.optimizer)
         cslice = {"clients": {"params": params, "opt": opt_init(params)}}
         drop = 1 if hooks.unit_has_h_axis else 2            # [n,(h,)B,...]
-        unit = tuple(torch.empty(tuple(x.shape[drop:]),
-                                 dtype=torch.as_tensor(x).dtype,
-                                 device="meta") for x in batch)
+        unit = tree_map(lambda x: torch.empty(
+            tuple(x.shape[drop:]), dtype=torch.as_tensor(x).dtype,
+            device="meta"), tuple(batch))
         _, upload, _, _ = hooks.client_compute(cslice, unit, 0.0)
         return upload, None
 

@@ -23,6 +23,7 @@ from typing import Any, Dict
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.common import tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.bundle import SplitModelBundle
 from repro_torch.core.methods.base import (AsyncHooks, FSLMethod,
@@ -66,15 +67,17 @@ def make_client_round(bundle: SplitModelBundle, fsl: FSLConfig):
         inputs, labels = cbatch
         params, opt = cstate["params"], cstate["opt"]
         losses = []
-        for k in range(inputs.shape[0]):
+        for k in range(labels.shape[0]):
+            binputs = tree_map(lambda x: x[k], inputs)
             grads, (loss, _) = grad_and_value(
                 lambda pr: bundle.client_loss(pr["client"], pr["aux"],
-                                              inputs[k], labels[k]),
+                                              binputs, labels[k]),
                 has_aux=True)(params)
             params, opt = opt_update(grads, opt, params, lr)
             losses.append(loss)
         # Alg.1 line 9: smashed data of the last batch with *updated* weights
-        smashed = bundle.client_smashed(params["client"], inputs[-1])
+        smashed = bundle.client_smashed(params["client"],
+                                        tree_map(lambda x: x[-1], inputs))
         return ({"params": params, "opt": opt}, smashed, labels[-1],
                 torch.stack(losses).mean())
 

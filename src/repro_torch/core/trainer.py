@@ -12,8 +12,9 @@ aggregation cadence (C), callbacks / history, and — given a
 :class:`CommProfile`.  ``run`` is the per-round loop: one round step per
 round, eagerly, with the round's batch moved to the device first.
 
-``batcher.next_round()`` must yield ``(inputs, labels)`` arrays with
-leading dims ``[n_clients, h, B, ...]``.
+``batcher.next_round()`` must yield ``(inputs, labels)`` with leading dims
+``[n_clients, h, B, ...]``; ``inputs`` is an array or a tree of them
+(``{"tokens": ...}`` for transformers).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Optional, Union
 
 import torch
 
+from repro_torch.common import tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CommMeter, CostModel
 from repro_torch.core.bundle import SplitModelBundle
@@ -82,9 +84,10 @@ class Trainer:
         return self.fsl.lr * self.fsl.lr_decay ** steps
 
     def to_device(self, batch):
-        """A round batch (numpy arrays or tensors) as tensors on the
-        device; labels keep their int32 wire dtype."""
-        return tuple(torch.as_tensor(x).to(self.device) for x in batch)
+        """A round batch (a tuple of trees of numpy arrays or tensors) as
+        tensors on the device; labels keep their int32 wire dtype."""
+        return tuple(tree_map(lambda x: torch.as_tensor(x).to(self.device),
+                              batch))
 
     def step(self, state, batch, lr: Optional[float] = None, *,
              rnd: Optional[int] = None):

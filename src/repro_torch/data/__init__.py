@@ -1,4 +1,5 @@
-"""Data pipeline: synthetic classification data + federated partitioner.
+"""Data pipeline: synthetic classification and language-model data +
+federated partitioner.
 
 A numpy copy of ``repro.data`` (the reference package is not imported):
 for the same seeds it yields the same samples and the same per-round
@@ -42,6 +43,29 @@ def synthetic_classification(num_samples: int, input_shape: Tuple[int, ...],
     x = rng.normal(size=(num_samples, d)).astype(np.float32)
     x += signal * templates[y]
     return x.reshape((num_samples,) + tuple(input_shape)), y
+
+
+def synthetic_lm(num_samples: int, seq_len: int, vocab: int, seed: int = 0,
+                 order: int = 1):
+    """Token sequences from a sparse random order-``order`` Markov chain.
+
+    With probability 0.8 the next token is a fixed permutation of a mix of
+    the previous token and the token ``order`` steps back, so next-token
+    prediction is learnable above chance.  Returns ``(x, y)`` int32
+    ``[num_samples, seq_len - 1]``, ``y`` the next tokens of ``x``.
+    """
+    if order < 1:
+        raise ValueError(f"order must be >= 1, got {order}")
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(vocab)
+    toks = rng.integers(0, vocab, size=(num_samples, seq_len)).astype(np.int32)
+    for t in range(1, seq_len):
+        follow = rng.random(size=num_samples) < 0.8
+        ctx = toks[follow, t - 1]
+        if order > 1:
+            ctx = (ctx + toks[follow, t - min(order, t)]) % vocab
+        toks[follow, t] = perm[ctx]
+    return toks[:, :-1], toks[:, 1:]
 
 
 def partition_iid(x, y, num_clients: int, seed: int = 0) -> FederatedData:

@@ -1,5 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
+``fused_ce*`` (the LM-head cross-entropy, K3/K4a/K4b) and
+``swa_attention`` (K6) compute with materialized fp32 logits and scores, as
+``repro.kernels.ref`` does; ``fused_ce_fwd``/``fused_ce_bwd`` have the CUDA
+kernels' grouped signatures and ``swa_attention_bwd`` is the backward every
+device runs (the JAX package has no backward kernel for K6 either).
+
 ``quantize_2d`` repeats the per-tile quantizer's arithmetic step for step
 (``repro.kernels.ref.quantize_2d``): given the same uint32 random bits it
 gives the same bytes as the JAX package's kernel and as the CUDA kernels in
@@ -12,6 +18,8 @@ Random bits are carried as uint32 bit patterns in ``torch.int32`` tensors
 (the dtype every backend supports); arithmetic on them widens to int64.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -152,3 +160,136 @@ def philox_bits(seeds, r: int, c: int) -> torch.Tensor:
     w = w.reshape(-1, nr * BT, nc * BC)[:, :r, :c]
     w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
     return w.reshape(tuple(lead) + (r, c))
+
+
+# ---------------------------------------------------------------------------
+# Fused linear + cross entropy (the aux / server LM-head loss)
+# ---------------------------------------------------------------------------
+
+CE_ROWS = 512      # rows per chunk of the grouped versions: bounds [G,rows,V]
+
+
+def fused_ce(x, w, labels):
+    """Mean CE of softmax(x @ w) against labels.  x: [T,d]; w: [d,V];
+    labels: [T] -> fp32 scalar."""
+    logits = x.float() @ w.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[:, None])[:, 0]
+    return (lse - picked).mean()
+
+
+def fused_ce_grads(x, w, labels, g=1.0):
+    """(dx, dw) of ``g * fused_ce``, in x's and w's dtypes."""
+    t = x.shape[0]
+    logits = x.float() @ w.float()
+    p = torch.softmax(logits, dim=-1)
+    p = p - F.one_hot(labels.long(), w.shape[1]).float()
+    p = p * (g / t)
+    return (p @ w.float().T).to(x.dtype), (x.float().T @ p).to(w.dtype)
+
+
+def fused_ce_fwd(x, w, labels):
+    """Per-row ``(lse, picked)`` fp32 ``[G, T]`` of the logits ``x @ w``.
+    x: [G,T,d]; w: [G,d,V]; labels: [G,T] int."""
+    wf = w.float()
+    lse, picked = [], []
+    for i in range(0, x.shape[1], CE_ROWS):
+        logits = x[:, i:i + CE_ROWS].float() @ wf
+        lse.append(torch.logsumexp(logits, dim=-1))
+        picked.append(logits.gather(
+            -1, labels[:, i:i + CE_ROWS].long()[..., None])[..., 0])
+    return torch.cat(lse, 1), torch.cat(picked, 1)
+
+
+def _ce_p(x, wf, labels, lse, g):
+    """``(rows, x chunk, P chunk)`` over row chunks, fp32, with
+    ``P = (exp(x @ w - lse) - onehot(labels)) * g / T``."""
+    t, v = x.shape[1], wf.shape[2]
+    scale = (g.float() / t)[:, None, None]
+    cols = torch.arange(v, device=x.device)
+    for i in range(0, t, CE_ROWS):
+        xc = x[:, i:i + CE_ROWS].float()
+        p = torch.exp(xc @ wf - lse[:, i:i + CE_ROWS, None])
+        hit = cols == labels[:, i:i + CE_ROWS, None].long()
+        yield xc, torch.where(hit, p - 1.0, p) * scale
+
+
+def fused_ce_dx(x, w, labels, lse, g):
+    """``dx = P w^T`` in x's dtype (K4a)."""
+    wf = w.float()
+    return torch.cat([p @ wf.transpose(1, 2)
+                      for _, p in _ce_p(x, wf, labels, lse, g)], 1).to(x.dtype)
+
+
+def fused_ce_dw(x, w, labels, lse, g):
+    """``dw = x^T P`` in w's dtype (K4b)."""
+    wf = w.float()
+    dw = torch.zeros(wf.shape, dtype=torch.float32, device=w.device)
+    for xc, p in _ce_p(x, wf, labels, lse, g):
+        dw = dw + xc.transpose(1, 2) @ p
+    return dw.to(w.dtype)
+
+
+def fused_ce_bwd(x, w, labels, lse, g):
+    """``(dx, dw)`` of ``g[G] * mean_t CE`` from the saved per-row ``lse``,
+    in x's and w's dtypes."""
+    return (fused_ce_dx(x, w, labels, lse, g),
+            fused_ce_dw(x, w, labels, lse, g))
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window causal attention
+# ---------------------------------------------------------------------------
+
+
+def _swa_probs(q, k, window: int):
+    """Softmax weights ``[B,H,S,S]`` fp32 of causal attention restricted to
+    the trailing ``window`` positions (0 = no window)."""
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores.mul_(1.0 / math.sqrt(hd))
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > qp - window
+    return torch.softmax(scores.masked_fill_(~mask, float("-inf")), dim=-1)
+
+
+def swa_attention(q, k, v, window: int):
+    """Materialized-scores reference.  q: [B,S,H,hd]; k,v: [B,S,KH,hd] ->
+    [B,S,H,hd] in q's dtype."""
+    rep = q.shape[2] // k.shape[2]
+    v = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    wts = _swa_probs(q, k, window)
+    return torch.einsum("bhqk,bkhd->bqhd", wts, v.float()).to(q.dtype)
+
+
+def swa_attention_bwd(q, k, v, g, window: int):
+    """``(dq, dk, dv)`` of :func:`swa_attention` for the output cotangent
+    ``g``, recomputed in fp32 from q, k, v: ``dV = P^T g``,
+    ``dS = P (dP - rowsum(g o))`` with ``dP = g V^T`` (``rowsum(dP P)`` is
+    ``rowsum(g o)``), ``dQ = dS K / sqrt(hd)``, ``dK = dS^T Q / sqrt(hd)``,
+    with the GQA groups summed onto their kv head.  Updates its own
+    ``[B,H,S,S]`` temporaries in place, so it runs outside autograd."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    rep = h // kh
+    kr = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+    vr = (v.repeat_interleave(rep, dim=2) if rep > 1 else v).float()
+    p = _swa_probs(q, k, window)                          # [B,H,S,S]
+    gf = g.float()
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr)
+    delta = (gf * o).sum(-1).transpose(1, 2)[..., None]   # [B,H,S,1]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    ds = torch.einsum("bqhd,bkhd->bhqk", gf, vr)          # dP
+    ds.sub_(delta).mul_(p).mul_(1.0 / math.sqrt(hd))
+    del p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    if rep > 1:
+        dk = dk.reshape(b, s, kh, rep, hd).sum(3)
+        dv = dv.reshape(b, s, kh, rep, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,0 +1,67 @@
+"""Causal sliding-window attention, forward: wrapper of the CUDA kernel in
+``csrc/swa_attention.cu`` (port of the JAX package's Pallas kernel
+``repro.kernels.swa_attention``, K6).
+
+q ``[B, S, H, hd]``, k/v ``[B, S, KH, hd]`` -> ``[B, S, H, hd]`` in q's
+dtype; hd in {16, 32, 64, 128}.  On a CPU tensor the wrapper computes the
+plain version in ``kernels/ref.py``; on a ``meta`` tensor it returns an
+empty output and counts nothing; on a CUDA tensor it launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ref
+
+HEAD_DIMS = (16, 32, 64, 128)       # the kernel's template instances
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches since the last reset_launches(), one per wrapper call.
+LAUNCHES = {"swa_attention": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def swa_attention_fwd(q, k, v, window: int):
+    """Sliding-window causal attention over the trailing ``window``
+    positions (``window <= 0``: full causal)."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3] \
+            or q.shape[2] % k.shape[2]:
+        raise ValueError(f"need q [B,S,H,hd], k/v [B,S,KH,hd] with KH | H; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    window = int(window) if window > 0 else s
+    if q.device.type == "cpu":
+        return ref.swa_attention(q, k, v, window)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"swa_attention runs on cpu or cuda, not {q.device}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share a dtype in float32/bfloat16, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"swa_attention takes hd in {HEAD_DIMS}, got {hd}")
+    if h > 65535 or b > 65535:
+        raise ValueError(f"B={b}, H={h} exceed the launch grid")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{what} must be contiguous on {q.device}")
+    from repro_torch.kernels._build import load
+    o = torch.empty_like(q)
+    err = load("swa_attention").swa_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
+        k.shape[2], hd, window, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"swa_attention launch failed: cudaError {err}")
+    LAUNCHES["swa_attention"] += 1
+    return o

@@ -1,0 +1,140 @@
+"""Per-layer blocks, init + apply (``repro.models.blocks``), for the dense
+family in training mode.
+
+A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
+Depth comes from params stacked on a leading layer axis (``model.py``).
+The MoE, Mamba and hybrid kinds, and the prefill/decode cache branches,
+come with the slices that port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass
+class Ctx:
+    cfg: ModelConfig
+    mode: str                      # "train" (the only mode ported)
+    pos: int = 0                   # q offset
+    window: int = 0                # sliding window (0 = full)
+
+
+def _init(gen, shape, scale, dtype):
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-block
+# ---------------------------------------------------------------------------
+
+
+def attn_init(cfg: ModelConfig, gen, dtype, lead=()):
+    d, h, kh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    lead = tuple(lead)
+    p = {
+        "ln": torch.ones(lead + (d,), dtype=dtype),
+        "wq": _init(gen, lead + (d, h * hd), d ** -0.5, dtype),
+        "wk": _init(gen, lead + (d, kh * hd), d ** -0.5, dtype),
+        "wv": _init(gen, lead + (d, kh * hd), d ** -0.5, dtype),
+        "wo": _init(gen, lead + (h * hd, d), (h * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(lead + (h * hd,), dtype=dtype)
+        p["bk"] = torch.zeros(lead + (kh * hd,), dtype=dtype)
+        p["bv"] = torch.zeros(lead + (kh * hd,), dtype=dtype)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (hd,), dtype=dtype)
+        p["k_norm"] = torch.ones(lead + (hd,), dtype=dtype)
+    return p
+
+
+def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, cache):
+    if ctx.mode != "train":
+        raise NotImplementedError("the prefill/decode cache branches are "
+                                  "not ported yet")
+    b, s, d = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    xn = L.rmsnorm(x, p["ln"])
+    q = xn @ p["wq"]
+    k = xn @ p["wk"]
+    v = xn @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kh, hd)
+    v = v.reshape(b, s, kh, hd)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"])
+        k = L.rmsnorm(k, p["k_norm"])
+    pos_ids = (torch.arange(s, device=x.device) + ctx.pos)[None].expand(b, s)
+    q = L.apply_rope(q, pos_ids, cfg.rope_theta)
+    k = L.apply_rope(k, pos_ids, cfg.rope_theta)
+    # the reference's gate for the sliding-window kernel (K6)
+    if (cfg.use_pallas and ctx.window and not cfg.encoder_only
+            and s % 128 == 0):
+        from repro_torch.kernels import ops
+        out = ops.swa_attention(q, k, v, ctx.window)
+    else:
+        out = L.attention(q, k, v, causal=not cfg.encoder_only,
+                          window=ctx.window, q_offset=ctx.pos)
+    y = out.reshape(b, s, h * hd) @ p["wo"]
+    return x + y, None
+
+
+# ---------------------------------------------------------------------------
+# Dense MLP sub-block (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(cfg: ModelConfig, gen, dtype, lead=()):
+    d, f = cfg.d_model, cfg.d_ff
+    lead = tuple(lead)
+    return {
+        "ln": torch.ones(lead + (d,), dtype=dtype),
+        "w1": _init(gen, lead + (d, f), d ** -0.5, dtype),
+        "w3": _init(gen, lead + (d, f), d ** -0.5, dtype),
+        "w2": _init(gen, lead + (f, d), f ** -0.5, dtype),
+    }
+
+
+def mlp_apply(p, x):
+    xn = L.rmsnorm(x, p["ln"])
+    hidden = L.silu(xn @ p["w1"]) * (xn @ p["w3"])
+    return x + hidden @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Block kinds
+# ---------------------------------------------------------------------------
+
+
+def dense_init(cfg, gen, dtype, lead=()):
+    """One dense block's params, each with leading dims ``lead`` (the
+    stacked layer axis)."""
+    return {"attn": attn_init(cfg, gen, dtype, lead),
+            "mlp": mlp_init(cfg, gen, dtype, lead)}
+
+
+def dense_apply(cfg, p, x, ctx: Ctx, cache):
+    x, new_cache = attn_apply(cfg, p["attn"], x, ctx, cache)
+    x = mlp_apply(p["mlp"], x)
+    return x, new_cache, 0.0
+
+
+BLOCKS = {
+    "dense": (dense_init, dense_apply),
+}
+
+
+def block_kind(cfg: ModelConfig) -> str:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"block kind of family {cfg.family!r} is "
+                                  "not ported yet")
+    return "dense"

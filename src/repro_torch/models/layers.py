@@ -1,5 +1,13 @@
-"""Loss functions shared by the port's models (``repro.models.layers``)."""
+"""Functional neural-net ops shared by the port's models
+(``repro.models.layers``).
+
+Pure functions over explicit parameter trees.  Every reduction that affects
+numerics (softmax, norms) runs in fp32 whatever the activation dtype, with
+the cast back where the reference casts: bf16 parity depends on it.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -10,3 +18,98 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(lf, dim=-1)
     picked = lf.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - picked).mean()
+
+
+# ---------------------------------------------------------------------------
+# Norms and activations
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """Rotate q/k.  x: [B,S,H,hd]; pos: [B,S] integer positions."""
+    hd = x.shape[-1]
+    inv_freq = rope_inv_freq(hd, theta, x.device)            # [hd/2]
+    ang = pos[..., None].float() * inv_freq                  # [B,S,hd/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, kh, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, hd).reshape(
+        b, s, kh * n_rep, hd)
+
+
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor):
+    scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    e = torch.where(mask, e, 0.0)
+    return e / (e.sum(-1, keepdim=True) + 1e-30)
+
+
+def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
+              chunk: int = 512):
+    """Multi-head attention with GQA, causal and sliding-window masks.
+
+    q: [B,Sq,H,hd]; k,v: [B,Skv,KH,hd].  ``q_offset`` is the absolute
+    position of q[0].  Long sequences run over q in chunks of ``chunk`` so
+    the score matrix never materializes at [Sq, Skv].
+    """
+    b, sq, h, hd = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // kh).float()
+    v = _repeat_kv(v, h // kh).float()
+    scale = 1.0 / math.sqrt(hd)
+    kv_pos = torch.arange(skv, device=q.device)
+
+    def block(qc, off):
+        cq = qc.shape[1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k) * scale
+        q_pos = off + torch.arange(cq, device=q.device)
+        mask = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        w = _masked_softmax(scores, mask[None, None])
+        return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)
+
+    if sq <= chunk:
+        return block(q, q_offset)
+    if sq % chunk:
+        raise ValueError(f"sequence {sq} is not a multiple of chunk {chunk}")
+    return torch.cat([block(q[:, i:i + chunk], q_offset + i)
+                      for i in range(0, sq, chunk)], dim=1)

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, so both run on a machine that has
-no JAX installed."""
+"""The PyTorch port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
+``chip_mutants.py`` import neither JAX nor the JAX package, so they run on
+a machine that has no JAX installed."""
 import ast
 import os
 import subprocess
@@ -10,8 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_mutants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -41,7 +41,7 @@ def test_importing_the_port_loads_no_jax():
     mods = ["repro_torch"] + sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
                                   .with_suffix("").parts)
-        for p in PORT_FILES[:-1] if p.name != "__init__.py")
+        for p in PACKAGE_FILES if p.name != "__init__.py")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
