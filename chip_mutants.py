@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Show that the LM kernel checks of ``chip_smoke.py`` (phase 7) can fail.
-Run from the repo root on a machine with one NVIDIA GPU and nvcc:
+"""Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11) can
+fail.  Run from the repo root on a machine with one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
-The tree itself, then each mutant below, runs phases 1, 2 and 7 of
+The tree itself, then each mutant below, runs phases 1, 2, 7 and 11 of
 ``chip_smoke.py`` in a fresh process, with every check reported instead of
 raised.  A mutant is one deliberate fault in a kernel source, made in a
 copy of the checkout under a temporary directory; the checkout itself is
@@ -24,6 +24,7 @@ import tempfile
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CE = "src/repro_torch/kernels/csrc/fused_ce.cu"
 SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
+SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 # name -> (edits (file, old, new), a check that must fail)
 MUTANTS = {
     "K4b without the softmax term": (
@@ -39,8 +40,17 @@ MUTANTS = {
           "const int jt0 = max(0, q0 - window + 1) / BK "
           "+ (q0 - window + 1 > 0),")],
         "swa_attention [1, 8192, 16, 8, 128] W=4096 bfloat16 per element"),
+    "K5 state reset every 128 steps": (
+        [(SSM, "const int tn = min(TC, S - t0);",
+          "const int tn = min(TC, S - t0);\n    if (t0 % 128 == 0) h = 0.f;")],
+        "ssm_scan [4, 2048, 8192, 16] G=4 bfloat16 per element"),
+    "K4a without one d chunk past d = 1024": (
+        [(CE, "frag_b_nk(Wc, TC_LD, kk, 16 * warp + 8 * nt, gq, tq, b);",
+          "frag_b_nk(Wc, TC_LD, kk, 16 * warp + 8 * nt, gq, tq, b);\n"
+          "            if (cb > 0 && j == 0) continue;")],
+        "fused_ce_dx [1, 2048, 4096, 65024] bfloat16 per element"),
 }
-PHASE7 = """
+KERNEL_PHASES = """
 import sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -50,16 +60,18 @@ cs.check = report
 cs.phase_device()
 cs.phase_build()
 cs.phase_lm_kernels(torch.device("cuda"))
+cs.phase_mamba_kernels(torch.device("cuda"))
 """
 
 
 def run(where: str) -> list:
-    """Phases 1, 2 and 7 in ``where``; returns the failed checks."""
-    r = subprocess.run([sys.executable, "-c", PHASE7], cwd=where,
+    """Phases 1, 2, 7 and 11 in ``where``; returns the failed checks."""
+    r = subprocess.run([sys.executable, "-c", KERNEL_PHASES], cwd=where,
                        capture_output=True, text=True, timeout=900)
     sys.stdout.write(r.stdout)
     if r.returncode != 0:
-        raise RuntimeError(f"phase 7 did not run to its end in {where}:\n"
+        raise RuntimeError(f"phases 7 and 11 did not run to their end in "
+                           f"{where}:\n"
                            f"{r.stderr[-3000:]}")
     return [ln[len("  FAIL "):] for ln in r.stdout.splitlines()
             if ln.startswith("  FAIL ")]

@@ -31,7 +31,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain versions on the CPU, agree over 2 rounds;
 10. LM times: the four kernels, their plain versions and library
    yardsticks at the main shapes, and a main-path round with its device
-   time, idle share, top kernels and peak memory.
+   time, idle share, top kernels and peak memory;
+11. Mamba kernels vs plain: the selective scan (K5) at the main path's
+   shapes (4 clients folded with their own a and d; one server sequence)
+   and at tests/test_kernels.py's fp32 cases, and the fused CE kernels at
+   falcon-mamba's server head (d = 4096) and aux head, and at ragged
+   shapes past the old d <= 1024 (d = 1536, 4096, 8192) in both dtypes;
+12. Mamba main path: CSE-FSL on full-width falcon-mamba-7b (16 layers cut
+   at 8, S = 2048, bf16, the kernels on) through ``Trainer.run``, with
+   per-round launch counts, finite losses, state on the card, the meter
+   equal to CommProfile and the peak device memory;
+13. Mamba CPU vs card: reduced falcon-mamba in fp32, the kernels on the
+   card and the plain versions on the CPU, agree over 2 rounds;
+14. Mamba times: K5 and the d = 4096 fused CE kernels beside their bounds
+   and plain versions, and a main-path round with its device time, idle
+   share, top kernels and peak memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -47,8 +61,13 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# Before torch starts the card's caching allocator: the Mamba main path's
+# round leaves 30 GB reserved but unallocated in fragments when its update
+# needs one 8 GiB block, so let segments grow instead.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -64,6 +83,7 @@ from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
 from repro_torch.launch.train import LMBatcher, build_data  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
@@ -77,20 +97,33 @@ N, H, B, LR, SAMPLES, ROUNDS = 4, 5, 24, 0.15, 1200, 10
 # the training CLI's default lr 0.1, int8 uplink, 3 rounds, 8 sequences
 # per client.
 LM_N, LM_H, LM_B, LM_S, LM_LR, LM_ROUNDS, LM_SAMPLES = 4, 2, 1, 4096, 0.1, 3, 8
+# Mamba main path: full-width falcon-mamba-7b (configs/falcon_mamba_7b.py)
+# cut from 64 to 16 layers (8 client, 8 server) with the kernels on, bf16,
+# and the LM path's n, h, B, lr, codec, rounds and data, at S = 2048: at
+# S = 4096 the client phase (4 clients x 8 layers of saved activations,
+# no remat, and torch.func.grad's create_graph=True keeping every
+# backward temporary until the backward ends) does not fit in 80 GB.
+MB_LAYERS, MB_S = 16, 2048
 # H100 SXM published peaks (NVIDIA data sheet): HBM 3.35 TB/s, bf16 tensor
 # cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s; int32 at
-# half that (64 INT32 lanes per SM beside 128 FP32, Hopper white paper).
+# half that (64 INT32 lanes per SM beside 128 FP32, Hopper white paper);
+# exp on the special-function units, 16 per clock per SM (NVIDIA's
+# arithmetic-throughput table, compute capability 9.0) at the 1.98 GHz
+# boost clock on 132 SMs.
 HBM_BPS, BF16_OPS, FP32_OPS, INT32_OPS = 3.35e12, 989e12, 67e12, 33.5e12
+SFU_EXPS = 16 * 132 * 1.98e9
 CSRC = "src/repro_torch/kernels/csrc/"
 REPLACES = {"quantize_bits": "src/repro/kernels/quantize.py:174",
             "quantize_philox": "src/repro/kernels/quantize.py:162",
             "fused_ce_fwd": "src/repro/kernels/fused_ce.py:87",
             "fused_ce_dx": "src/repro/kernels/fused_ce.py:186",
             "fused_ce_dw": "src/repro/kernels/fused_ce.py:201",
-            "swa_attention": "src/repro/kernels/swa_attention.py:94"}
+            "swa_attention": "src/repro/kernels/swa_attention.py:94",
+            "ssm_scan": "src/repro/kernels/ssm_scan.py:63"}
 SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
           "fused_ce_fwd": "fused_ce.cu", "fused_ce_dx": "fused_ce.cu",
-          "fused_ce_dw": "fused_ce.cu", "swa_attention": "swa_attention.cu"}
+          "fused_ce_dw": "fused_ce.cu", "swa_attention": "swa_attention.cu",
+          "ssm_scan": "ssm_scan.cu"}
 # K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
 # ragged ones in both dtypes (bf16 and fp32 take different kernels); K6
 # cases (B, S, H, KH, hd, W): the main path's and a longer one the window
@@ -101,6 +134,23 @@ CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((3, 37, 16, 130), torch.bfloat16),
             ((1, 100, 72, 1000), torch.float32),
             ((3, 37, 16, 130), torch.float32)]
+# falcon-mamba's heads (G, T, d, V), then ragged cases past d = 1024.
+MB_CE_CASES = [((1, MB_S, 4096, 65024), torch.bfloat16),
+               ((4, MB_S, 128, 65024), torch.bfloat16),
+               ((1, 4096, 4096, 65024), torch.bfloat16),
+               ((1, 100, 1536, 1000), torch.bfloat16),
+               ((2, 37, 8192, 130), torch.bfloat16),
+               ((1, 100, 1536, 1000), torch.float32),
+               ((1, 64, 4096, 300), torch.float32),
+               ((2, 37, 8192, 130), torch.float32)]
+# K5 cases (B, S, D, N, G): the client fold (4 clients, each its own a and
+# d) and one server sequence, at the main path's S and at S = 4096, then
+# tests/test_kernels.py's four in fp32.
+SSM_CASES = [((4, MB_S, 8192, 16, 4), torch.bfloat16),
+             ((1, MB_S, 8192, 16, 1), torch.bfloat16),
+             ((4, 4096, 8192, 16, 4), torch.bfloat16)] + [
+    ((b, s, d, n, 1), torch.float32) for b, s, d, n in
+    ((1, 16, 8, 4), (2, 64, 32, 16), (2, 128, 64, 16), (1, 32, 128, 8))]
 SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
              ((1, 8192, 16, 8, 128, 4096), torch.bfloat16)] + [
     (c, torch.float32) for c in ((1, 128, 2, 2, 16, 32),
@@ -125,12 +175,12 @@ def check(cond: bool, what: str):
 
 
 def reset_counts():
-    for mod in (qk, ce, swa):
+    for mod in (qk, ce, swa, ssm):
         mod.reset_launches()
 
 
 def counts() -> dict:
-    return {**qk.LAUNCHES, **ce.LAUNCHES, **swa.LAUNCHES}
+    return {**qk.LAUNCHES, **ce.LAUNCHES, **swa.LAUNCHES, **ssm.LAUNCHES}
 
 
 def only(**kw) -> dict:
@@ -420,17 +470,19 @@ def phase_cpu_vs(dev: torch.device, fed):
 
 
 def profile_round(step, rounds: int, round_ms: float, top: int = 8):
-    """Device kernel time per round over ``rounds`` profiled rounds (kernel
-    events only; CPU-side aten events also carry their children's device
-    time) against the unprofiled round time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """Device kernel time per round over ``rounds`` profiled rounds against
+    the unprofiled round time.  Traces the card only: host-side op events
+    add nothing to the kernel times and, at the Mamba round's 100,000
+    launches, minutes of the profiler's own time."""
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
             step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"  profiled {rounds} round(s) in {time.perf_counter() - t0:.3f} s")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     if busy_ms <= 0:
         print("  profiler recorded no device time: idle share not measured")
@@ -582,31 +634,11 @@ def ce_abs_grads(x, w, lab, lse, gs):
     return {"fused_ce_dx": torch.cat(adx, 1), "fused_ce_dw": adw}
 
 
-def phase_lm_kernels(dev):
-    """Phase 7: K3/K4a/K4b/K6 against their plain versions on the card.
-    Returns the largest difference seen per kernel.
-
-    Each case first meets the tolerance of tests/test_kernels.py.  bf16
-    cases then meet a bound per element against the plain version in fp32
-    on the same inputs, tight enough that the small terms (the softmax part
-    of the CE gradients, one kv tile of a window) must be right:
-    * K3: lse and picked within 1e-4.  Both sum exact products of the bf16
-      inputs in fp32, so only the order of summation separates them; one
-      64-column vocab tile left out moves lse by about 64/V, >= 4e-4 here.
-    * K4a/K4b: |got - plain| <= 2^-7 (|plain| + |P||w|^T) for dx and
-      2^-7 (|plain| + |x|^T|P|) for dw.  The kernels round P to bf16 and
-      their output to bf16, each at most 2^-8 of those; the bound allows
-      twice that.  In a dw column no label lands in (all but ~4,000 of
-      the 151,936) the softmax part is the whole value, and in dx it is
-      larger than 2^-7 of the one-hot part for most elements.
-    * K6: |got - plain| <= 2^-7 |plain| + 2^-12 sum_k p|v|.  The kernel
-      differs from the fp32 plain by its bf16 output rounding (<= 2^-8) and
-      fp32 summation order (~1e-6 of sum p|v|); at W = 4096 one 64-key tile
-      left out moves outputs by ~2e-3 against a bound of ~4e-4."""
-    t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
-    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
-           "swa_attention": 0.0}
-    for k, ((g, t, d, v), dtype) in enumerate(CE_CASES):
+def check_ce(cases, err, dev):
+    """K3/K4a/K4b at ``cases`` against their plain versions (phase 7's
+    bounds, see ``phase_lm_kernels``); the largest differences go into
+    ``err``."""
+    for k, ((g, t, d, v), dtype) in enumerate(cases):
         x, w, lab, gs = ce_inputs(g, t, d, v, dtype, k, dev)
         tag = f"[{g}, {t}, {d}, {v}] {str(dtype)[6:]}"
         lse, picked = ce.fused_ce_fwd(x, w, lab)
@@ -649,6 +681,34 @@ def phase_lm_kernels(dev):
             del got, want
         del x, w, lab, lse, picked, plse, ppicked
         torch.cuda.empty_cache()
+
+
+
+def phase_lm_kernels(dev):
+    """Phase 7: K3/K4a/K4b/K6 against their plain versions on the card.
+    Returns the largest difference seen per kernel.
+
+    Each case first meets the tolerance of tests/test_kernels.py.  bf16
+    cases then meet a bound per element against the plain version in fp32
+    on the same inputs, tight enough that the small terms (the softmax part
+    of the CE gradients, one kv tile of a window) must be right:
+    * K3: lse and picked within 1e-4.  Both sum exact products of the bf16
+      inputs in fp32, so only the order of summation separates them; one
+      64-column vocab tile left out moves lse by about 64/V, >= 4e-4 here.
+    * K4a/K4b: |got - plain| <= 2^-7 (|plain| + |P||w|^T) for dx and
+      2^-7 (|plain| + |x|^T|P|) for dw.  The kernels round P to bf16 and
+      their output to bf16, each at most 2^-8 of those; the bound allows
+      twice that.  In a dw column no label lands in (all but ~4,000 of
+      the 151,936) the softmax part is the whole value, and in dx it is
+      larger than 2^-7 of the one-hot part for most elements.
+    * K6: |got - plain| <= 2^-7 |plain| + 2^-12 sum_k p|v|.  The kernel
+      differs from the fp32 plain by its bf16 output rounding (<= 2^-8) and
+      fp32 summation order (~1e-6 of sum p|v|); at W = 4096 one 64-key tile
+      left out moves outputs by ~2e-3 against a bound of ~4e-4."""
+    t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
+    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "swa_attention": 0.0}
+    check_ce(CE_CASES, err, dev)
     for k, ((b, s, h, kh, hd, win), dtype) in enumerate(SWA_CASES):
         q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 100 + k, dev)
         got = swa.swa_attention_fwd(q, kk, vv, win)
@@ -731,8 +791,9 @@ def phase_lm_cpu_vs(dev):
         sync(d)
         runs[str(d)] = counts()
     check(sum(runs["cpu"].values()) == 0, "CPU run launched no kernel")
-    check(all(runs[str(dev)][k] > 0 for k in REPLACES
-              if k != "quantize_bits"),
+    check(all(runs[str(dev)][k] > 0 for k in (
+        "quantize_philox", "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
+        "swa_attention")),
           f"card run launched every LM kernel: {runs[str(dev)]}")
     compare_rounds(hists, dev, 1e-3)
     done(t0)
@@ -741,47 +802,14 @@ def phase_lm_cpu_vs(dev):
 def phase_lm_times(dev, err, launches, tr, state, fed, peak):
     """Phase 10: K3/K4a/K4b/K6 and a main-path round, timed."""
     t0 = phase("10 LM times (CUDA events, medians)")
+    ce_times = time_ce({"server": (1, LM_S, 1024, 151936),
+                        "aux": (LM_N, LM_S, 128, 151936)},
+                       launches, err, dev)
     records = []
-    big = dict(reps=5, inner=2)
-    for tag, (g, t, d, v) in (("server", (1, LM_S, 1024, 151936)),
-                              ("aux", (LM_N, LM_S, 128, 151936))):
-        x, w, lab, gs = ce_inputs(g, t, d, v, torch.bfloat16, 7, dev)
-        lse, _ = ce.fused_ce_fwd(x, w, lab)
-        io_in = 2 * (g * t * d + g * d * v) + 4 * g * t
-        mm = 2 * g * t * d * v
-        work = {"fused_ce_fwd": (io_in + 8 * g * t, mm),
-                "fused_ce_dx": (io_in + 4 * g * t + 4 * g + 2 * g * t * d,
-                                2 * mm),
-                "fused_ce_dw": (io_in + 4 * g * t + 4 * g + 2 * g * d * v,
-                                2 * mm)}
-        run = {"fused_ce_fwd": lambda: ce.fused_ce_fwd(x, w, lab),
-               "fused_ce_dx": lambda: ce.fused_ce_dx(x, w, lab, lse, gs),
-               "fused_ce_dw": lambda: ce.fused_ce_dw(x, w, lab, lse, gs)}
-        plain = {"fused_ce_fwd": lambda: ref.fused_ce_fwd(x, w, lab),
-                 "fused_ce_dx": lambda: ref.fused_ce_dx(x, w, lab, lse, gs),
-                 "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs)}
-        xent = event_ms(lambda: torch.nn.functional.cross_entropy(
-            (x[0] @ w[0]).float(), lab[0].long()), reps=5, inner=2, warm=1)
-        print(f"  {tag} head [{g}, {t}, {d}] x [{d}, {v}]: for scale, "
-              f"cross_entropy(x @ w) of group 0 (logits in memory) "
-              f"{xent * 1e3:.3f} us")
-        for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
-            rec = record(name, launches[name], err[name],
-                         graph_ms(run[name], **big),
-                         event_ms(run[name], **big),
-                         event_ms(plain[name], reps=3, inner=1, warm=1),
-                         *work[name], BF16_OPS, shape=[g, t, d, v],
-                         xent_group0_ms=xent)
-            print(f"  [{tag}]", end="")
-            print_record(rec)
-            if tag == "server":
-                records.append(rec)
-            else:
-                records[[r["name"] for r in records].index(name)]["aux"] = {
-                    k: rec[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
-                                        "bound_ms", "bound_by")}
-        del x, w, lab, gs, lse
-        torch.cuda.empty_cache()
+    for name, rec in ce_times["server"].items():
+        rec["aux"] = {k: ce_times["aux"][name][k] for k in (
+            "shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")}
+        records.append(rec)
 
     for tag, (b, s) in (("server", (1, LM_S)), ("client", (LM_N, LM_S))):
         hh, kh, hd, win = 16, 8, 128, 4096
@@ -838,6 +866,237 @@ def phase_lm_times(dev, err, launches, tr, state, fed, peak):
                      "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# The Mamba path: full-width falcon-mamba-7b
+# ---------------------------------------------------------------------------
+
+
+def ssm_inputs(b, s, d, n, grp, dtype, seed, dev):
+    """u, dt, a, b, c, d as tests/test_kernels.py draws them (u, b, c, d ~
+    N(0, 1), dt = 0.1 softplus(N(0, 1)), a = -exp(0.3 N(0, 1))), with
+    ``grp`` groups of a and d; u, dt, b, c in ``dtype``, a and d fp32."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.randn((b, s, d), generator=gen)
+    dt = 0.1 * torch.nn.functional.softplus(torch.randn((b, s, d),
+                                                        generator=gen))
+    a = -torch.exp(0.3 * torch.randn((grp, d, n), generator=gen))
+    bm, cm = (torch.randn((b, s, n), generator=gen) for _ in range(2))
+    dv = torch.randn((grp, d), generator=gen)
+    return [t.to(dtype).to(dev) if i in (0, 1, 3, 4) else t.to(dev)
+            for i, t in enumerate((u, dt, a, bm, cm, dv))]
+
+
+def phase_mamba_kernels(dev):
+    """Phase 11: K5 and the fused CE kernels at falcon-mamba's shapes
+    against their plain versions.  Returns the largest difference seen per
+    kernel.
+
+    * K5 fp32 cases: within tests/test_kernels.py's 2e-4.
+    * K5 bf16 cases, per element against the plain version in fp32 on the
+      same inputs: |got - plain| <= 2^-7 |plain| + 1e-4.  The kernel keeps
+      the state in fp32 as the plain version does, so they differ by the
+      bf16 rounding of y (<= 2^-8 |y|) and fp32 order of operations (about
+      1e-6 of |y|, which is about 1 on average here); 1e-4 covers that
+      near y = 0.  A state lost at a 128-step chunk boundary moves the next
+      steps' y by O(0.1), far outside the bound.
+    * K3/K4a/K4b: phase 7's bounds, at the server head (d = 4096), the aux
+      head (d = 128), the server head at S = 4096 and ragged shapes past
+      d = 1024."""
+    t0 = phase("11 Mamba kernels vs plain (selective scan K5; fused CE "
+               "K3/K4a/K4b at d > 1024)")
+    err = {"ssm_scan": 0.0, "fused_ce_fwd": 0.0, "fused_ce_dx": 0.0,
+           "fused_ce_dw": 0.0}
+    for k, ((b, s, d, n, grp), dtype) in enumerate(SSM_CASES):
+        args = ssm_inputs(b, s, d, n, grp, dtype, 200 + k, dev)
+        got = ssm.ssm_scan_fwd(*args)
+        want = ref.ssm_scan(*(t.float() for t in args))
+        sync(dev)
+        e = diff(got, want)
+        err["ssm_scan"] = max(err["ssm_scan"], e)
+        tag = f"[{b}, {s}, {d}, {n}] G={grp} {str(dtype)[6:]}"
+        check(got.dtype == args[0].dtype and got.shape == want.shape,
+              f"ssm_scan {tag} dtype and shape")
+        if dtype == torch.float32:
+            check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                  f"ssm_scan {tag} == plain at 2e-4 (max |diff| {e:.3g})")
+        else:
+            r = worst_ratio(got, want, want.abs().mul_(2.0 ** -7).add_(1e-4))
+            check(r <= 1.0, f"ssm_scan {tag} per element within 2^-7 "
+                  f"|plain fp32| + 1e-4 (mean |plain| "
+                  f"{float(want.abs().mean()):.3g}; worst |diff|/bound "
+                  f"{r:.3g})")
+        del args, got, want
+        torch.cuda.empty_cache()
+    check_ce(MB_CE_CASES, err, dev)
+    done(t0)
+    return err
+
+
+def mb_cfg():
+    return get_config("falcon-mamba-7b").with_(num_layers=MB_LAYERS,
+                                               use_pallas=True)
+
+
+def phase_mamba_main(dev):
+    """Phase 12: CSE-FSL on full-width falcon-mamba-7b through
+    Trainer.run."""
+    t0 = phase(f"12 Mamba main path: CSE-FSL, falcon-mamba-7b full width "
+               f"({MB_LAYERS} layers), bf16, kernels on, Trainer.run")
+    cfg = mb_cfg()
+    bundle = transformer_bundle(cfg, device=dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8")
+    fed = build_data(cfg, fsl, MB_S, LM_SAMPLES, non_iid=False, seed=0)
+    cm = cost_model(bundle, LM_N, LM_SAMPLES)
+    tr = Trainer(bundle, fsl)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist, meter, launches, per_round = drive(
+        tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
+        "falcon-mamba-7b int8", LM_ROUNDS, LM_B)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cut = cfg.resolved_cut
+    heads = LM_H + LM_N                 # h client steps (vmapped) + n server
+    want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
+                fused_ce_dw=heads,
+                ssm_scan=cut * (LM_H + 1) + (cfg.num_layers - cut) * LM_N)
+    for i, c in enumerate(per_round):
+        check(c == want, f"round {i + 1} launches {c} == {want}")
+    wire = MB_S * cfg.d_model + (MB_S // 8) * (cfg.d_model // 128) * 4
+    check(wire == 8_421_376 and meter.counts["uplink_smashed"]
+          == LM_ROUNDS * LM_N * wire,
+          f"int8 uplink = {LM_ROUNDS} rounds x {LM_N} clients x 8,421,376 "
+          f"B (raw bf16 {MB_S * cfg.d_model * 2:,} B)")
+    print(f"  peak device memory over the run: {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    done(t0)
+    return tr, state, fed, launches, peak
+
+
+def phase_mamba_cpu_vs(dev):
+    """Phase 13: reduced falcon-mamba in fp32, 2 rounds on the CPU (plain
+    versions) and on the card (kernels)."""
+    t0 = phase("13 Mamba CPU vs card: reduced falcon-mamba, fp32, 2 rounds")
+    cfg = get_config("falcon-mamba-7b").reduced().with_(dtype="float32",
+                                                        use_pallas=True)
+    fsl = FSLConfig(num_clients=2, h=2, lr=0.1, codec="int8")
+    fed = build_data(cfg, fsl, 256, 4, non_iid=False, seed=0)
+    hists, runs = {}, {}
+    for d in ("cpu", dev):
+        tr = Trainer(transformer_bundle(cfg, device=d), fsl)
+        reset_counts()
+        _, hists[str(d)] = tr.run(tr.init(0), LMBatcher(cfg, fed, 1, 2), 2,
+                                  log_every=1)
+        sync(d)
+        runs[str(d)] = counts()
+    check(sum(runs["cpu"].values()) == 0, "CPU run launched no kernel")
+    check(all(runs[str(dev)][k] > 0 for k in ("ssm_scan", "fused_ce_fwd",
+                                              "fused_ce_dx", "fused_ce_dw",
+                                              "quantize_philox")),
+          f"card run launched K5, K3, K4a, K4b and K2: {runs[str(dev)]}")
+    compare_rounds(hists, dev, 1e-3)
+    done(t0)
+
+
+def time_ce(cases, launches, err, dev):
+    """K3/K4a/K4b timed at ``cases`` ``{tag: (G, T, d, V)}`` in bf16;
+    returns ``{tag: {name: record}}``.  For scale, also times
+    ``cross_entropy(x @ w)`` of group 0 with the logits in memory."""
+    out = {}
+    for tag, (g, t, d, v) in cases.items():
+        x, w, lab, gs = ce_inputs(g, t, d, v, torch.bfloat16, 7, dev)
+        lse, _ = ce.fused_ce_fwd(x, w, lab)
+        io_in = 2 * (g * t * d + g * d * v) + 4 * g * t
+        mm = 2 * g * t * d * v
+        work = {"fused_ce_fwd": (io_in + 8 * g * t, mm),
+                "fused_ce_dx": (io_in + 4 * g * t + 4 * g + 2 * g * t * d,
+                                2 * mm),
+                "fused_ce_dw": (io_in + 4 * g * t + 4 * g + 2 * g * d * v,
+                                2 * mm)}
+        run = {"fused_ce_fwd": lambda: ce.fused_ce_fwd(x, w, lab),
+               "fused_ce_dx": lambda: ce.fused_ce_dx(x, w, lab, lse, gs),
+               "fused_ce_dw": lambda: ce.fused_ce_dw(x, w, lab, lse, gs)}
+        plain = {"fused_ce_fwd": lambda: ref.fused_ce_fwd(x, w, lab),
+                 "fused_ce_dx": lambda: ref.fused_ce_dx(x, w, lab, lse, gs),
+                 "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs)}
+        xent = event_ms(lambda: torch.nn.functional.cross_entropy(
+            (x[0] @ w[0]).float(), lab[0].long()), reps=5, inner=2, warm=1)
+        print(f"  {tag} head [{g}, {t}, {d}] x [{d}, {v}]: for scale, "
+              f"cross_entropy(x @ w) of group 0 (logits in memory) "
+              f"{xent * 1e3:.3f} us")
+        # K4a/K4b past d = 1024 take about a second a call: fewer reps
+        few = dict(reps=3, inner=1) if d > 1024 else dict(reps=5, inner=2)
+        out[tag] = {}
+        for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+            rec = record(name, launches[name], err[name],
+                         graph_ms(run[name], **few),
+                         event_ms(run[name], warm=1, **few),
+                         event_ms(plain[name], reps=3, inner=1, warm=1),
+                         *work[name], BF16_OPS, shape=[g, t, d, v],
+                         xent_group0_ms=xent)
+            print(f"  [{tag}]", end="")
+            print_record(rec)
+            out[tag][name] = rec
+        del x, w, lab, gs, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
+    """Phase 14: K5, the d = 4096 fused CE kernels and a Mamba round,
+    timed.  Returns K5's record and the round's numbers; the CE times go
+    into ``lm_records`` under ``"mamba"``."""
+    t0 = phase("14 Mamba times (CUDA events, medians)")
+    ce_times = time_ce({"server": (1, MB_S, 4096, 65024),
+                        "aux": (LM_N, MB_S, 128, 65024)}, launches, err, dev)
+    for rec in lm_records:
+        if rec["name"] in ce_times["server"]:
+            rec["mamba"] = {tag: {k: t[rec["name"]][k] for k in (
+                "shape", "launches", "max_abs_err", "ms", "eager_ms",
+                "plain_ms", "bound_ms", "bound_by")}
+                for tag, t in ce_times.items()}
+    rec = None
+    for tag, (b, grp) in (("server", (1, 1)), ("client", (LM_N, LM_N))):
+        s, d, n = MB_S, 8192, 16
+        args = ssm_inputs(b, s, d, n, grp, torch.bfloat16, 11, dev)
+        io = b * s * d * 2 * 3 + b * s * n * 2 * 2 + grp * d * (n + 1) * 4
+        r = record("ssm_scan", launches["ssm_scan"], err["ssm_scan"],
+                   graph_ms(lambda: ssm.ssm_scan_fwd(*args), reps=5,
+                            inner=5),
+                   event_ms(lambda: ssm.ssm_scan_fwd(*args), reps=5,
+                            inner=5),
+                   event_ms(lambda: ref.ssm_scan(*args), reps=3, inner=1,
+                            warm=1),
+                   io, b * s * d * n, SFU_EXPS, shape=[b, s, d, n, grp])
+        print(f"  [{tag}]", end="")
+        print_record(r)
+        if rec is None:
+            rec = r
+        else:
+            rec["client"] = {k: r[k] for k in (
+                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                "bound_by")}
+        del args
+        torch.cuda.empty_cache()
+
+    batch = tr.to_device(LMBatcher(mb_cfg(), fed, LM_B, LM_H,
+                                   seed=1).next_round())
+    box = {"state": state}
+
+    def step():
+        st, m = tr.step(box["state"], batch, LM_LR)
+        box["state"] = tr.aggregate(st)
+        float(m["server_loss"])
+
+    round_ms, per = time_rounds(step, 2)
+    print(f"  Mamba round (int8, n={LM_N}, h={LM_H}, B={LM_B}, S={MB_S}, "
+          f"{MB_LAYERS} layers, step + FedAvg, host clock after "
+          f"synchronize): median {round_ms:.3f} ms of "
+          f"{[round(p, 3) for p in per]}")
+    busy, idle = profile_round(step, 1, round_ms, top=12)
+    done(t0)
+    return rec, {"round_ms": round_ms, "rounds_ms": per, "device_ms": busy,
+                 "idle_share": idle, "peak_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
@@ -857,10 +1116,18 @@ def main() -> int:
     phase_lm_cpu_vs(dev)
     lm_records, lm = phase_lm_times(dev, lm_err, llaunches, ltr, lstate,
                                     lfed, peak)
+    del ltr, lstate
+    torch.cuda.empty_cache()
+    mb_err = phase_mamba_kernels(dev)
+    mtr, mstate, mfed, mlaunches, mpeak = phase_mamba_main(dev)
+    phase_mamba_cpu_vs(dev)
+    ssm_record, mb = phase_mamba_times(dev, mb_err, mlaunches, lm_records,
+                                       mtr, mstate, mfed, mpeak)
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
-    print(json.dumps({"kernels": records + lm_records, "round_ms": round_ms,
-                      "lm": lm, "card": card}))
+    print(json.dumps({"kernels": records + lm_records + [ssm_record],
+                      "round_ms": round_ms, "lm": lm, "mamba": mb,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

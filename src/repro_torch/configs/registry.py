@@ -6,10 +6,11 @@ families join as their slices are ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_0_6b
+from repro_torch.configs import falcon_mamba_7b, qwen3_0_6b
 
 ARCHS = {
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
+    "falcon-mamba-7b": falcon_mamba_7b.CONFIG,
 }
 
 

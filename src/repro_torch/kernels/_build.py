@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # c_longlong.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_CE_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P]
+_CE_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P]
 SIGNATURES = {
     "quantize": {
         "quantize_bits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -41,6 +41,10 @@ SIGNATURES = {
     "swa_attention": {
         "swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P],
+    },
+    "ssm_scan": {
+        "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
     },
 }
 

@@ -32,14 +32,20 @@
 //   would leave half of the 132 SMs idle, so the vocabulary is split across
 //   `nsplit` blocks and a second, tiny pass combines the partial
 //   (m, l, picked) of each row in a fixed order.
-// * K4a: a block owns 16 full rows of dx (16 x d fp32 accumulators in
-//   registers, 64 per thread at d = 1024) and walks the whole vocabulary;
-//   K4b: a block owns 16 full columns of dw (d x 16 accumulators) and walks
-//   all tokens.  Owning the whole d keeps the logit recompute at one pass
-//   (splitting d would repeat it d/chunk times), and every output element is
+// * K4a: a block owns 16 rows of dx over one slice of at most DSW = 1024
+//   of the d columns (16 x 1024 fp32 accumulators in registers, 64 per
+//   thread) and walks the whole vocabulary; K4b: a block owns 16 columns of
+//   dw over one d slice and walks all tokens.  Each output element is
 //   summed by one thread in a fixed order: no atomics, the same bits from
-//   run to run.  d is at most 1024.
-// * Padded vocabulary columns and ragged token rows are masked in-kernel.
+//   run to run.  Every block recomputes its logit tiles over the full d, so
+//   for d > DSW the logits are recomputed ceil(d / DSW) times (4x at the
+//   server head's d = 4096): the price of owning outputs without atomics
+//   or a staged P in device memory.
+// * Every kernel streams x and w through shared memory in chunks of d, as
+//   a GEMM main loop does, so any d runs and every tile fits the 48 KB of
+//   static shared memory.
+// * Padded vocabulary columns, ragged token rows and the ragged end of d
+//   are masked in-kernel.
 //
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
 
@@ -53,6 +59,7 @@
 namespace {
 
 constexpr int NT = 256;           // threads per block, all kernels
+constexpr int DSW = 1024;         // d columns a K4a/K4b block owns
 constexpr float NEG = -1e30f;     // finite "minus infinity", as the reference
 
 // The CUDA-core kernels below are instantiated for float only (bf16 inputs
@@ -212,7 +219,7 @@ __device__ __forceinline__ float p_of(float logit, float lse_t, int lab,
 }
 
 // ---------------------------------------------------------------------------
-// K4a: dx, one (group, 16-row tile) per block, full d in registers
+// K4a: dx, one (group, 16-row tile, d slice) per block
 // ---------------------------------------------------------------------------
 
 constexpr int X_BT = 16, X_BV = 64, X_BK = 32, CH = 64;
@@ -223,24 +230,18 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const int* __restrict__ labels, const float* __restrict__ lse,
              const float* __restrict__ gsc, T* __restrict__ dx, int Tn, int d,
              int V, long long xg, long long wg) {
-  extern __shared__ float sm[];
-  const int dp = d + 1;
-  float* Xs = sm;                       // [X_BT][d+1]  the block's x rows
-  float* Ws = Xs + X_BT * dp;           // [X_BK][X_BV] w tile (logits)
-  float* Ps = Ws + X_BK * X_BV;         // [X_BT][X_BV+1]
-  float* Wc = Ps + X_BT * (X_BV + 1);   // [X_BV][CH+1] w chunk, v-major
+  __shared__ float Xs[X_BT][X_BK + 1];  // x chunk (logits)
+  __shared__ float Ws[X_BK * X_BV];     // [X_BK][X_BV] w tile (logits)
+  __shared__ float Ps[X_BT * (X_BV + 1)];
+  __shared__ float Wc[X_BV * (CH + 1)]; // [X_BV][CH+1] w chunk, v-major
 
   const int g = blockIdx.y;
-  const int r0 = blockIdx.x * X_BT;
+  const int r0 = blockIdx.x * X_BT, cb = blockIdx.z * DSW;
   const int tid = threadIdx.x;
   const T* xb = x + g * xg;
   const T* wb = w + g * wg;
   const float scale = gsc[g] / (float)Tn;
 
-  for (int e = tid; e < X_BT * d; e += NT) {
-    const int r = e / d, k = e % d;
-    Xs[r * dp + k] = r0 + r < Tn ? ld(xb, (long long)(r0 + r) * d + k) : 0.f;
-  }
   // logits layout: row lr, cols lc + 16 j
   const int lr = tid / 16, lc = tid % 16;
   const bool lrow_ok = r0 + lr < Tn;
@@ -266,10 +267,15 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
         Ws[k * X_BV + c] = (k0 + k < d && v0 + c < V)
                                ? ld(wb, (long long)(k0 + k) * V + v0 + c) : 0.f;
       }
+      for (int e = tid; e < X_BT * X_BK; e += NT) {
+        const int r = e / X_BK, k = e % X_BK;
+        Xs[r][k] = (r0 + r < Tn && k0 + k < d)
+                       ? ld(xb, (long long)(r0 + r) * d + k0 + k) : 0.f;
+      }
       __syncthreads();
       const int kn = min(X_BK, d - k0);
       for (int k = 0; k < kn; ++k) {
-        const float a = Xs[lr * dp + k0 + k];
+        const float a = Xs[lr][k];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           lg[j] = fmaf(a, Ws[k * X_BV + lc + 16 * j], lg[j]);
@@ -283,7 +289,7 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      const int c0 = j * CH;
+      const int c0 = cb + j * CH;
       if (c0 < d) {
         __syncthreads();                  // Ps written / Wc free
         for (int e = tid; e < CH * X_BV; e += NT) {
@@ -310,14 +316,14 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (r >= Tn) continue;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      const int c = ac + CH * j;
+      const int c = cb + ac + CH * j;
       if (c < d) st(out, (long long)r * d + c, acc[i][j]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4b: dw, one (group, 16-column tile) per block, full d in registers
+// K4b: dw, one (group, 16-column tile, d slice) per block
 // ---------------------------------------------------------------------------
 
 constexpr int W_BV = 16, W_BT = 64, W_BK = 32;
@@ -328,24 +334,18 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const int* __restrict__ labels, const float* __restrict__ lse,
              const float* __restrict__ gsc, T* __restrict__ dw, int Tn, int d,
              int V, long long xg, long long wg) {
-  extern __shared__ float sm[];
-  float* Wb = sm;                        // [d][W_BV+1] the block's w columns
-  float* Xs = Wb + d * (W_BV + 1);       // [W_BK][W_BT+1] x tile, k-major
-  float* Ps = Xs + W_BK * (W_BT + 1);    // [W_BT][W_BV+1]
-  float* Xc = Ps + W_BT * (W_BV + 1);    // [W_BT][CH+1] x chunk
+  __shared__ float Wb[W_BK][W_BV + 1];       // w chunk (logits)
+  __shared__ float Xs[W_BK * (W_BT + 1)];    // [W_BK][W_BT+1] x tile, k-major
+  __shared__ float Ps[W_BT * (W_BV + 1)];
+  __shared__ float Xc[W_BT * (CH + 1)];      // [W_BT][CH+1] x chunk
 
   const int g = blockIdx.y;
-  const int v0 = blockIdx.x * W_BV;
+  const int v0 = blockIdx.x * W_BV, cb = blockIdx.z * DSW;
   const int tid = threadIdx.x;
   const T* xb = x + g * xg;
   const T* wb = w + g * wg;
   const float scale = gsc[g] / (float)Tn;
 
-  for (int e = tid; e < d * W_BV; e += NT) {
-    const int k = e / W_BV, c = e % W_BV;
-    Wb[k * (W_BV + 1) + c] =
-        v0 + c < V ? ld(wb, (long long)k * V + v0 + c) : 0.f;
-  }
   // logits layout: rows lr + 16 i, col lc
   const int lc = tid % 16, lr = tid / 16;
   // accumulator layout: cols (of d) ac + 64 j, vocab columns ag*4 + q
@@ -366,10 +366,15 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                      ? ld(xb, (long long)(t0 + r) * d + k0 + k)
                                      : 0.f;
       }
+      for (int e = tid; e < W_BK * W_BV; e += NT) {
+        const int k = e / W_BV, c = e % W_BV;
+        Wb[k][c] = (k0 + k < d && v0 + c < V)
+                       ? ld(wb, (long long)(k0 + k) * V + v0 + c) : 0.f;
+      }
       __syncthreads();
       const int kn = min(W_BK, d - k0);
       for (int k = 0; k < kn; ++k) {
-        const float b = Wb[(k0 + k) * (W_BV + 1) + lc];
+        const float b = Wb[k][lc];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           lg[i] = fmaf(Xs[k * (W_BT + 1) + lr + 16 * i], b, lg[i]);
@@ -386,7 +391,7 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      const int c0 = j * CH;
+      const int c0 = cb + j * CH;
       if (c0 < d) {
         __syncthreads();                  // Ps written / Xc free
         for (int e = tid; e < W_BT * CH; e += NT) {
@@ -409,7 +414,7 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   T* out = dw + (long long)g * d * V;
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
-    const int c = ac + CH * j;
+    const int c = cb + ac + CH * j;
     if (c >= d) continue;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -427,16 +432,19 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // exact products of the bf16 inputs summed in fp32, as on the CUDA cores;
 // P enters its products rounded to bf16 (relative error at most 2^-8, the
 // same as the bf16 output's own rounding).  Blocking follows the CUDA-core
-// versions: K3 a 64-row block walking its vocab split; K4a 16 full dx
-// rows, K4b 16 full dw columns, each owner summing its outputs in a fixed
-// order.
+// versions: K3 a 64-row block walking its vocab split; K4a 16 dx rows, K4b
+// 16 dw columns, each over one d slice, each owner summing its outputs in
+// a fixed order.  x and w stream through shared memory in 64-deep chunks
+// of d.
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TC_KC = 32;               // d chunk of K3/K4a's streamed w tiles
+constexpr int TC_KC = 64;               // d chunk of the streamed logit tiles
 constexpr int TC_LD = 64 + 8;           // row stride of the 64-wide tiles
 constexpr int TCX_BT = 16, TC_CH = 128; // K4a rows; d chunk of the P products
 constexpr int TCW_BV = 16, TCW_BT = 64; // K4b vocab columns; token tile
+static_assert(TCX_BT == X_BT && TCW_BV == W_BV,
+              "the two versions of K4a/K4b share their grids");
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -520,10 +528,6 @@ __device__ __forceinline__ void tile_copy(bf16* dst, int ldd, const bf16* src,
   }
 }
 
-__host__ __device__ __forceinline__ int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
-
 // K3 on the tensor cores.  Warp w computes rows 16 (w % 4) .. +16 and
 // columns 32 (w / 4) .. +32 of each 64 x 64 logits tile.
 __global__ void __launch_bounds__(NT)
@@ -531,11 +535,9 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                  const int* __restrict__ labels, float* __restrict__ part,
                  int G, int Tn, int d, int V, long long xg, long long wg,
                  int nsplit, int tiles_per_split) {
-  extern __shared__ float smf[];
-  const int dp = round_up(d, TC_KC), ldx = dp + 8;
-  float* Ls = smf;                                   // [64][65] logits
-  bf16* Xs = reinterpret_cast<bf16*>(Ls + F_BT * (F_BV + 1));  // [64][ldx]
-  bf16* Ws = Xs + F_BT * ldx;                        // [TC_KC][TC_LD] [c][v]
+  __shared__ float Ls[F_BT * (F_BV + 1)];            // [64][65] logits
+  __shared__ __align__(16) bf16 Xs[F_BT * TC_LD];    // [64][TC_LD]  [t][c]
+  __shared__ __align__(16) bf16 Ws[TC_KC * TC_LD];   // [TC_KC][TC_LD] [c][v]
 
   const int g = blockIdx.z, sp = blockIdx.y, r0 = blockIdx.x * F_BT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -543,7 +545,6 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int mb = (warp & 3) * 16, nb = (warp >> 2) * 32;
   const bf16* xb = x + g * xg;
   const bf16* wb = w + g * wg;
-  tile_copy<false>(Xs, ldx, xb, d, r0, 0, Tn, d, F_BT, dp);
   const int srow = tid >> 2, slane = tid & 3, trow = r0 + srow;
   const int lab = trow < Tn ? labels[(long long)g * Tn + trow] : -1;
   float m = NEG, l = 0.f, pk = 0.f;
@@ -553,14 +554,15 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int vt = sp * tiles_per_split; vt < vt_end; ++vt) {
     const int v0 = vt * F_BV;
     float acc[4][4] = {};
-    for (int k0 = 0; k0 < dp; k0 += TC_KC) {
-      __syncthreads();                     // Xs loaded / Ws free
+    for (int k0 = 0; k0 < d; k0 += TC_KC) {
+      __syncthreads();                     // previous chunk consumed
+      tile_copy<false>(Xs, TC_LD, xb, d, r0, k0, Tn, d, F_BT, TC_KC);
       tile_copy<false>(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < TC_KC; kk += 16) {
         uint32_t a[4];
-        frag_a(Xs, ldx, mb, k0 + kk, gq, tq, a);
+        frag_a(Xs, TC_LD, mb, kk, gq, tq, a);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t b[2];
@@ -583,30 +585,27 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   write_part(part, m, l, pk, G, Tn, nsplit, g, sp, trow, slane);
 }
 
-// K4a on the tensor cores: 16 dx rows, d <= 128 * NCH.  Per 64-wide vocab
-// tile, warp w computes logits columns 8w .. 8w+8 over all of d, writes its
-// P to shared memory, then adds P w^T to its dx columns 128 j + 16 w .. +16
-// of every d chunk j.
+// K4a on the tensor cores: 16 dx rows over the d slice cb .. cb + 128 NCH.
+// Per 64-wide vocab tile, warp w computes logits columns 8w .. 8w+8 over
+// all of d, writes its P to shared memory, then adds P w^T to its dx
+// columns cb + 128 j + 16 w .. +16 of every d chunk j of the slice.
 template <int NCH>
 __global__ void __launch_bounds__(NT)
 ce_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const int* __restrict__ labels, const float* __restrict__ lse,
                 const float* __restrict__ gsc, bf16* __restrict__ dx, int Tn,
                 int d, int V, long long xg, long long wg) {
-  extern __shared__ float smf[];
-  const int dp = round_up(d, TC_KC), ldx = dp + 8;
-  bf16* Xs = reinterpret_cast<bf16*>(smf);     // [16][ldx]
-  bf16* Ws = Xs + TCX_BT * ldx;                // [TC_KC][TC_LD]  [c][v]
-  bf16* Ps = Ws + TC_KC * TC_LD;               // [16][TC_LD]     [r][v]
-  bf16* Wc = Ps + TCX_BT * TC_LD;              // [TC_CH][TC_LD]  [c][v]
+  __shared__ __align__(16) bf16 Xs[TCX_BT * TC_LD];  // [16][TC_LD]     [r][c]
+  __shared__ __align__(16) bf16 Ws[TC_KC * TC_LD];   // [TC_KC][TC_LD]  [c][v]
+  __shared__ __align__(16) bf16 Ps[TCX_BT * TC_LD];  // [16][TC_LD]     [r][v]
+  __shared__ __align__(16) bf16 Wc[TC_CH * TC_LD];   // [TC_CH][TC_LD]  [c][v]
 
-  const int g = blockIdx.y, r0 = blockIdx.x * TCX_BT;
+  const int g = blockIdx.y, r0 = blockIdx.x * TCX_BT, cb = blockIdx.z * DSW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const bf16* xb = x + g * xg;
   const bf16* wb = w + g * wg;
   const float scale = gsc[g] / (float)Tn;
-  tile_copy<false>(Xs, ldx, xb, d, r0, 0, Tn, d, TCX_BT, dp);
   int lab[2];
   float lse_r[2];
   bool ok[2];
@@ -623,14 +622,15 @@ ce_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int vt = 0; vt < nv; ++vt) {
     const int v0 = vt * F_BV;
     float sl[4] = {};
-    for (int k0 = 0; k0 < dp; k0 += TC_KC) {
-      __syncthreads();
+    for (int k0 = 0; k0 < d; k0 += TC_KC) {
+      __syncthreads();                     // previous chunk / Ps consumed
+      tile_copy<false>(Xs, TC_LD, xb, d, r0, k0, Tn, d, TCX_BT, TC_KC);
       tile_copy<false>(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < TC_KC; kk += 16) {
         uint32_t a[4], b[2];
-        frag_a(Xs, ldx, 0, k0 + kk, gq, tq, a);
+        frag_a(Xs, TC_LD, 0, kk, gq, tq, a);
         frag_b_kn(Ws, TC_LD, kk, 8 * warp, lane, b);
         mma_bf16(sl, a, b);
       }
@@ -645,7 +645,7 @@ ce_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    scale));
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
-      const int c0 = j * TC_CH;
+      const int c0 = cb + j * TC_CH;
       if (c0 < d) {
         __syncthreads();                   // Ps written / Wc free
         tile_copy<false>(Wc, TC_LD, wb, V, c0, v0, d, V, TC_CH, F_BV);
@@ -673,51 +673,50 @@ ce_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int cc = j * TC_CH + 16 * warp + 8 * nt + 2 * tq + i;
+          const int cc = cb + j * TC_CH + 16 * warp + 8 * nt + 2 * tq + i;
           if (ok[h] && cc < d)
             out[(long long)(r0 + gq + 8 * h) * d + cc] =
                 __float2bfloat16(acc[j][nt][2 * h + i]);
         }
 }
 
-// K4b on the tensor cores: 16 dw columns, d <= 128 * NCH.  Per 64-token
-// tile, warp w computes logits rows 16 (w % 4) .. +16, columns 8 (w / 4)
-// .. +8 over all of d, writes P^T to shared memory, then adds x^T P to its
-// dw rows 128 j + 16 w .. +16 of every d chunk j.
+// K4b on the tensor cores: 16 dw columns over the d slice cb .. cb + 128
+// NCH.  Per 64-token tile, warp w computes logits rows 16 (w % 4) .. +16,
+// columns 8 (w / 4) .. +8 over all of d, writes P^T to shared memory, then
+// adds x^T P to its dw rows cb + 128 j + 16 w .. +16 of every d chunk j of
+// the slice.
 template <int NCH>
 __global__ void __launch_bounds__(NT)
 ce_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const int* __restrict__ labels, const float* __restrict__ lse,
                 const float* __restrict__ gsc, bf16* __restrict__ dw, int Tn,
                 int d, int V, long long xg, long long wg) {
-  extern __shared__ float smf[];
-  const int dp = round_up(d, 64), ldw = dp + 8;
-  bf16* Wt = reinterpret_cast<bf16*>(smf);     // [16][ldw]       [v][c]
-  bf16* Xs = Wt + TCW_BV * ldw;                // [64][TC_LD]     [t][c]
-  bf16* Pt = Xs + TCW_BT * TC_LD;              // [16][TC_LD]     [v][t]
-  bf16* Xc = Pt + TCW_BV * TC_LD;              // [TC_CH][TC_LD]  [c][t]
+  __shared__ __align__(16) bf16 Xs[TCW_BT * TC_LD];  // [64][TC_LD]     [t][c]
+  __shared__ __align__(16) bf16 Wt[TCW_BV * TC_LD];  // [16][TC_LD]     [v][c]
+  __shared__ __align__(16) bf16 Pt[TCW_BV * TC_LD];  // [16][TC_LD]     [v][t]
+  __shared__ __align__(16) bf16 Xc[TC_CH * TC_LD];   // [TC_CH][TC_LD]  [c][t]
 
-  const int g = blockIdx.y, v0 = blockIdx.x * TCW_BV;
+  const int g = blockIdx.y, v0 = blockIdx.x * TCW_BV, cb = blockIdx.z * DSW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int mb = (warp & 3) * 16, nb = (warp >> 2) * 8;
   const bf16* xb = x + g * xg;
   const bf16* wb = w + g * wg;
   const float scale = gsc[g] / (float)Tn;
-  tile_copy<true>(Wt, ldw, wb, V, 0, v0, d, V, dp, TCW_BV);
   float acc[NCH][2][4] = {};
 
   for (int t0 = 0; t0 < Tn; t0 += TCW_BT) {
     float sl[4] = {};
-    for (int k0 = 0; k0 < dp; k0 += 64) {
-      __syncthreads();                     // Wt loaded / Xs free
-      tile_copy<false>(Xs, TC_LD, xb, d, t0, k0, Tn, d, TCW_BT, 64);
+    for (int k0 = 0; k0 < d; k0 += TC_KC) {
+      __syncthreads();                     // previous chunk / Pt consumed
+      tile_copy<false>(Xs, TC_LD, xb, d, t0, k0, Tn, d, TCW_BT, TC_KC);
+      tile_copy<true>(Wt, TC_LD, wb, V, k0, v0, d, V, TC_KC, TCW_BV);
       __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < 64; kk += 16) {
+      for (int kk = 0; kk < TC_KC; kk += 16) {
         uint32_t a[4], b[2];
         frag_a(Xs, TC_LD, mb, kk, gq, tq, a);
-        frag_b_nk(Wt, ldw, k0 + kk, nb, gq, tq, b);
+        frag_b_nk(Wt, TC_LD, kk, nb, gq, tq, b);
         mma_bf16(sl, a, b);
       }
     }
@@ -737,7 +736,7 @@ ce_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
-      const int c0 = j * TC_CH;
+      const int c0 = cb + j * TC_CH;
       if (c0 < d) {
         __syncthreads();                   // Pt written / Xc free
         tile_copy<true>(Xc, TC_LD, xb, d, t0, c0, Tn, d, TCW_BT, TC_CH);
@@ -765,7 +764,7 @@ ce_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int c = j * TC_CH + 16 * warp + gq + 8 * h;
+          const int c = cb + j * TC_CH + 16 * warp + gq + 8 * h;
           const int v = v0 + 8 * nt + 2 * tq + i;
           if (c < d && v < V)
             out[(long long)c * V + v] = __float2bfloat16(acc[j][nt][2 * h + i]);
@@ -773,33 +772,8 @@ ce_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Launchers
+// Launchers (every kernel's shared memory is static, under 48 KB)
 // ---------------------------------------------------------------------------
-
-size_t dx_smem(int d) {
-  return sizeof(float) * ((size_t)X_BT * (d + 1) + X_BK * X_BV +
-                          X_BT * (X_BV + 1) + X_BV * (CH + 1));
-}
-
-size_t dw_smem(int d) {
-  return sizeof(float) * ((size_t)d * (W_BV + 1) + W_BK * (W_BT + 1) +
-                          W_BT * (W_BV + 1) + W_BT * (CH + 1));
-}
-
-size_t fwd_tc_smem(int d) {
-  return sizeof(float) * F_BT * (F_BV + 1) +
-         sizeof(bf16) * (F_BT * (round_up(d, TC_KC) + 8) + TC_KC * TC_LD);
-}
-
-size_t dx_tc_smem(int d) {
-  return sizeof(bf16) * (TCX_BT * (round_up(d, TC_KC) + 8) +
-                         (TC_KC + TCX_BT + TC_CH) * TC_LD);
-}
-
-size_t dw_tc_smem(int d) {
-  return sizeof(bf16) * (TCW_BV * (round_up(d, 64) + 8) +
-                         (TCW_BT + TCW_BV + TC_CH) * TC_LD);
-}
 
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* w, const int* labels,
@@ -808,12 +782,7 @@ cudaError_t launch_fwd(const void* x, const void* w, const int* labels,
                        int tps, cudaStream_t st) {
   dim3 grid((Tn + F_BT - 1) / F_BT, nsplit, G);
   if constexpr (std::is_same<T, bf16>::value) {
-    // once, before any graph capture, for the largest d taken
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        ce_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)fwd_tc_smem(16 * CH));
-    if (attr != cudaSuccess) return attr;
-    ce_fwd_tc_kernel<<<grid, NT, fwd_tc_smem(d), st>>>(
+    ce_fwd_tc_kernel<<<grid, NT, 0, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), labels,
         part, G, Tn, d, V, xg, wg, nsplit, tps);
   } else {
@@ -829,65 +798,33 @@ cudaError_t launch_fwd(const void* x, const void* w, const int* labels,
   return cudaGetLastError();
 }
 
-template <int NCH>
-cudaError_t launch_tc(bool dx_not_dw, const void* x, const void* w,
-                      const int* labels, const float* lse, const float* gsc,
-                      void* out, int G, int Tn, int d, int V, long long xg,
-                      long long wg, cudaStream_t st) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  bf16* ob = static_cast<bf16*>(out);
+// One backward kernel; N is the instance's number of d chunks per slice
+// (TC_CH wide on the tensor cores, CH on the CUDA cores).
+template <typename T, int N>
+cudaError_t launch_one(bool dx_not_dw, const void* x, const void* w,
+                       const int* labels, const float* lse, const float* gsc,
+                       void* out, int G, int Tn, int d, int V, long long xg,
+                       long long wg, int nds, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
   if (dx_not_dw) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        ce_dx_tc_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dx_tc_smem(NCH * TC_CH));
-    if (attr != cudaSuccess) return attr;
-    dim3 grid((Tn + TCX_BT - 1) / TCX_BT, G);
-    ce_dx_tc_kernel<NCH><<<grid, NT, dx_tc_smem(d), st>>>(
-        xb, wb, labels, lse, gsc, ob, Tn, d, V, xg, wg);
+    dim3 grid((Tn + X_BT - 1) / X_BT, G, nds);
+    if constexpr (std::is_same<T, bf16>::value)
+      ce_dx_tc_kernel<N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
+                                              Tn, d, V, xg, wg);
+    else
+      ce_dx_kernel<T, N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
+                                              Tn, d, V, xg, wg);
   } else {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        ce_dw_tc_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dw_tc_smem(NCH * TC_CH));
-    if (attr != cudaSuccess) return attr;
-    dim3 grid((V + TCW_BV - 1) / TCW_BV, G);
-    ce_dw_tc_kernel<NCH><<<grid, NT, dw_tc_smem(d), st>>>(
-        xb, wb, labels, lse, gsc, ob, Tn, d, V, xg, wg);
+    dim3 grid((V + W_BV - 1) / W_BV, G, nds);
+    if constexpr (std::is_same<T, bf16>::value)
+      ce_dw_tc_kernel<N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
+                                              Tn, d, V, xg, wg);
+    else
+      ce_dw_kernel<T, N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
+                                              Tn, d, V, xg, wg);
   }
-  return cudaGetLastError();
-}
-
-// The dynamic shared memory limit is raised once per instance, before any
-// graph capture, to what the largest d of its CPT needs.
-template <typename T, int CPT>
-cudaError_t launch_dx(const void* x, const void* w, const int* labels,
-                      const float* lse, const float* gsc, void* out, int G,
-                      int Tn, int d, int V, long long xg, long long wg,
-                      cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ce_dx_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dx_smem(CPT * CH));
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((Tn + X_BT - 1) / X_BT, G);
-  ce_dx_kernel<T, CPT><<<grid, NT, dx_smem(d), st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), labels, lse, gsc,
-      static_cast<T*>(out), Tn, d, V, xg, wg);
-  return cudaGetLastError();
-}
-
-template <typename T, int CPT>
-cudaError_t launch_dw(const void* x, const void* w, const int* labels,
-                      const float* lse, const float* gsc, void* out, int G,
-                      int Tn, int d, int V, long long xg, long long wg,
-                      cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ce_dw_kernel<T, CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dw_smem(CPT * CH));
-  if (attr != cudaSuccess) return attr;
-  dim3 grid((V + W_BV - 1) / W_BV, G);
-  ce_dw_kernel<T, CPT><<<grid, NT, dw_smem(d), st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), labels, lse, gsc,
-      static_cast<T*>(out), Tn, d, V, xg, wg);
   return cudaGetLastError();
 }
 
@@ -895,27 +832,19 @@ template <typename T>
 cudaError_t launch_bwd(bool dx_not_dw, const void* x, const void* w,
                        const int* labels, const float* lse, const float* gsc,
                        void* out, int G, int Tn, int d, int V, long long xg,
-                       long long wg, cudaStream_t st) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int nch = (d + TC_CH - 1) / TC_CH;
-#define CE_CASE(N)                                                           \
-    if (nch <= N)                                                            \
-      return launch_tc<N>(dx_not_dw, x, w, labels, lse, gsc, out, G, Tn, d, \
-                          V, xg, wg, st);
-    CE_CASE(1) CE_CASE(2) CE_CASE(4) CE_CASE(8)
+                       long long wg, int nds, cudaStream_t st) {
+  if (nds != (d + DSW - 1) / DSW) return cudaErrorInvalidValue;
+  const int width = d < DSW ? d : DSW;        // columns of the widest slice
+  const int nch = std::is_same<T, bf16>::value
+                      ? (width + TC_CH - 1) / TC_CH : (width + CH - 1) / CH;
+#define CE_CASE(N)                                                            \
+  if (nch <= N)                                                               \
+    return launch_one<T, N>(dx_not_dw, x, w, labels, lse, gsc, out, G, Tn, d, \
+                            V, xg, wg, nds, st);
+  CE_CASE(1) CE_CASE(2) CE_CASE(4) CE_CASE(8)
+  if constexpr (!std::is_same<T, bf16>::value) { CE_CASE(16) }
 #undef CE_CASE
-  } else {
-    const int cpt = (d + CH - 1) / CH;
-#define CE_CASE(N)                                                          \
-    if (cpt <= N)                                                           \
-      return dx_not_dw ? launch_dx<T, N>(x, w, labels, lse, gsc, out, G,    \
-                                         Tn, d, V, xg, wg, st)              \
-                       : launch_dw<T, N>(x, w, labels, lse, gsc, out, G,    \
-                                         Tn, d, V, xg, wg, st);
-    CE_CASE(1) CE_CASE(2) CE_CASE(4) CE_CASE(8) CE_CASE(16)
-#undef CE_CASE
-  }
-  return cudaErrorInvalidValue;                   // d > 16 * CH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -926,7 +855,6 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels,
                             int Tn, int d, int V, long long xg, long long wg,
                             int nsplit, int tiles_per_split, int dtype,
                             void* stream) {
-  if (d > 16 * CH) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1
                    ? launch_fwd<bf16>(x, w, labels, part, lse, picked, G, Tn,
@@ -937,26 +865,27 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels,
                                        st));
 }
 
+// nds: the number of d slices, ceil(d / 1024) (fused_ce.launch_plan).
 extern "C" int fused_ce_dx(const void* x, const void* w, const int* labels,
                            const float* lse, const float* g, void* dx, int G,
                            int Tn, int d, int V, long long xg, long long wg,
-                           int dtype, void* stream) {
+                           int nds, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1
-                   ? launch_bwd<bf16>(true, x, w, labels, lse, g, dx,
-                                               G, Tn, d, V, xg, wg, st)
+                   ? launch_bwd<bf16>(true, x, w, labels, lse, g, dx, G, Tn,
+                                      d, V, xg, wg, nds, st)
                    : launch_bwd<float>(true, x, w, labels, lse, g, dx, G, Tn,
-                                       d, V, xg, wg, st));
+                                       d, V, xg, wg, nds, st));
 }
 
 extern "C" int fused_ce_dw(const void* x, const void* w, const int* labels,
                            const float* lse, const float* g, void* dw, int G,
                            int Tn, int d, int V, long long xg, long long wg,
-                           int dtype, void* stream) {
+                           int nds, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 1
-                   ? launch_bwd<bf16>(false, x, w, labels, lse, g,
-                                               dw, G, Tn, d, V, xg, wg, st)
+                   ? launch_bwd<bf16>(false, x, w, labels, lse, g, dw, G, Tn,
+                                      d, V, xg, wg, nds, st)
                    : launch_bwd<float>(false, x, w, labels, lse, g, dw, G, Tn,
-                                       d, V, xg, wg, st));
+                                       d, V, xg, wg, nds, st));
 }

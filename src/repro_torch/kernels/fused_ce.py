@@ -5,6 +5,9 @@
 All three are grouped: ``x [G, T, d]``, ``w [G, d, V]`` (a group stride of
 0 shares one ``w`` or ``x`` across groups), ``labels [G, T]`` int32; the
 client ``vmap`` folds its clients into ``G`` so one launch serves them all.
+Any d runs: the kernels stream x and w through shared memory in chunks of
+d, and K4a/K4b blocks each own a slice of at most ``D_SLICE`` columns of
+d (``launch_plan``).
 
 On a CPU tensor a wrapper computes the plain version in ``kernels/ref.py``;
 on a ``meta`` tensor it returns empty outputs of the right shapes and
@@ -16,9 +19,11 @@ import torch
 
 from repro_torch.kernels import ref
 
-# K3's tile, compiled into csrc/fused_ce.cu (its grid is computed here).
-FWD_ROWS, VOCAB_TILE = 64, 64       # token rows per block, vocab tile
-MAX_D = 1024                        # the kernels hold a full d row on chip
+# Tiles compiled into csrc/fused_ce.cu (the grids are computed here).
+FWD_ROWS, VOCAB_TILE = 64, 64       # K3: token rows per block, vocab tile
+DX_ROWS, DW_COLS = 16, 16           # K4a dx rows, K4b dw columns per block
+D_SLICE = 1024                      # K4a/K4b: d columns per block (DSW)
+GRID_YZ = 65535                     # CUDA's limit on gridDim.y and .z
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,6 +52,24 @@ def vocab_splits(g: int, t: int, v: int, sms: int = 132):
     return _cdiv(nv, tps), tps
 
 
+def launch_plan(g: int, t: int, d: int, v: int, sms: int = 132) -> dict:
+    """The three kernels' grids for ``x [g, t, d]``, ``w [g, d, v]``: K3's
+    ``(row blocks, vocab splits, g)``, K4a's ``(row blocks, g, d slices)``,
+    K4b's ``(vocab blocks, g, d slices)``.  Raises ``ValueError`` where a
+    grid exceeds CUDA's limits."""
+    nsplit, tps = vocab_splits(g, t, v, sms)
+    nds = _cdiv(d, D_SLICE)
+    grids = {"fused_ce_fwd": (_cdiv(t, FWD_ROWS), nsplit, g),
+             "fused_ce_dx": (_cdiv(t, DX_ROWS), g, nds),
+             "fused_ce_dw": (_cdiv(v, DW_COLS), g, nds)}
+    for name, (gx, gy, gz) in grids.items():
+        if gx > 2**31 - 1 or gy > GRID_YZ or gz > GRID_YZ:
+            raise ValueError(f"{name}: grid {(gx, gy, gz)} exceeds CUDA's "
+                             f"limits at G={g}, T={t}, d={d}, V={v}")
+    return {"nsplit": nsplit, "tiles_per_split": tps, "d_slices": nds,
+            "grids": grids}
+
+
 def _shapes(x, w, labels):
     if x.dim() != 3 or w.dim() != 3 or labels.dim() != 2:
         raise ValueError(f"need x [G,T,d], w [G,d,V], labels [G,T]; got "
@@ -56,7 +79,7 @@ def _shapes(x, w, labels):
     if w.shape[:2] != (g, d) or tuple(labels.shape) != (g, t):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, labels {tuple(labels.shape)}")
-    if g == 0 or t == 0 or w.shape[2] == 0:
+    if g == 0 or t == 0 or d == 0 or w.shape[2] == 0:
         raise ValueError("empty fused_ce operands")
     return g, t, d, w.shape[2]
 
@@ -99,13 +122,12 @@ def fused_ce_fwd(x, w, labels):
         return out, torch.empty_like(out)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ce_fwd runs on cpu or cuda, not {x.device}")
-    if d > MAX_D:
-        raise ValueError(f"fused_ce_fwd takes d <= {MAX_D}, got {d}")
     from repro_torch.kernels._build import load
     _check_cuda(x, w, labels)
     xg, wg = _group_stride(x, "x"), _group_stride(w, "w")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit, tps = vocab_splits(g, t, v, sms)
+    plan = launch_plan(g, t, d, v, sms)
+    nsplit, tps = plan["nsplit"], plan["tiles_per_split"]
     lse = torch.empty((g, t), dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
     part = torch.empty((3, g, nsplit, t), dtype=torch.float32,
@@ -134,15 +156,14 @@ def _bwd(name, x, w, labels, lse, g):
         return torch.empty(shape, dtype=dtype, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
-    if d > MAX_D:
-        raise ValueError(f"{name} takes d <= {MAX_D}, got {d}")
     from repro_torch.kernels._build import load
     _check_cuda(x, w, labels, (lse, g))
     xg, wg = _group_stride(x, "x"), _group_stride(w, "w")
+    nds = launch_plan(gn, t, d, v)["d_slices"]
     out = torch.empty(shape, dtype=dtype, device=x.device)
     err = getattr(load("fused_ce"), name)(
         x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), out.data_ptr(), gn, t, d, v, xg, wg,
+        g.data_ptr(), out.data_ptr(), gn, t, d, v, xg, wg, nds,
         DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

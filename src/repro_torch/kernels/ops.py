@@ -6,19 +6,25 @@
     kernel forward (K6); the backward recomputes in plain tensor ops from
     q, k, v (``ref.swa_attention_bwd``), as the JAX package's backward
     recomputes through its reference.
+  - ``ssm_scan(u, dt, a, b, c, d, chunk)``: the Mamba-1 selective scan;
+    kernel forward (K5); the backward recomputes chunk by chunk in plain
+    tensor ops (``ref.ssm_scan_bwd``), as the JAX package's backward
+    recomputes through ``selective_scan``.
 
-Both are ``torch.autograd.Function``s built for ``torch.func``: ``forward``
-takes no ``ctx`` (``setup_context`` saves the residuals) and a ``vmap``
-staticmethod folds the vmapped dim into the kernels' group / batch dim, so
-the client phase's ``vmap(grad_and_value(...))`` makes one kernel call for
-all clients.  Each backward is itself such a Function, so the vmapped
-backward folds the same way, and ``torch.func.grad``'s
-``create_graph=True`` records none of the backward's temporaries.  On CPU tensors the same Functions run
-with the plain versions inside; on ``meta`` tensors they produce shapes.
+All three are ``torch.autograd.Function``s built for ``torch.func``:
+``forward`` takes no ``ctx`` (``setup_context`` saves the residuals) and a
+``vmap`` staticmethod folds the vmapped dim into the kernels' group /
+batch dim, so the client phase's ``vmap(grad_and_value(...))`` makes one
+kernel call for all clients.  Each backward is itself such a Function, so
+the vmapped backward folds the same way, and ``torch.func.grad``'s
+``create_graph=True`` records none of the backward's temporaries.  On CPU
+tensors the same Functions run with the plain versions inside; on
+``meta`` tensors they produce shapes.
 
 Tile sizes are compiled into the CUDA sources, derived for Hopper's shared
-memory and registers (each source's note says how); the one size chosen
-per call is K3's vocabulary split (``fused_ce.vocab_splits``).
+memory and registers (each source's note says how); the sizes chosen per
+call are K3's vocabulary split and K4a/K4b's d slices
+(``fused_ce.launch_plan``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import fused_ce as _ce
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import swa_attention as _swa
 
 
@@ -172,3 +179,69 @@ class SWAttention(torch.autograd.Function):
 def swa_attention(q, k, v, window: int):
     """Sliding-window causal attention.  q: [B,S,H,hd]; k,v: [B,S,KH,hd]."""
     return SWAttention.apply(q, k, v, window)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan
+# ---------------------------------------------------------------------------
+
+
+class SSMScanBwd(torch.autograd.Function):
+    """``(du, ddt, da, db, dc, dd)`` of the grouped scan, recomputed chunk
+    by chunk in plain tensor ops.  A Function of its own so that
+    ``torch.func.grad`` (``create_graph=True``) records none of its
+    ``[B, chunk, D, N]`` temporaries."""
+
+    @staticmethod
+    def forward(u, dt, a, b, c, d, gy, chunk):
+        return ref.ssm_scan_bwd(u, dt, a, b, c, d, gy, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("ssm_scan has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, u, dt, a, b, c, d, gy, chunk):
+        n = info.batch_size
+        out = SSMScanBwd.apply(*(_fold(t, i, n) for t, i in
+                                 zip((u, dt, a, b, c, d, gy), in_dims[:7])),
+                               chunk)
+        return tuple(_unfold(t, n) for t in out), (0,) * 6
+
+
+class SSMScan(torch.autograd.Function):
+    """Grouped scan: u, dt [B,S,D], a [G,D,N], b, c [B,S,N], d [G,D] ->
+    y [B,S,D]; batch row i uses group ``i // (B // G)``, so the vmapped
+    clients, each with its own ``a``/``d``, fold into one launch."""
+
+    @staticmethod
+    def forward(u, dt, a, b, c, d, chunk):
+        return _ssm.ssm_scan_fwd(*(t.contiguous() for t in (u, dt, a, b, c,
+                                                            d)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:6])
+        ctx.chunk = inputs[6]
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (*SSMScanBwd.apply(*ctx.saved_tensors, gy, ctx.chunk), None)
+
+    @staticmethod
+    def vmap(info, in_dims, u, dt, a, b, c, d, chunk):
+        n = info.batch_size
+        y = SSMScan.apply(*(_fold(t, i, n) for t, i in
+                            zip((u, dt, a, b, c, d), in_dims[:6])), chunk)
+        return _unfold(y, n), 0
+
+
+def ssm_scan(u, dt, a, b_mat, c_mat, d_vec, chunk: int = 128):
+    """Mamba-1 selective scan.  u, dt: [B,S,D]; a: [D,N]; b_mat, c_mat:
+    [B,S,N]; d_vec: [D] -> [B,S,D] in u's dtype."""
+    cs = chunk if u.shape[1] % chunk == 0 else u.shape[1]
+    return SSMScan.apply(u, dt, a[None], b_mat, c_mat, d_vec[None], cs)

@@ -5,6 +5,9 @@
 ``repro.kernels.ref`` does; ``fused_ce_fwd``/``fused_ce_bwd`` have the CUDA
 kernels' grouped signatures and ``swa_attention_bwd`` is the backward every
 device runs (the JAX package has no backward kernel for K6 either).
+``ssm_scan`` (the Mamba-1 scan, K5) steps through time as
+``repro.kernels.ref.ssm_scan`` does, with K5's grouped ``a``/``d``;
+``ssm_scan_bwd`` is its backward on every device, chunk by chunk.
 
 ``quantize_2d`` repeats the per-tile quantizer's arithmetic step for step
 (``repro.kernels.ref.quantize_2d``): given the same uint32 random bits it
@@ -293,3 +296,126 @@ def swa_attention_bwd(q, k, v, g, window: int):
         dk = dk.reshape(b, s, kh, rep, hd).sum(3)
         dv = dv.reshape(b, s, kh, rep, hd).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+
+
+def _per_batch(a, d, bsz: int):
+    """K5's grouped ``a [G,D,N]`` / ``d [G,D]`` (or ungrouped ``[D,N]`` /
+    ``[D]``) as one row per batch row: batch row i uses group
+    ``i // (B // G)``."""
+    if a.dim() == 2:
+        a, d = a[None], d[None]
+    g = a.shape[0]
+    if bsz % g:
+        raise ValueError(f"batch {bsz} is not a multiple of {g} groups")
+    return (a.float().repeat_interleave(bsz // g, 0),
+            d.float().repeat_interleave(bsz // g, 0))
+
+
+def ssm_scan(u, dt, a, b_mat, c_mat, d_vec):
+    """Sequential-in-time Mamba-1 scan (the plain version of K5).
+
+    u, dt: [B,S,D]; a: [G,D,N] (or [D,N]); b_mat, c_mat: [B,S,N];
+    d_vec: [G,D] (or [D]) -> y [B,S,D] in u's dtype, with fp32 state:
+    h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) b_t ;  y_t = c_t . h_t + d u_t.
+    """
+    bsz, s, dim = u.shape
+    ab, db = _per_batch(a, d_vec, bsz)
+    h = torch.zeros(ab.shape, dtype=torch.float32, device=u.device)
+    y = torch.empty((bsz, s, dim), dtype=torch.float32, device=u.device)
+    for t in range(s):
+        dtt, ut = dt[:, t].float(), u[:, t].float()
+        h = torch.exp(dtt[..., None] * ab) * h \
+            + (dtt * ut)[..., None] * b_mat[:, t, None, :].float()
+        y[:, t] = torch.einsum("bdn,bn->bd", h, c_mat[:, t].float()) \
+            + db * ut
+    return y.to(u.dtype)
+
+
+def _linear_scan_(a, b):
+    """``models.layers.linear_scan``'s doubling scan of
+    ``h_t = a_t h_{t-1} + b_t`` along dim 1, in place and with the same
+    arithmetic: ``a`` becomes ``prod_{s<=t} a_s`` and ``b`` becomes ``h``.
+    Outside autograd only."""
+    k, n = 1, a.shape[1]
+    while k < n:
+        b[:, k:] += a[:, k:] * b[:, :-k]
+        a[:, k:] = a[:, k:] * a[:, :-k]
+        k *= 2
+    return b
+
+
+def ssm_scan_bwd(u, dt, a, b_mat, c_mat, d_vec, gy, chunk: int = 128):
+    """Gradients ``(du, ddt, da, db_mat, dc_mat, dd)`` of :func:`ssm_scan`
+    for the output cotangent ``gy``, in the inputs' dtypes; ``da`` and
+    ``dd`` are summed over the batch rows of each group.
+
+    A forward pass over time chunks keeps only the chunk-boundary states
+    ``[nc, B, D, N]``; a reverse walk recomputes each chunk's states and
+    runs the adjoint recurrence
+    ``g_t = c_t gy_t + exp(dt_{t+1} a) g_{t+1}`` with the same doubling
+    scan, so no tensor is larger than ``[B, chunk, D, N]``.  Updates its
+    own temporaries in place, so it runs outside autograd."""
+    bsz, s, dim = u.shape
+    if s % chunk:
+        chunk = s
+    ab, dvec = _per_batch(a, d_vec, bsz)
+    dtf, uf, gyf = dt.float(), u.float(), gy.float()
+    bm, cm = b_mat.float(), c_mat.float()
+
+    def chunk_states(i, h0):
+        """(exp(dt a), states h_t) of the chunk starting at i, from the
+        state h0 before it."""
+        dt_c = dtf[:, i:i + chunk]
+        da = torch.exp(dt_c[..., None] * ab[:, None])
+        h = (dt_c * uf[:, i:i + chunk])[..., None] * bm[:, i:i + chunk,
+                                                       None, :]
+        acc_a = da.clone()
+        return da, _linear_scan_(acc_a, h).addcmul_(acc_a, h0[:, None])
+
+    starts = list(range(0, s, chunk))
+    h0s = [torch.zeros(ab.shape, dtype=torch.float32, device=u.device)]
+    for i in starts[:-1]:
+        h0s.append(chunk_states(i, h0s[-1])[1][:, -1].clone())
+    g_u = torch.empty_like(uf)
+    g_dt = torch.empty_like(dtf)
+    g_b, g_c = torch.empty_like(bm), torch.empty_like(cm)
+    g_a = torch.zeros_like(ab)
+    carry = torch.zeros_like(ab)            # exp(dt_{t+1} a) g_{t+1}
+    for i, h0 in zip(reversed(starts), reversed(h0s)):
+        sl = slice(i, i + chunk)
+        da, h = chunk_states(i, h0)
+        g_c[:, sl] = torch.einsum("bld,bldn->bln", gyf[:, sl], h)
+        h_prev = torch.cat([h0[:, None], h[:, :-1]], 1)
+        del h
+        # reversed in time: g_k = A_k g_{k-1} + e_k, with A_0 g_{-1} the
+        # carry and A_k = exp(dt a) of the step after
+        e = (gyf[:, sl, :, None] * cm[:, sl, None, :]).flip(1)
+        e[:, 0] += carry
+        rev_a = torch.cat([torch.ones_like(da[:, :1]), da.flip(1)[:, :-1]], 1)
+        g = _linear_scan_(rev_a, e).flip(1)                  # [B,L,D,N]
+        del e, rev_a
+        carry = da[:, 0] * g[:, 0]
+        # through db = (dt u) b and da = exp(dt a)
+        gb_sum = torch.einsum("bldn,bln->bld", g, bm[:, sl])
+        dt_c, u_c = dtf[:, sl], uf[:, sl]
+        g_u[:, sl] = dvec[:, None] * gyf[:, sl] + dt_c * gb_sum
+        g_b[:, sl] = torch.einsum("bldn,bld->bln", g, dt_c * u_c)
+        gda = g.mul_(h_prev).mul_(da)                       # g h_{t-1} da
+        del h_prev, da
+        g_dt[:, sl] = torch.einsum("bldn,bdn->bld", gda, ab) + u_c * gb_sum
+        g_a += torch.einsum("bldn,bld->bdn", gda, dt_c)
+        del gda
+    g_d = (gyf * uf).sum(1)
+    if a.dim() == 3:
+        grp = a.shape[0]
+        g_a = g_a.reshape(grp, -1, *g_a.shape[1:]).sum(1)
+        g_d = g_d.reshape(grp, -1, dim).sum(1)
+    else:
+        g_a, g_d = g_a.sum(0), g_d.sum(0)
+    return (g_u.to(u.dtype), g_dt.to(dt.dtype), g_a.to(a.dtype),
+            g_b.to(b_mat.dtype), g_c.to(c_mat.dtype), g_d.to(d_vec.dtype))

@@ -1,9 +1,9 @@
 """Per-layer blocks, init + apply (``repro.models.blocks``), for the dense
-family in training mode.
+and Mamba-1 kinds in training mode.
 
 A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
 Depth comes from params stacked on a leading layer axis (``model.py``).
-The MoE, Mamba and hybrid kinds, and the prefill/decode cache branches,
+The MoE, Mamba-2 and hybrid kinds, and the prefill/decode cache branches,
 come with the slices that port them.
 """
 from __future__ import annotations
@@ -128,13 +128,75 @@ def dense_apply(cfg, p, x, ctx: Ctx, cache):
     return x, new_cache, 0.0
 
 
+# ---------------------------------------------------------------------------
+# Mamba-1 (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+
+def mamba1_init(cfg, gen, dtype, lead=()):
+    d, din, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    dtr, k = cfg.resolved_dt_rank, cfg.ssm_conv
+    lead = tuple(lead)
+    a_init = torch.arange(1, n + 1, dtype=torch.float32).expand(
+        lead + (din, n))
+    return {
+        "ln": torch.ones(lead + (d,), dtype=dtype),
+        "in_proj": _init(gen, lead + (d, 2 * din), d ** -0.5, dtype),
+        "conv_w": _init(gen, lead + (din, k), k ** -0.5, dtype),
+        "conv_b": torch.zeros(lead + (din,), dtype=dtype),
+        "x_proj": _init(gen, lead + (din, dtr + 2 * n), din ** -0.5, dtype),
+        "dt_w": _init(gen, lead + (dtr, din), dtr ** -0.5, dtype),
+        "dt_b": torch.full(lead + (din,), -4.6,        # softplus^-1(0.01)
+                           dtype=dtype),
+        "a_log": torch.log(a_init),
+        "d_skip": torch.ones(lead + (din,), dtype=torch.float32),
+        "out_proj": _init(gen, lead + (din, d), din ** -0.5, dtype),
+    }
+
+
+def _mamba1_inner(cfg, p, xc):
+    """Shared post-conv math.  xc: [B,S,din] (conv output, pre-SiLU)."""
+    n, dtr = cfg.ssm_state, cfg.resolved_dt_rank
+    xc = L.silu(xc)
+    proj = xc @ p["x_proj"]
+    dt_r, b_mat, c_mat = torch.split(proj, [dtr, n, n], dim=-1)
+    dt = L.softplus(dt_r @ p["dt_w"] + p["dt_b"])
+    a = -torch.exp(p["a_log"])
+    return xc, dt, a, b_mat, c_mat
+
+
+def mamba1_apply(cfg, p, x, ctx: Ctx, cache):
+    if ctx.mode != "train":
+        raise NotImplementedError("the prefill/decode cache branches are "
+                                  "not ported yet")
+    xn = L.rmsnorm(x, p["ln"])
+    xin, z = torch.chunk(xn @ p["in_proj"], 2, dim=-1)
+    xc0 = L.causal_conv1d(xin, p["conv_w"], p["conv_b"])
+    xc, dt, a, b_mat, c_mat = _mamba1_inner(cfg, p, xc0)
+    # the reference's gate for the selective-scan kernel (K5)
+    if cfg.use_pallas and cfg.d_inner % 128 == 0:
+        from repro_torch.kernels import ops
+        y = ops.ssm_scan(xc, dt, a, b_mat, c_mat, p["d_skip"], cfg.ssm_chunk)
+    else:
+        y = L.selective_scan(xc, dt, a, b_mat, c_mat, p["d_skip"],
+                             chunk=cfg.ssm_chunk)
+    y = y * L.silu(z)
+    return x + y @ p["out_proj"], None, 0.0
+
+
 BLOCKS = {
     "dense": (dense_init, dense_apply),
+    "mamba1": (mamba1_init, mamba1_apply),
 }
 
 
 def block_kind(cfg: ModelConfig) -> str:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"block kind of family {cfg.family!r} is "
-                                  "not ported yet")
-    return "dense"
+    if cfg.family == "dense":
+        return "dense"
+    if cfg.family == "ssm":
+        kind = cfg.ssm_variant or "mamba1"
+        if kind in BLOCKS:
+            return kind
+    raise NotImplementedError(f"block kind of family {cfg.family!r} "
+                              f"({cfg.ssm_variant or 'default'}) is not "
+                              "ported yet")

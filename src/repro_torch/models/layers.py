@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -34,6 +35,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + e^x)`` as ``jax.nn.softplus`` computes it:
+    ``logaddexp(x, 0)``, with no linear cutoff (``F.softplus`` returns x
+    above x = 20; in the 2-round CSE-FSL test on reduced falcon-mamba that
+    moves a trained weight past rtol 1e-4 of the reference's)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -113,3 +122,63 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
         raise ValueError(f"sequence {sq} is not a multiple of chunk {chunk}")
     return torch.cat([block(q[:, i:i + chunk], q_offset + i)
                       for i in range(0, sq, chunk)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (mamba)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """x: [B,S,C]; w: [C,K]; depthwise causal conv + bias.  Cross-correlation
+    as JAX's conv (no kernel flip), padded by K-1 on the left only."""
+    s, k = x.shape[1], w.shape[-1]
+    out = F.conv1d(x.transpose(1, 2), w[:, None, :], padding=k - 1,
+                   groups=x.shape[-1])
+    return out[..., :s].transpose(1, 2) + b
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan (the model's path without kernels; K5's backward)
+# ---------------------------------------------------------------------------
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` along dim 1 from
+    ``h_{-1} = 0``: returns ``(prod_{s<=t} a_s, h_t)``.  The combine
+    ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)`` applied in
+    ceil(log2 L) doubling steps (Hillis-Steele), in plain tensor ops."""
+    k, n = 1, a.shape[1]
+    while k < n:
+        b = torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], 1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], 1)
+        k *= 2
+    return a, b
+
+
+def selective_scan(u, dt, a, b_mat, c_mat, d_vec, *, chunk: int = 128):
+    """Mamba-1 scan.  u,dt: [B,S,D]; a: [D,N]; b_mat,c_mat: [B,S,N];
+    d_vec: [D] -> y [B,S,D] in u's dtype.
+
+    h_t = exp(dt_t a) h_{t-1} + dt_t b_t u_t;  y_t = c_t . h_t + d u_t.
+    Chunked: a loop over chunks carries h, a doubling scan runs within a
+    chunk, so the [B,chunk,D,N] tensors exist one chunk at a time.
+    """
+    bsz, s, dim = u.shape
+    if s % chunk:
+        chunk = s                   # small sequences: single chunk
+    dtf, uf = dt.float(), u.float()
+    bm, cm = b_mat.float(), c_mat.float()
+    h = torch.zeros((bsz, dim, a.shape[-1]), dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for i in range(0, s, chunk):
+        dt_c, u_c = dtf[:, i:i + chunk], uf[:, i:i + chunk]
+        da = torch.exp(dt_c[..., None] * a)                  # [B,L,D,N]
+        db = (dt_c * u_c)[..., None] * bm[:, i:i + chunk, None, :]
+        acc_a, acc_b = linear_scan(da, db)
+        h_t = acc_a * h[:, None] + acc_b
+        ys.append(torch.einsum("bldn,bln->bld", h_t, cm[:, i:i + chunk]))
+        h = h_t[:, -1]
+    y = torch.cat(ys, 1) + uf * d_vec
+    return y.to(u.dtype)

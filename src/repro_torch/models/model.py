@@ -1,5 +1,6 @@
-"""Split transformer: client stage | cut | server stage (+ aux head)
-(``repro.models.model``), for the dense family in training mode.
+"""Split model: client stage | cut | server stage (+ aux head)
+(``repro.models.model``), for the dense and non-hybrid ssm (Mamba-1)
+families in training mode.
 
 The *client stage* owns the embedding and the first ``cut`` blocks; the
 *server stage* owns the remaining blocks, the final norm and the LM head.
@@ -18,7 +19,7 @@ from typing import Any, Callable, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import dtype_of, tree_map
+from repro_torch.common import dtype_of, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import BLOCKS, Ctx, block_kind
@@ -108,14 +109,29 @@ def aux_logits_fn(cfg: ModelConfig, ap) -> Callable:
 
 def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx):
     """Run a stage's stacked blocks in order.  Returns ``(x, aux, None)``
-    (no caches in training mode)."""
+    (no caches in training mode).
+
+    The stacked params are split with one ``unbind`` per leaf, whose
+    backward stacks the layers' grads once.  Indexing ``a[i]`` per layer
+    would make each layer's backward a zero-filled grad of the whole stack,
+    summed across layers: a stack's size per layer and leaf (4 GiB for
+    falcon-mamba's 4 stacked clients' ``in_proj``)."""
     _, apply_fn = BLOCKS[plan.kind]
     aux = 0.0
-    for i in range(plan.n_layers):
-        p = tree_map(lambda a: a[i], sp["blocks"])
+    for p in _unstack(sp["blocks"]):
         x, _, a = apply_fn(cfg, p, x, ctx, None)
         aux = aux + a
     return x, aux, None
+
+
+def _unstack(tree):
+    """``[tree[0], tree[1], ...]`` of a tree of stacked tensors."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    out = []
+    for layer in zip(*parts):
+        it = iter(layer)
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro.configs.registry import ARCHS as JARCHS
 from repro.kernels import ops as jops
 from repro_torch.kernels import fused_ce as K
 from repro_torch.kernels import ops, ref
@@ -135,3 +136,43 @@ def test_grouped_plain_versions_and_splits():
     assert K.vocab_splits(1, 4096, 151936) == (9, 264)
     assert K.vocab_splits(4, 4096, 151936) == (3, 792)
     assert K.vocab_splits(1, 8, 130) == (3, 1)
+
+
+@pytest.mark.parametrize("name", sorted(JARCHS))
+def test_launch_plan_takes_every_config_width(name):
+    """K3/K4a/K4b's grids fit CUDA's limits at every config's server head
+    (d = d_model) and aux head (d = aux_rank), S = 4096, with 1 group or
+    4 folded clients; K4a/K4b split d into ceil(d / 1024) slices."""
+    cfg = JARCHS[name]
+    for g, d in ((1, cfg.d_model), (4, cfg.aux_rank)):
+        plan = K.launch_plan(g, 4096, d, cfg.vocab_size)
+        nds = -(-d // K.D_SLICE)
+        assert plan["d_slices"] == nds
+        assert plan["grids"]["fused_ce_dx"] == (256, g, nds)
+        assert plan["grids"]["fused_ce_dw"] == (-(-cfg.vocab_size // 16), g,
+                                                nds)
+        ns, tps = plan["nsplit"], plan["tiles_per_split"]
+        assert plan["grids"]["fused_ce_fwd"] == (64, ns, g)
+        assert (ns - 1) * tps < -(-cfg.vocab_size // 64) <= ns * tps
+
+
+@pytest.mark.parametrize("d", [128, 1024, 1536, 4096, 8192])
+def test_any_width_d(d):
+    """The grouped plain versions at every width the kernels now take
+    (past the old d <= 1024), and the slices K4a/K4b split d into."""
+    (x, w, lab), _ = _inputs(24, d, 80, "float32", seed=4, lead=(1,))
+    x = x * d ** -0.5
+    lse, picked = ref.fused_ce_fwd(x, w, lab)
+    dx, dw = ref.fused_ce_bwd(x, w, lab, lse, torch.ones(1))
+    rx, rw = ref.fused_ce_grads(x[0], w[0], lab[0])
+    np.testing.assert_allclose(float((lse - picked).mean()),
+                               float(ref.fused_ce(x[0], w[0], lab[0])),
+                               rtol=1e-6)
+    np.testing.assert_allclose(dx[0].numpy(), rx.numpy(), rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(dw[0].numpy(), rw.numpy(), rtol=1e-5,
+                               atol=1e-7)
+    assert K.launch_plan(1, 24, d, 80)["d_slices"] == {
+        128: 1, 1024: 1, 1536: 2, 4096: 4, 8192: 8}[d]
+    with pytest.raises(ValueError):
+        K.launch_plan(70000, 24, d, 80)
