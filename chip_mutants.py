@@ -27,14 +27,19 @@ SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 # name -> (edits (file, old, new), a check that must fail)
 MUTANTS = {
-    "K4b without the softmax term": (
-        [(CE, "p_of(sl[2 * h + i], lse_t, lab, v0 + v, V, ok, scale)",
-          "p_of(-1e30f, lse_t, lab, v0 + v, V, ok, scale)")],
-        "fused_ce_dw [1, 4096, 1024, 151936] bfloat16 per element"),
-    "K4a without the softmax term": (
-        [(CE, "p_of(sl[2 * h], lse_r[h]", "p_of(-1e30f, lse_r[h]"),
-         (CE, "p_of(sl[2 * h + 1], lse_r[h]", "p_of(-1e30f, lse_r[h]")],
+    "P without the softmax term": (
+        [(CE, "? (expf(d[4 * j + 2 * h + i] - lse_t) -",
+          "? (0.f * expf(d[4 * j + 2 * h + i] - lse_t) -")],
         "fused_ce_dx [1, 4096, 1024, 151936] bfloat16 per element"),
+    "dx missing one vocabulary chunk": (
+        [(CE, "if (dx) {\n      a.out = dx;",
+          "if (dx && c0 != vc) {\n      a.out = dx;")],
+        "fused_ce_dx [1, 4096, 1024, 151936] bfloat16 per element"),
+    "dw written one tile off": (
+        [(CE, "bf16* orow = a.out + ((long long)g * a.d + dc) * a.V + a.c0;",
+          "bf16* orow = a.out + ((long long)g * a.d + (dc + G_BM) % a.d) "
+          "* a.V + a.c0;")],
+        "fused_ce_dw [1, 4096, 1024, 151936] bfloat16 per element"),
     "K6 window one kv tile late": (
         [(SWA, "const int jt0 = max(0, q0 - window + 1) / BK,",
           "const int jt0 = max(0, q0 - window + 1) / BK "
@@ -44,11 +49,6 @@ MUTANTS = {
         [(SSM, "const int tn = min(TC, S - t0);",
           "const int tn = min(TC, S - t0);\n    if (t0 % 128 == 0) h = 0.f;")],
         "ssm_scan [4, 2048, 8192, 16] G=4 bfloat16 per element"),
-    "K4a without one d chunk past d = 1024": (
-        [(CE, "frag_b_nk(Wc, TC_LD, kk, 16 * warp + 8 * nt, gq, tq, b);",
-          "frag_b_nk(Wc, TC_LD, kk, 16 * warp + 8 * nt, gq, tq, b);\n"
-          "            if (cb > 0 && j == 0) continue;")],
-        "fused_ce_dx [1, 2048, 4096, 65024] bfloat16 per element"),
 }
 KERNEL_PHASES = """
 import sys, torch

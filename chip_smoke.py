@@ -23,29 +23,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions and a CNN round, beside each kernel's bound;
 7. LM kernels vs plain: the fused cross-entropy kernels (K3 forward, K4a
    dx, K4b dw) and sliding-window attention (K6) against their plain
-   versions at the main path's shapes and at ragged small ones;
+   versions at the main path's shapes and at ragged small ones, and
+   ``fused_ce_bwd`` at every case bitwise repeatable, bitwise equal to
+   K4a and K4b run alone and so held against the same plain versions;
 8. LM main path: CSE-FSL on full-width Qwen3-0.6B (bf16, the kernels on)
    through ``Trainer.run``, with per-round launch counts of every kernel,
    finite losses, state on the card and the meter equal to CommProfile;
 9. LM CPU vs card: reduced Qwen3 in fp32, the kernels on the card and the
    plain versions on the CPU, agree over 2 rounds;
-10. LM times: the four kernels, their plain versions and library
-   yardsticks at the main shapes, and a main-path round with its device
-   time, idle share, top kernels and peak memory;
+10. LM times: the kernels and ``fused_ce_bwd``, their plain versions and
+   library yardsticks (SDPA for K6; ``cross_entropy(linear(x, w^T))`` for
+   K3/K4) at the main shapes, and a main-path round with its
+   device time, idle share, top kernels and peak memory;
 11. Mamba kernels vs plain: the selective scan (K5) at the main path's
    shapes (4 clients folded with their own a and d; one server sequence)
    and at tests/test_kernels.py's fp32 cases, and the fused CE kernels at
-   falcon-mamba's server head (d = 4096) and aux head, and at ragged
-   shapes past the old d <= 1024 (d = 1536, 4096, 8192) in both dtypes;
+   falcon-mamba's server and aux heads and at ragged shapes past
+   d = 1024 (d = 1536, 4096, 8192) in both dtypes, ``fused_ce_bwd`` as in
+   phase 7;
 12. Mamba main path: CSE-FSL on full-width falcon-mamba-7b (16 layers cut
    at 8, S = 2048, bf16, the kernels on) through ``Trainer.run``, with
    per-round launch counts, finite losses, state on the card, the meter
    equal to CommProfile and the peak device memory;
 13. Mamba CPU vs card: reduced falcon-mamba in fp32, the kernels on the
    card and the plain versions on the CPU, agree over 2 rounds;
-14. Mamba times: K5 and the d = 4096 fused CE kernels beside their bounds
-   and plain versions, and a main-path round with its device time, idle
-   share, top kernels and peak memory.
+14. Mamba times: K5 and the d = 4096 fused CE kernels beside their bounds,
+   plain versions and library yardsticks, and a main-path round with its
+   device time, idle share, top kernels and peak memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -118,11 +122,13 @@ REPLACES = {"quantize_bits": "src/repro/kernels/quantize.py:174",
             "fused_ce_fwd": "src/repro/kernels/fused_ce.py:87",
             "fused_ce_dx": "src/repro/kernels/fused_ce.py:186",
             "fused_ce_dw": "src/repro/kernels/fused_ce.py:201",
+            "fused_ce_bwd": "src/repro/kernels/fused_ce.py:186",
             "swa_attention": "src/repro/kernels/swa_attention.py:94",
             "ssm_scan": "src/repro/kernels/ssm_scan.py:63"}
 SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
           "fused_ce_fwd": "fused_ce.cu", "fused_ce_dx": "fused_ce.cu",
-          "fused_ce_dw": "fused_ce.cu", "swa_attention": "swa_attention.cu",
+          "fused_ce_dw": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu",
+          "swa_attention": "swa_attention.cu",
           "ssm_scan": "ssm_scan.cu"}
 # K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
 # ragged ones in both dtypes (bf16 and fp32 take different kernels); K6
@@ -656,12 +662,22 @@ def check_ce(cases, err, dev):
                   f"(max |diff| {e:.3g})")
         absg = ce_abs_grads(x, w, lab, plse, gs) \
             if dtype == torch.bfloat16 else None
-        for name in ("fused_ce_dx", "fused_ce_dw"):
+        bwd = ce.fused_ce_bwd(x, w, lab, plse, gs)
+        again = ce.fused_ce_bwd(x, w, lab, plse, gs)
+        sync(dev)
+        check(all(same(a, b) for a, b in zip(bwd, again)),
+              f"fused_ce_bwd {tag} bitwise equal dx and dw on two calls")
+        del again
+        for i, name in enumerate(("fused_ce_dx", "fused_ce_dw")):
             got = getattr(ce, name)(x, w, lab, plse, gs)
             want = getattr(ref, name)(x, w, lab, plse, gs)
             sync(dev)
+            check(same(bwd[i], got), f"fused_ce_bwd {tag} {name[-2:]} "
+                  f"(one shared P pass) bitwise equal to {name} alone")
             e = diff(got, want)
             err[name] = max(err[name], e)
+            err["fused_ce_bwd"] = max(err["fused_ce_bwd"],
+                                      diff(bwd[i], want))
             if dtype == torch.float32:       # tests/test_kernels.py grads
                 ok, how = torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
                     "rtol 1e-4 atol 1e-5"
@@ -679,6 +695,7 @@ def check_ce(cases, err, dev):
                       f"{r:.3g})")
                 del bound
             del got, want
+        del bwd
         del x, w, lab, lse, picked, plse, ppicked
         torch.cuda.empty_cache()
 
@@ -700,14 +717,18 @@ def phase_lm_kernels(dev):
       their output to bf16, each at most 2^-8 of those; the bound allows
       twice that.  In a dw column no label lands in (all but ~4,000 of
       the 151,936) the softmax part is the whole value, and in dx it is
-      larger than 2^-7 of the one-hot part for most elements.
+      larger than 2^-7 of the one-hot part for most elements.  At every
+      case fused_ce_bwd (one P pass shared by dx and dw) must give the same
+      bits on two calls and the bits of K4a and K4b alone (every output
+      has one owner and a fixed summation order), so it meets their
+      bounds; its max_abs_err is its own outputs' against the plain.
     * K6: |got - plain| <= 2^-7 |plain| + 2^-12 sum_k p|v|.  The kernel
       differs from the fp32 plain by its bf16 output rounding (<= 2^-8) and
       fp32 summation order (~1e-6 of sum p|v|); at W = 4096 one 64-key tile
       left out moves outputs by ~2e-3 against a bound of ~4e-4."""
     t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
     err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
-           "swa_attention": 0.0}
+           "fused_ce_bwd": 0.0, "swa_attention": 0.0}
     check_ce(CE_CASES, err, dev)
     for k, ((b, s, h, kh, hd, win), dtype) in enumerate(SWA_CASES):
         q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 100 + k, dev)
@@ -756,9 +777,11 @@ def phase_lm_main(dev):
         "qwen3-0.6b int8", LM_ROUNDS, LM_B)
     peak = torch.cuda.max_memory_allocated(dev)
     cut = cfg.resolved_cut
-    heads = LM_H + LM_N                 # h client steps (vmapped) + n server
+    # one fused_ce_fwd and one fused_ce_bwd (a P pass, the dx and the dw
+    # products) per head: h client steps (vmapped) + n server updates
+    heads = LM_H + LM_N
     want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
-                fused_ce_dw=heads,
+                fused_ce_dw=heads, fused_ce_p=heads,
                 swa_attention=cut * (LM_H + 1)
                 + (cfg.num_layers - cut) * LM_N)
     for i, c in enumerate(per_round):
@@ -808,7 +831,8 @@ def phase_lm_times(dev, err, launches, tr, state, fed, peak):
     records = []
     for name, rec in ce_times["server"].items():
         rec["aux"] = {k: ce_times["aux"][name][k] for k in (
-            "shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by")}
+            "shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
         records.append(rec)
 
     for tag, (b, s) in (("server", (1, LM_S)), ("client", (LM_N, LM_S))):
@@ -905,7 +929,7 @@ def phase_mamba_kernels(dev):
     t0 = phase("11 Mamba kernels vs plain (selective scan K5; fused CE "
                "K3/K4a/K4b at d > 1024)")
     err = {"ssm_scan": 0.0, "fused_ce_fwd": 0.0, "fused_ce_dx": 0.0,
-           "fused_ce_dw": 0.0}
+           "fused_ce_dw": 0.0, "fused_ce_bwd": 0.0}
     for k, ((b, s, d, n, grp), dtype) in enumerate(SSM_CASES):
         args = ssm_inputs(b, s, d, n, grp, dtype, 200 + k, dev)
         got = ssm.ssm_scan_fwd(*args)
@@ -954,9 +978,9 @@ def phase_mamba_main(dev):
         "falcon-mamba-7b int8", LM_ROUNDS, LM_B)
     peak = torch.cuda.max_memory_allocated(dev)
     cut = cfg.resolved_cut
-    heads = LM_H + LM_N                 # h client steps (vmapped) + n server
+    heads = LM_H + LM_N                 # as in phase 8
     want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
-                fused_ce_dw=heads,
+                fused_ce_dw=heads, fused_ce_p=heads,
                 ssm_scan=cut * (LM_H + 1) + (cfg.num_layers - cut) * LM_N)
     for i, c in enumerate(per_round):
         check(c == want, f"round {i + 1} launches {c} == {want}")
@@ -996,44 +1020,79 @@ def phase_mamba_cpu_vs(dev):
     done(t0)
 
 
+# The library yardstick of K3/K4, timed only: one linear and one
+# cross_entropy per group, logits in memory.
+LIB_CE = "cross_entropy(linear(x, w^T))"
+
+
+def library_ce_ms(x, w, lab, gs) -> dict:
+    """The library's time per kernel record, summed over the groups as the
+    kernels serve them (``sum_i g_i * CE(x_i w_i)``): its forward for K3;
+    with ``autograd.grad`` (forward included) to x for K4a, to w for K4b,
+    to both for fused_ce_bwd."""
+    fn = torch.nn.functional
+    labs = lab.long()
+
+    def loss(xx, ww):
+        return sum(gs[i] * fn.cross_entropy(fn.linear(xx[i], ww[i].t()),
+                                            labs[i])
+                   for i in range(x.shape[0]))
+
+    def fwd():
+        with torch.no_grad():
+            loss(x, w)
+
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    fns = {"fused_ce_fwd": fwd,
+           "fused_ce_dx": lambda: torch.autograd.grad(loss(xr, w), xr),
+           "fused_ce_dw": lambda: torch.autograd.grad(loss(x, wr), wr),
+           "fused_ce_bwd": lambda: torch.autograd.grad(loss(xr, wr),
+                                                       (xr, wr))}
+    return {k: event_ms(f, reps=3, inner=2, warm=1) for k, f in fns.items()}
+
+
 def time_ce(cases, launches, err, dev):
-    """K3/K4a/K4b timed at ``cases`` ``{tag: (G, T, d, V)}`` in bf16;
-    returns ``{tag: {name: record}}``.  For scale, also times
-    ``cross_entropy(x @ w)`` of group 0 with the logits in memory."""
+    """K3, K4a (its own P pass + dx), K4b (its own P pass + dw) and
+    fused_ce_bwd (one shared P pass + both) timed at ``cases``
+    ``{tag: (G, T, d, V)}`` in bf16, beside their plain versions and the
+    library call; returns ``{tag: {name: record}}``."""
     out = {}
     for tag, (g, t, d, v) in cases.items():
         x, w, lab, gs = ce_inputs(g, t, d, v, torch.bfloat16, 7, dev)
         lse, _ = ce.fused_ce_fwd(x, w, lab)
         io_in = 2 * (g * t * d + g * d * v) + 4 * g * t
+        io_bwd = io_in + 4 * g * t + 4 * g
         mm = 2 * g * t * d * v
         work = {"fused_ce_fwd": (io_in + 8 * g * t, mm),
-                "fused_ce_dx": (io_in + 4 * g * t + 4 * g + 2 * g * t * d,
-                                2 * mm),
-                "fused_ce_dw": (io_in + 4 * g * t + 4 * g + 2 * g * d * v,
-                                2 * mm)}
+                "fused_ce_dx": (io_bwd + 2 * g * t * d, 2 * mm),
+                "fused_ce_dw": (io_bwd + 2 * g * d * v, 2 * mm),
+                "fused_ce_bwd": (io_bwd + 2 * g * t * d + 2 * g * d * v,
+                                 3 * mm)}
         run = {"fused_ce_fwd": lambda: ce.fused_ce_fwd(x, w, lab),
                "fused_ce_dx": lambda: ce.fused_ce_dx(x, w, lab, lse, gs),
-               "fused_ce_dw": lambda: ce.fused_ce_dw(x, w, lab, lse, gs)}
+               "fused_ce_dw": lambda: ce.fused_ce_dw(x, w, lab, lse, gs),
+               "fused_ce_bwd": lambda: ce.fused_ce_bwd(x, w, lab, lse, gs)}
         plain = {"fused_ce_fwd": lambda: ref.fused_ce_fwd(x, w, lab),
                  "fused_ce_dx": lambda: ref.fused_ce_dx(x, w, lab, lse, gs),
-                 "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs)}
-        xent = event_ms(lambda: torch.nn.functional.cross_entropy(
-            (x[0] @ w[0]).float(), lab[0].long()), reps=5, inner=2, warm=1)
-        print(f"  {tag} head [{g}, {t}, {d}] x [{d}, {v}]: for scale, "
-              f"cross_entropy(x @ w) of group 0 (logits in memory) "
-              f"{xent * 1e3:.3f} us")
-        # K4a/K4b past d = 1024 take about a second a call: fewer reps
-        few = dict(reps=3, inner=1) if d > 1024 else dict(reps=5, inner=2)
+                 "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs),
+                 "fused_ce_bwd": lambda: ref.fused_ce_bwd(x, w, lab, lse,
+                                                          gs)}
+        lib = library_ce_ms(x, w, lab, gs)
+        torch.cuda.empty_cache()
         out[tag] = {}
-        for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
-            rec = record(name, launches[name], err[name],
-                         graph_ms(run[name], **few),
-                         event_ms(run[name], warm=1, **few),
+        for name in run:
+            # fused_ce_bwd: its launches are the main path's P passes
+            rec = record(name, launches["fused_ce_p" if name == "fused_ce_bwd"
+                                        else name], err[name],
+                         graph_ms(run[name], reps=5, inner=2),
+                         event_ms(run[name], reps=5, inner=2, warm=1),
                          event_ms(plain[name], reps=3, inner=1, warm=1),
-                         *work[name], BF16_OPS, shape=[g, t, d, v],
-                         xent_group0_ms=xent)
+                         *work[name], BF16_OPS, library_ms=lib[name],
+                         library=LIB_CE, shape=[g, t, d, v])
             print(f"  [{tag}]", end="")
             print_record(rec)
+            print(f"    {work[name][1] / rec['ms'] / 1e9:.1f} TFLOP/s, "
+                  f"{rec['bound_ms'] / rec['ms']:.4f} of the bound")
             out[tag][name] = rec
         del x, w, lab, gs, lse
         torch.cuda.empty_cache()
@@ -1051,7 +1110,7 @@ def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
         if rec["name"] in ce_times["server"]:
             rec["mamba"] = {tag: {k: t[rec["name"]][k] for k in (
                 "shape", "launches", "max_abs_err", "ms", "eager_ms",
-                "plain_ms", "bound_ms", "bound_by")}
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for tag, t in ce_times.items()}
     rec = None
     for tag, (b, grp) in (("server", (1, 1)), ("client", (LM_N, LM_N))):
@@ -1086,7 +1145,7 @@ def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
         box["state"] = tr.aggregate(st)
         float(m["server_loss"])
 
-    round_ms, per = time_rounds(step, 2)
+    round_ms, per = time_rounds(step, 5)
     print(f"  Mamba round (int8, n={LM_N}, h={LM_H}, B={LM_B}, S={MB_S}, "
           f"{MB_LAYERS} layers, step + FedAvg, host clock after "
           f"synchronize): median {round_ms:.3f} ms of "

@@ -26,7 +26,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # c_longlong.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_CE_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P]
 SIGNATURES = {
     "quantize": {
         "quantize_bits": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -35,8 +34,8 @@ SIGNATURES = {
     "fused_ce": {
         "fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                          _I, _I, _I, _P],
-        "fused_ce_dx": _CE_BWD,
-        "fused_ce_dw": _CE_BWD,
+        "fused_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _L, _L, _I, _I, _P],
     },
     "swa_attention": {
         "swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

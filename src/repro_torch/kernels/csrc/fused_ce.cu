@@ -1,54 +1,60 @@
 // Fused linear + cross-entropy for the LM heads, forward and backward.
 //
 // Replaces the JAX package's Pallas kernels in src/repro/kernels/fused_ce.py:
-//   K3  fused_ce_fwd -> _fwd_kernel   per-row (lse, picked) of x @ w
-//   K4a fused_ce_bwd -> _dx_kernel    dx = P w^T
-//   K4b fused_ce_bwd -> _dw_kernel    dw = x^T P
+//   K3  fused_ce_fwd -> _fwd_kernel   (:87)   per-row (lse, picked) of x @ w
+//   K4a fused_ce_bwd -> _dx_kernel    (:186)  dx = P w^T
+//   K4b fused_ce_bwd -> _dw_kernel    (:201)  dw = x^T P
 // with P = (softmax(x @ w) - onehot(labels)) * g / T recomputed from the
-// saved per-row lse.  The [T, V] logits never exist in device memory.
+// saved per-row lse.  The [T, V] logits never exist whole in device memory.
 //
 // Every function is grouped: x [G, T, d], w [G, d, V] (either may have a
 // group stride of 0, i.e. be shared by all groups), labels and lse [G, T],
 // g [G].  One launch serves all clients of a vmapped client phase.
 //
-// What bounds them on an H100: operations.  Each of the three does 2*T*d*V
-// flops of matrix product (K4a/K4b twice that: the logit recompute and the
-// product with P) against (T*d + d*V) * itemsize bytes of inputs and
-// outputs; at d = 128 or 1024, T = 4096 and V = 151,936 that is far above
-// the 295 flop/byte ridge.  So bf16 inputs (the main path) run every
-// product on the tensor cores: mma.sync m16n8k16, bf16 in, fp32
-// accumulators, fragments from shared-memory tiles (wgmma/TMA pipelines are
-// later work).  fp32 inputs (the tests' and the CPU comparison's) keep
-// CUDA-core versions: fp32 FMAs from shared-memory tiles, so fp32 results
-// stay fp32-exact up to summation order.  They are a fidelity path, kept
-// as simple as possible and not tuned: no bf16 configuration reaches them,
-// and rounding fp32 inputs to bf16 would miss the fp32 tolerance.
+// K3 (both dtypes) and the fp32 K4a/K4b: a K3 block owns 64 token rows and
+// walks its share of the vocabulary in 64-wide tiles, keeping the online
+// max / sum-exp / picked logit of each row in registers (the loop replaces
+// the TPU's sequential vocab grid axis and its scratch); the vocabulary is
+// split across `nsplit` blocks to fill 132 SMs and a tiny second pass
+// combines the partials of each row in a fixed order.  bf16 K3 runs
+// mma.sync m16n8k16 on shared-memory tiles.  fp32 inputs (the tests' and
+// the CPU comparison's fidelity path, reached by no bf16 configuration)
+// keep CUDA-core versions of all three, kept as they were and not tuned: a
+// fp32 K4a block owns 16 dx rows, a K4b block 16 dw columns, each over one
+// slice of at most 1024 columns of d, recomputing its logits per slice.
 //
-// Design (both versions):
-// * K3: a block owns 64 token rows and walks its share of the vocabulary in
-//   64-wide tiles, keeping the online max / sum-exp / picked logit of each
-//   row in registers (the loop replaces the TPU's sequential vocab grid axis
-//   and its scratch).  The server call has G = 1, T = 4096: 64 row blocks
-//   would leave half of the 132 SMs idle, so the vocabulary is split across
-//   `nsplit` blocks and a second, tiny pass combines the partial
-//   (m, l, picked) of each row in a fixed order.
-// * K4a: a block owns 16 rows of dx over one slice of at most DSW = 1024
-//   of the d columns (16 x 1024 fp32 accumulators in registers, 64 per
-//   thread) and walks the whole vocabulary; K4b: a block owns 16 columns of
-//   dw over one d slice and walks all tokens.  Each output element is
-//   summed by one thread in a fixed order: no atomics, the same bits from
-//   run to run.  Every block recomputes its logit tiles over the full d, so
-//   for d > DSW the logits are recomputed ceil(d / DSW) times (4x at the
-//   server head's d = 4096): the price of owning outputs without atomics
-//   or a staged P in device memory.
-// * Every kernel streams x and w through shared memory in chunks of d, as
-//   a GEMM main loop does, so any d runs and every tile fits the 48 KB of
-//   static shared memory.
-// * Padded vocabulary columns, ragged token rows and the ragged end of d
-//   are masked in-kernel.
+// The bf16 backward (the main path), redesigned for Hopper.  What bounds it
+// on an H100: tensor-core operations at the server heads (each of its three
+// products is 2 T d V flops against (T d + d V) * 2 bytes, far above the
+// 295 flop/byte ridge), and the bytes of P at the d = 128 aux heads (the
+// products are then short and P is written once and read twice).  The old
+// kernels recomputed the logits in every block that owned a slice of dx or
+// dw, 2 ceil(d / 1024) times a backward, on mma.sync tiles with a barrier
+// every 64-deep chunk.  Now, for each vocabulary chunk c of width Vc (the
+// P scratch G T Vc bf16 stays <= 256 MiB, fused_ce.bwd_plan), in order:
+//   1. P pass: logits x @ w[:, c] over all of d, once; the epilogue writes
+//      P_c = (exp(l - lse) - onehot) g / T in bf16 to the scratch (0 past V);
+//   2. dx: dx_acc += P_c w[:, c]^T, one block per (row tile, d tile), summed
+//      over Vc inside the block; chunk partials added in chunk order in fp32
+//      device memory, the last chunk writes dx in bf16;
+//   3. dw: dw[:, :, c] = x^T P_c, one block per (d tile, vocab tile), summed
+//      over all T inside the block, written once in bf16.
+// fused_ce_bwd shares one P pass between dx and dw.  Each logit is computed
+// once a call.  All three are one GEMM main loop (ce_gemm_kernel): a
+// 128 x 128 output tile a block, 3 warpgroups (one TMA producer, two wgmma
+// consumers of 64 rows each), a 4-stage ring of 64-deep bf16 tiles in
+// dynamic shared memory fed by TMA (128-byte swizzle, zero fill out of
+// bounds) and mbarriers, wgmma m64n128k16 with fp32 accumulators in
+// registers; wgmma's transpose bits read x^T and w^T (MN-major tiles)
+// straight from shared memory.  Every output element has one owner and a
+// fixed summation order: no atomics, the same bits from run to run.  P
+// enters its products rounded to bf16, as in the old kernels.
 //
-// Plain C interface (ctypes); each launcher returns cudaGetLastError().
+// Plain C interface (ctypes); each launcher returns a cudaError_t.  The TMA
+// descriptors are encoded with cuTensorMapEncodeTiled reached through
+// cudaGetDriverEntryPoint, so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +65,7 @@
 namespace {
 
 constexpr int NT = 256;           // threads per block, all kernels
-constexpr int DSW = 1024;         // d columns a K4a/K4b block owns
+constexpr int DSW = 1024;         // d columns an fp32 K4a/K4b block owns
 constexpr float NEG = -1e30f;     // finite "minus infinity", as the reference
 
 // The CUDA-core kernels below are instantiated for float only (bf16 inputs
@@ -219,7 +225,7 @@ __device__ __forceinline__ float p_of(float logit, float lse_t, int lab,
 }
 
 // ---------------------------------------------------------------------------
-// K4a: dx, one (group, 16-row tile, d slice) per block
+// fp32 K4a: dx, one (group, 16-row tile, d slice) per block
 // ---------------------------------------------------------------------------
 
 constexpr int X_BT = 16, X_BV = 64, X_BK = 32, CH = 64;
@@ -323,7 +329,7 @@ ce_dx_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// K4b: dw, one (group, 16-column tile, d slice) per block
+// fp32 K4b: dw, one (group, 16-column tile, d slice) per block
 // ---------------------------------------------------------------------------
 
 constexpr int W_BV = 16, W_BT = 64, W_BK = 32;
@@ -425,26 +431,17 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same three functions on the tensor cores
+// bf16 K3 on the tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 // Every product runs as mma.sync m16n8k16 (bf16 in, fp32 accumulators) on
 // fragments read from shared memory, 8 warps a block.  The logits are the
-// exact products of the bf16 inputs summed in fp32, as on the CUDA cores;
-// P enters its products rounded to bf16 (relative error at most 2^-8, the
-// same as the bf16 output's own rounding).  Blocking follows the CUDA-core
-// versions: K3 a 64-row block walking its vocab split; K4a 16 dx rows, K4b
-// 16 dw columns, each over one d slice, each owner summing its outputs in
-// a fixed order.  x and w stream through shared memory in 64-deep chunks
-// of d.
+// exact products of the bf16 inputs summed in fp32, as on the CUDA cores.
+// x and w stream through shared memory in 64-deep chunks of d.
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int TC_KC = 64;               // d chunk of the streamed logit tiles
 constexpr int TC_LD = 64 + 8;           // row stride of the 64-wide tiles
-constexpr int TCX_BT = 16, TC_CH = 128; // K4a rows; d chunk of the P products
-constexpr int TCW_BV = 16, TCW_BT = 64; // K4b vocab columns; token tile
-static_assert(TCX_BT == X_BT && TCW_BV == W_BV,
-              "the two versions of K4a/K4b share their grids");
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -470,15 +467,6 @@ __device__ __forceinline__ void frag_a(const bf16* s, int ld, int m0, int k0,
   a[3] = ld32(p + 8 * ld + 8);
 }
 
-// B fragment (16 x 8) at (k0, n0) of a [n][k] tile (k contiguous).
-__device__ __forceinline__ void frag_b_nk(const bf16* s, int ld, int k0,
-                                          int n0, int gq, int tq,
-                                          uint32_t b[2]) {
-  const bf16* p = s + (n0 + gq) * ld + k0 + 2 * tq;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
 // B fragment (16 x 8) at (k0, n0) of a [k][n] tile (n contiguous, rows
 // 16-byte aligned), transposed by ldmatrix.
 __device__ __forceinline__ void frag_b_kn(const bf16* s, int ld, int k0,
@@ -498,9 +486,7 @@ __device__ __forceinline__ bf16 ld_or_0(const bf16* p, long long i, bool ok) {
 // dst[r][c] = src[r0 + r][c0 + c] (row strides ldd, lds) for r < rows,
 // c < cols, 0 outside [0, R) x [0, C); 16-byte vectors where a group of 8
 // lies inside and is aligned.  cols is a multiple of 8, dst rows 16-byte
-// aligned.  With `transpose`, dst[c][r] instead (vector loads, scalar
-// stores).
-template <bool transpose>
+// aligned.
 __device__ __forceinline__ void tile_copy(bf16* dst, int ldd, const bf16* src,
                                           long long lds, int r0, int c0,
                                           int R, int C, int rows, int cols) {
@@ -518,13 +504,8 @@ __device__ __forceinline__ void tile_copy(bf16* dst, int ldd, const bf16* src,
       for (int i = 0; i < 8; ++i)
         v[i] = ld_or_0(sp, i, row_ok && c0 + c + i < C);
     }
-    if (transpose) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ldd + r] = v[i];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-          *reinterpret_cast<const uint4*>(v);
-    }
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
 
@@ -556,8 +537,8 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     float acc[4][4] = {};
     for (int k0 = 0; k0 < d; k0 += TC_KC) {
       __syncthreads();                     // previous chunk consumed
-      tile_copy<false>(Xs, TC_LD, xb, d, r0, k0, Tn, d, F_BT, TC_KC);
-      tile_copy<false>(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
+      tile_copy(Xs, TC_LD, xb, d, r0, k0, Tn, d, F_BT, TC_KC);
+      tile_copy(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < TC_KC; kk += 16) {
@@ -585,194 +566,322 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   write_part(part, m, l, pk, G, Tn, nsplit, g, sp, trow, slane);
 }
 
-// K4a on the tensor cores: 16 dx rows over the d slice cb .. cb + 128 NCH.
-// Per 64-wide vocab tile, warp w computes logits columns 8w .. 8w+8 over
-// all of d, writes its P to shared memory, then adds P w^T to its dx
-// columns cb + 128 j + 16 w .. +16 of every d chunk j of the slice.
-template <int NCH>
-__global__ void __launch_bounds__(NT)
-ce_dx_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const int* __restrict__ labels, const float* __restrict__ lse,
-                const float* __restrict__ gsc, bf16* __restrict__ dx, int Tn,
-                int d, int V, long long xg, long long wg) {
-  __shared__ __align__(16) bf16 Xs[TCX_BT * TC_LD];  // [16][TC_LD]     [r][c]
-  __shared__ __align__(16) bf16 Ws[TC_KC * TC_LD];   // [TC_KC][TC_LD]  [c][v]
-  __shared__ __align__(16) bf16 Ps[TCX_BT * TC_LD];  // [16][TC_LD]     [r][v]
-  __shared__ __align__(16) bf16 Wc[TC_CH * TC_LD];   // [TC_CH][TC_LD]  [c][v]
+// ---------------------------------------------------------------------------
+// bf16 K4a/K4b on Hopper: one TMA + wgmma GEMM main loop, three epilogues
+// ---------------------------------------------------------------------------
+// A block computes one 128 x 128 tile C[m0 + i][n0 + j] = sum_k A[m][k]
+// B[k][n].  Warpgroup 0 is the producer: one thread keeps G_ST stages of
+// 64-deep A and B tiles in flight with TMA (each tile two 64 x 64 boxes,
+// 128-byte rows, 128-byte swizzle).  Warpgroups 1 and 2 each own 64 rows
+// of C and issue wgmma m64n128k16 on the stage that has arrived; a stage
+// goes back to the producer once the wgmma group after it has been issued
+// and the one reading it has completed.
+//
+// The three modes, with their operands as stored in device memory:
+//   CE_P  C[t][v]    = x[t][:]  . w[:][c0+v]    A = x K-major,  B = w MN-major
+//   CE_DX C[t][dc]   = P[t][:]  . w[dc][c0+:]   A = P K-major,  B = w K-major
+//   CE_DW C[dc][v]   = x[:][dc] . P[:][v]       A = x MN-major, B = P MN-major
+// (K-major: the k index is contiguous; MN-major: m or n is, and wgmma's
+// transpose bit reads the tile as it lies.)  Out-of-bounds rows and columns
+// of every tile arrive as zeros, so ragged T, d and V need no masks in the
+// main loop.
 
-  const int g = blockIdx.y, r0 = blockIdx.x * TCX_BT, cb = blockIdx.z * DSW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const bf16* xb = x + g * xg;
-  const bf16* wb = w + g * wg;
-  const float scale = gsc[g] / (float)Tn;
-  int lab[2];
-  float lse_r[2];
-  bool ok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + gq + 8 * h;
-    ok[h] = r < Tn;
-    lab[h] = ok[h] ? labels[(long long)g * Tn + r] : -1;
-    lse_r[h] = ok[h] ? lse[(long long)g * Tn + r] : 0.f;
-  }
-  float acc[NCH][2][4] = {};
+enum { CE_P = 0, CE_DX = 1, CE_DW = 2 };
 
-  const int nv = (V + F_BV - 1) / F_BV;
-  for (int vt = 0; vt < nv; ++vt) {
-    const int v0 = vt * F_BV;
-    float sl[4] = {};
-    for (int k0 = 0; k0 < d; k0 += TC_KC) {
-      __syncthreads();                     // previous chunk / Ps consumed
-      tile_copy<false>(Xs, TC_LD, xb, d, r0, k0, Tn, d, TCX_BT, TC_KC);
-      tile_copy<false>(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_KC; kk += 16) {
-        uint32_t a[4], b[2];
-        frag_a(Xs, TC_LD, 0, kk, gq, tq, a);
-        frag_b_kn(Ws, TC_LD, kk, 8 * warp, lane, b);
-        mma_bf16(sl, a, b);
-      }
-    }
-    const int c = 8 * warp + 2 * tq;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(Ps + (gq + 8 * h) * TC_LD + c) =
-          __floats2bfloat162_rn(
-              p_of(sl[2 * h], lse_r[h], lab[h], v0 + c, V, ok[h], scale),
-              p_of(sl[2 * h + 1], lse_r[h], lab[h], v0 + c + 1, V, ok[h],
-                   scale));
-#pragma unroll
-    for (int j = 0; j < NCH; ++j) {
-      const int c0 = cb + j * TC_CH;
-      if (c0 < d) {
-        __syncthreads();                   // Ps written / Wc free
-        tile_copy<false>(Wc, TC_LD, wb, V, c0, v0, d, V, TC_CH, F_BV);
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < F_BV; kk += 16) {
-          uint32_t a[4];
-          frag_a(Ps, TC_LD, 0, kk, gq, tq, a);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            uint32_t b[2];
-            frag_b_nk(Wc, TC_LD, kk, 16 * warp + 8 * nt, gq, tq, b);
-            mma_bf16(acc[j][nt], a, b);
-          }
-        }
-      }
-    }
-  }
-  bf16* out = dx + (long long)g * Tn * d;
-#pragma unroll
-  for (int j = 0; j < NCH; ++j)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int cc = cb + j * TC_CH + 16 * warp + 8 * nt + 2 * tq + i;
-          if (ok[h] && cc < d)
-            out[(long long)(r0 + gq + 8 * h) * d + cc] =
-                __float2bfloat16(acc[j][nt][2 * h + i]);
-        }
+constexpr int G_BM = 128, G_BN = 128, G_BK = 64, G_ST = 4;
+constexpr int G_THREADS = 384;               // 3 warpgroups
+constexpr int G_BOX = 64 * 64;               // elements of one TMA box
+constexpr uint32_t G_STAGE_BYTES = 4 * G_BOX * 2;   // A and B, two boxes each
+constexpr int G_SMEM = G_ST * G_STAGE_BYTES + 1024 + 2 * G_ST * 8;
+
+struct GemmArgs {
+  const int* labels;
+  const float* lse;
+  const float* gsc;
+  bf16* p;            // P scratch [G, T, ldp] (written by CE_P)
+  float* acc;         // dx partial sums [G, T, d] fp32 (CE_DX)
+  bf16* out;          // dx [G, T, d] (CE_DX) or dw [G, d, V] (CE_DW)
+  int Tn, d, V, ldp;
+  int c0, cw;         // the chunk: vocabulary columns c0 .. c0 + cw
+  int first, last;    // CE_DX: the first / last chunk
+  int x_groups, w_groups;   // 0: one copy shared by all groups
+  int nk;             // 64-deep k steps
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// K4b on the tensor cores: 16 dw columns over the d slice cb .. cb + 128
-// NCH.  Per 64-token tile, warp w computes logits rows 16 (w % 4) .. +16,
-// columns 8 (w / 4) .. +8 over all of d, writes P^T to shared memory, then
-// adds x^T P to its dw rows cb + 128 j + 16 w .. +16 of every d chunk j of
-// the slice.
-template <int NCH>
-__global__ void __launch_bounds__(NT)
-ce_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const int* __restrict__ labels, const float* __restrict__ lse,
-                const float* __restrict__ gsc, bf16* __restrict__ dw, int Tn,
-                int d, int V, long long xg, long long wg) {
-  __shared__ __align__(16) bf16 Xs[TCW_BT * TC_LD];  // [64][TC_LD]     [t][c]
-  __shared__ __align__(16) bf16 Wt[TCW_BV * TC_LD];  // [16][TC_LD]     [v][c]
-  __shared__ __align__(16) bf16 Pt[TCW_BV * TC_LD];  // [16][TC_LD]     [v][t]
-  __shared__ __align__(16) bf16 Xc[TC_CH * TC_LD];   // [TC_CH][TC_LD]  [c][t]
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(b)), "r"(count) : "memory");
+}
 
-  const int g = blockIdx.y, v0 = blockIdx.x * TCW_BV, cb = blockIdx.z * DSW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mb = (warp & 3) * 16, nb = (warp >> 2) * 8;
-  const bf16* xb = x + g * xg;
-  const bf16* wb = w + g * wg;
-  const float scale = gsc[g] / (float)Tn;
-  float acc[NCH][2][4] = {};
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
 
-  for (int t0 = 0; t0 < Tn; t0 += TCW_BT) {
-    float sl[4] = {};
-    for (int k0 = 0; k0 < d; k0 += TC_KC) {
-      __syncthreads();                     // previous chunk / Pt consumed
-      tile_copy<false>(Xs, TC_LD, xb, d, t0, k0, Tn, d, TCW_BT, TC_KC);
-      tile_copy<true>(Wt, TC_LD, wb, V, k0, v0, d, V, TC_KC, TCW_BV);
-      __syncthreads();
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(b)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(b)), "r"(parity) : "memory");
+}
+
+// One 64 x 64 box at (inner, row, group) of a 3D tensor map.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int inner, int row,
+                                        int group) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(inner), "r"(row), "r"(group)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+// K-major tiles: rows of 64 k (128 B), 8-row groups 1024 B apart (SBO).
+// MN-major tiles: rows of 64 m or n (128 B) per k, 8-k groups 1024 B apart
+// (SBO), the next 64 columns of m or n one box (8192 B) on (LBO).
+__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-      for (int kk = 0; kk < TC_KC; kk += 16) {
-        uint32_t a[4], b[2];
-        frag_a(Xs, TC_LD, mb, kk, gq, tq, a);
-        frag_b_nk(Wt, TC_LD, kk, nb, gq, tq, b);
-        mma_bf16(sl, a, b);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]; TA / TB: the tile is MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Grid: (M tiles, N tiles, G).  Map a is A's tensor and b B's: for CE_P
+// x and w, for CE_DX P and w, for CE_DW x and P.
+template <int MODE>
+__global__ void __launch_bounds__(G_THREADS, 1)
+ce_gemm_kernel(const __grid_constant__ CUtensorMap ma,
+               const __grid_constant__ CUtensorMap mb, const GemmArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_ST * G_STAGE_BYTES);
+  uint64_t* empty = full + G_ST;
+
+  const int m0 = blockIdx.x * G_BM, n0 = blockIdx.y * G_BN, g = blockIdx.z;
+  const int gx = a.x_groups ? g : 0, gw = a.w_groups ? g : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);               // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy --------------------------
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < a.nk; ++kt) {
+        const int s = kt % G_ST, k0 = kt * G_BK;
+        if (kt >= G_ST) mbar_wait(&empty[s], ((kt / G_ST) - 1) & 1);
+        bf16* sa = reinterpret_cast<bf16*>(smem + s * G_STAGE_BYTES);
+        bf16* sb = sa + 2 * G_BOX;
+        mbar_expect_tx(&full[s], G_STAGE_BYTES);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (MODE == CE_P) {
+            tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, gx);
+            tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + n0 + 64 * h, k0, gw);
+          } else if (MODE == CE_DX) {
+            tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, g);
+            tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + k0, n0 + 64 * h, gw);
+          } else {
+            tma_box(sa + h * G_BOX, &ma, &full[s], m0 + 64 * h, k0, gx);
+            tma_box(sb + h * G_BOX, &mb, &full[s], n0 + 64 * h, k0, g);
+          }
+        }
       }
     }
+  } else {
+    // ---- consumers: warpgroup 1 rows 0-63, warpgroup 2 rows 64-127 -------
+    const int wc = wg - 1;
+    const int tid = threadIdx.x - 128 * wg, warp = tid / 32, lane = tid % 32;
+    constexpr int TA = MODE == CE_DW, TB = MODE != CE_DX;
+    float d[64];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = mb + gq + 8 * h, t = t0 + r;
-      const bool ok = t < Tn;
-      const long long at = (long long)g * Tn + t;
-      const float lse_t = ok ? lse[at] : 0.f;
-      const int lab = ok ? labels[at] : -1;
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+
+    for (int kt = 0; kt < a.nk; ++kt) {
+      const int s = kt % G_ST;
+      mbar_wait(&full[s], (kt / G_ST) & 1);
+      const bf16* sa = reinterpret_cast<const bf16*>(smem + s * G_STAGE_BYTES);
+      const bf16* sb = sa + 2 * G_BOX;
+      fence_acc(d);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int v = nb + 2 * tq + i;
-        Pt[v * TC_LD + r] = __float2bfloat16(
-            p_of(sl[2 * h + i], lse_t, lab, v0 + v, V, ok, scale));
+      for (int j = 0; j < G_BK / 16; ++j) {
+        // A: this warpgroup's 64 rows; k advances 16 columns (K-major) or
+        // 16 rows (MN-major) of the tile.
+        const uint64_t da = TA
+            ? gdesc(sa + wc * G_BOX + j * 16 * 64, 8192, 1024)
+            : gdesc(sa + wc * G_BOX + j * 16, 16, 1024);
+        const uint64_t db = TB ? gdesc(sb + j * 16 * 64, 8192, 1024)
+                               : gdesc(sb + j * 16, 16, 1024);
+        wgmma_m64n128k16<TA, TB>(d, da, db);
       }
+      wgmma_commit();
+      wgmma_wait<1>();                       // stage kt - 1 has been read
+      fence_acc(d);
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % G_ST]);
     }
+    wgmma_wait<0>();
+    fence_acc(d);
+
+    // ---- epilogue: d[4j + 2h + i] is C[r + 8h][8j + 2 (lane % 4) + i] ----
+    const int r = m0 + 64 * wc + 16 * warp + lane / 4;
+    const int cl = n0 + 2 * (lane % 4);
+    if (MODE == CE_P) {
+      const float scale = a.gsc[g] / (float)a.Tn;
 #pragma unroll
-    for (int j = 0; j < NCH; ++j) {
-      const int c0 = cb + j * TC_CH;
-      if (c0 < d) {
-        __syncthreads();                   // Pt written / Xc free
-        tile_copy<true>(Xc, TC_LD, xb, d, t0, c0, Tn, d, TCW_BT, TC_CH);
-        __syncthreads();
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= a.Tn) continue;
+        const long long at = (long long)g * a.Tn + t;
+        const float lse_t = a.lse[at];
+        const int lab = a.labels[at] - a.c0;
+        bf16* prow = a.p + at * a.ldp;
 #pragma unroll
-        for (int kk = 0; kk < TCW_BT; kk += 16) {
-          uint32_t a[4];
-          frag_a(Xc, TC_LD, 16 * warp, kk, gq, tq, a);
+        for (int j = 0; j < 16; ++j) {
+          const int v = cl + 8 * j;
+          float pv[2];
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            uint32_t b[2];
-            frag_b_nk(Pt, TC_LD, kk, 8 * nt, gq, tq, b);
-            mma_bf16(acc[j][nt], a, b);
+          for (int i = 0; i < 2; ++i)
+            pv[i] = v + i < a.cw
+                        ? (expf(d[4 * j + 2 * h + i] - lse_t) -
+                           (v + i == lab ? 1.f : 0.f)) * scale
+                        : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(prow + v) =
+              __floats2bfloat162_rn(pv[0], pv[1]);
+        }
+      }
+    } else if (MODE == CE_DX) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= a.Tn) continue;
+        const long long row = ((long long)g * a.Tn + t) * a.d;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = cl + 8 * j;
+          if (c >= a.d) continue;                // d is a multiple of 8
+          float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+          if (!a.first) {
+            const float2 prev = *reinterpret_cast<const float2*>(a.acc + row + c);
+            v.x = prev.x + v.x;
+            v.y = prev.y + v.y;
+          }
+          if (a.last)
+            *reinterpret_cast<__nv_bfloat162*>(a.out + row + c) =
+                __floats2bfloat162_rn(v.x, v.y);
+          else
+            *reinterpret_cast<float2*>(a.acc + row + c) = v;
+        }
+      }
+    } else {
+      const bool even = (a.V & 1) == 0;   // rows of dw start 4-byte aligned
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int dc = r + 8 * h;
+        if (dc >= a.d) continue;
+        bf16* orow = a.out + ((long long)g * a.d + dc) * a.V + a.c0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int v = cl + 8 * j;
+          if (even && v < a.cw) {      // then v + 1 < cw too: cw is even
+            *reinterpret_cast<__nv_bfloat162*>(orow + v) =
+                __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (v + i < a.cw)
+                orow[v + i] = __float2bfloat16(d[4 * j + 2 * h + i]);
           }
         }
       }
     }
   }
-  bf16* out = dw + (long long)g * d * V;
-#pragma unroll
-  for (int j = 0; j < NCH; ++j)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int c = cb + j * TC_CH + 16 * warp + gq + 8 * h;
-          const int v = v0 + 8 * nt + 2 * tq + i;
-          if (c < d && v < V)
-            out[(long long)c * V + v] = __float2bfloat16(acc[j][nt][2 * h + i]);
-        }
 }
 
 // ---------------------------------------------------------------------------
-// Launchers (every kernel's shared memory is static, under 48 KB)
+// Launchers
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -798,53 +907,147 @@ cudaError_t launch_fwd(const void* x, const void* w, const int* labels,
   return cudaGetLastError();
 }
 
-// One backward kernel; N is the instance's number of d chunks per slice
-// (TC_CH wide on the tensor cores, CH on the CUDA cores).
-template <typename T, int N>
-cudaError_t launch_one(bool dx_not_dw, const void* x, const void* w,
-                       const int* labels, const float* lse, const float* gsc,
-                       void* out, int G, int Tn, int d, int V, long long xg,
-                       long long wg, int nds, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
-  if (dx_not_dw) {
-    dim3 grid((Tn + X_BT - 1) / X_BT, G, nds);
-    if constexpr (std::is_same<T, bf16>::value)
-      ce_dx_tc_kernel<N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
-                                              Tn, d, V, xg, wg);
-    else
-      ce_dx_kernel<T, N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
-                                              Tn, d, V, xg, wg);
-  } else {
-    dim3 grid((V + W_BV - 1) / W_BV, G, nds);
-    if constexpr (std::is_same<T, bf16>::value)
-      ce_dw_tc_kernel<N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
-                                              Tn, d, V, xg, wg);
-    else
-      ce_dw_kernel<T, N><<<grid, NT, 0, st>>>(xt, wt, labels, lse, gsc, ot,
-                                              Tn, d, V, xg, wg);
-  }
+// The fp32 K4a or K4b; N is the instance's number of CH-wide d chunks per
+// 1024-column d slice.
+template <int N>
+cudaError_t launch_fp32_one(bool dx_not_dw, const float* x, const float* w,
+                            const int* labels, const float* lse,
+                            const float* gsc, float* out, int G, int Tn,
+                            int d, int V, long long xg, long long wg,
+                            cudaStream_t st) {
+  const int nds = (d + DSW - 1) / DSW;
+  if (dx_not_dw)
+    ce_dx_kernel<float, N><<<dim3((Tn + X_BT - 1) / X_BT, G, nds), NT, 0,
+                             st>>>(x, w, labels, lse, gsc, out, Tn, d, V, xg,
+                                   wg);
+  else
+    ce_dw_kernel<float, N><<<dim3((V + W_BV - 1) / W_BV, G, nds), NT, 0,
+                             st>>>(x, w, labels, lse, gsc, out, Tn, d, V, xg,
+                                   wg);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(bool dx_not_dw, const void* x, const void* w,
-                       const int* labels, const float* lse, const float* gsc,
-                       void* out, int G, int Tn, int d, int V, long long xg,
-                       long long wg, int nds, cudaStream_t st) {
-  if (nds != (d + DSW - 1) / DSW) return cudaErrorInvalidValue;
+cudaError_t launch_fp32(bool dx_not_dw, const float* x, const float* w,
+                        const int* labels, const float* lse, const float* gsc,
+                        float* out, int G, int Tn, int d, int V, long long xg,
+                        long long wg, cudaStream_t st) {
   const int width = d < DSW ? d : DSW;        // columns of the widest slice
-  const int nch = std::is_same<T, bf16>::value
-                      ? (width + TC_CH - 1) / TC_CH : (width + CH - 1) / CH;
-#define CE_CASE(N)                                                            \
-  if (nch <= N)                                                               \
-    return launch_one<T, N>(dx_not_dw, x, w, labels, lse, gsc, out, G, Tn, d, \
-                            V, xg, wg, nds, st);
-  CE_CASE(1) CE_CASE(2) CE_CASE(4) CE_CASE(8)
-  if constexpr (!std::is_same<T, bf16>::value) { CE_CASE(16) }
+  const int nch = (width + CH - 1) / CH;
+#define CE_CASE(N)                                                          \
+  if (nch <= N)                                                             \
+    return launch_fp32_one<N>(dx_not_dw, x, w, labels, lse, gsc, out, G, Tn, \
+                              d, V, xg, wg, st);
+  CE_CASE(1) CE_CASE(2) CE_CASE(4) CE_CASE(8) CE_CASE(16)
 #undef CE_CASE
   return cudaErrorInvalidValue;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 [groups, rows, inner] tensor (row stride ld elements, groups
+// dense) in 64 x 64 boxes, 128-byte swizzle, zeros out of bounds.
+bool tensor_map(CUtensorMap* m, const void* base, long long inner,
+                long long rows, long long groups, long long ld) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)(ld * 2),
+                                 (cuuint64_t)(ld * rows * 2)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MODE>
+cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
+                        const GemmArgs& a, int mtiles, int ntiles, int G,
+                        cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ce_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  ce_gemm_kernel<MODE><<<dim3(mtiles, ntiles, G), G_THREADS, G_SMEM, st>>>(
+      ma, mb, a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The bf16 backward, chunk by chunk (see the head of this file).
+cudaError_t launch_bwd_bf16(const bf16* x, const bf16* w, const int* labels,
+                            const float* lse, const float* gsc, bf16* p,
+                            float* dx_acc, bf16* dx, bf16* dw, int G, int Tn,
+                            int d, int V, int ldw, long long xg, long long wg,
+                            int vc, cudaStream_t st) {
+  const long long nvc = ((long long)V + vc - 1) / vc;
+  if (d % 8 || ldw % 8 || ldw < V || vc % G_BN || !aligned16(x) ||
+      !aligned16(w) || !aligned16(p) || (dx && nvc > 1 && !dx_acc))
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mw, mp;
+  if (!tensor_map(&mx, x, d, Tn, xg ? G : 1, d) ||
+      !tensor_map(&mw, w, V, d, wg ? G : 1, ldw) ||
+      !tensor_map(&mp, p, vc, Tn, G, vc))
+    return cudaErrorInvalidValue;
+  const int ttiles = (Tn + G_BM - 1) / G_BM, dtiles = (d + G_BM - 1) / G_BM;
+  GemmArgs a{labels, lse, gsc, p, dx_acc, nullptr, Tn, d, V, vc,
+             0, 0, 0, 0, xg != 0, wg != 0, 0};
+  for (int c0 = 0; c0 < V; c0 += vc) {
+    a.c0 = c0;
+    a.cw = V - c0 < vc ? V - c0 : vc;
+    const int vtiles = (a.cw + G_BN - 1) / G_BN;
+    a.out = nullptr;
+    a.nk = (d + G_BK - 1) / G_BK;
+    cudaError_t err = launch_gemm<CE_P>(mx, mw, a, ttiles, vtiles, G, st);
+    if (err != cudaSuccess) return err;
+    if (dx) {
+      a.out = dx;
+      a.first = c0 == 0;
+      a.last = c0 + vc >= V;
+      a.nk = (a.cw + G_BK - 1) / G_BK;
+      err = launch_gemm<CE_DX>(mp, mw, a, ttiles, dtiles, G, st);
+      if (err != cudaSuccess) return err;
+    }
+    if (dw) {
+      a.out = dw;
+      a.nk = (Tn + G_BK - 1) / G_BK;
+      err = launch_gemm<CE_DW>(mx, mp, a, dtiles, vtiles, G, st);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -865,27 +1068,32 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels,
                                        st));
 }
 
-// nds: the number of d slices, ceil(d / 1024) (fused_ce.launch_plan).
-extern "C" int fused_ce_dx(const void* x, const void* w, const int* labels,
-                           const float* lse, const float* g, void* dx, int G,
-                           int Tn, int d, int V, long long xg, long long wg,
-                           int nds, int dtype, void* stream) {
+// dx [G, T, d] and / or dw [G, d, V] (either may be null).  bf16: w's rows
+// are ldw >= V elements apart; p is the P scratch [G, T, vc] (vc a multiple
+// of 128); dx_acc the fp32 dx partial sums [G, T, d], needed for dx when
+// V > vc.  fp32: ldw == V, and p, dx_acc and vc are unused.
+extern "C" int fused_ce_bwd(const void* x, const void* w, const int* labels,
+                            const float* lse, const float* g, void* p,
+                            float* dx_acc, void* dx, void* dw, int G, int Tn,
+                            int d, int V, int ldw, long long xg, long long wg,
+                            int vc, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1
-                   ? launch_bwd<bf16>(true, x, w, labels, lse, g, dx, G, Tn,
-                                      d, V, xg, wg, nds, st)
-                   : launch_bwd<float>(true, x, w, labels, lse, g, dx, G, Tn,
-                                       d, V, xg, wg, nds, st));
-}
-
-extern "C" int fused_ce_dw(const void* x, const void* w, const int* labels,
-                           const float* lse, const float* g, void* dw, int G,
-                           int Tn, int d, int V, long long xg, long long wg,
-                           int nds, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1
-                   ? launch_bwd<bf16>(false, x, w, labels, lse, g, dw, G, Tn,
-                                      d, V, xg, wg, nds, st)
-                   : launch_bwd<float>(false, x, w, labels, lse, g, dw, G, Tn,
-                                       d, V, xg, wg, nds, st));
+  if (dtype == 1)
+    return (int)launch_bwd_bf16(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), labels, lse,
+        g, static_cast<bf16*>(p), dx_acc, static_cast<bf16*>(dx),
+        static_cast<bf16*>(dw), G, Tn, d, V, ldw, xg, wg, vc, st);
+  if (ldw != V) return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  if (dx) {
+    const cudaError_t err = launch_fp32(true, xf, wf, labels, lse, g,
+                                        static_cast<float*>(dx), G, Tn, d, V,
+                                        xg, wg, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (dw)
+    return (int)launch_fp32(false, xf, wf, labels, lse, g,
+                            static_cast<float*>(dw), G, Tn, d, V, xg, wg, st);
+  return 0;
 }

@@ -2,35 +2,50 @@
 ``csrc/fused_ce.cu`` (port of the JAX package's Pallas kernels
 ``repro.kernels.fused_ce``: K3 forward, K4a dx, K4b dw).
 
-All three are grouped: ``x [G, T, d]``, ``w [G, d, V]`` (a group stride of
-0 shares one ``w`` or ``x`` across groups), ``labels [G, T]`` int32; the
+All are grouped: ``x [G, T, d]``, ``w [G, d, V]`` (a group stride of 0
+shares one ``w`` or ``x`` across groups), ``labels [G, T]`` int32; the
 client ``vmap`` folds its clients into ``G`` so one launch serves them all.
-Any d runs: the kernels stream x and w through shared memory in chunks of
-d, and K4a/K4b blocks each own a slice of at most ``D_SLICE`` columns of
-d (``launch_plan``).
+
+The bf16 backward walks the vocabulary in chunks of ``Vc`` columns
+(``bwd_plan``): per chunk a P pass writes ``P = (softmax(x w) - onehot) g/T``
+in bf16 to a scratch ``[G, T, Vc]`` (at most ``P_CAP`` bytes), then the dx
+products add ``P w^T`` into fp32 partial sums ``[G, T, d]`` and the dw
+products write ``x^T P``.  ``fused_ce_bwd`` shares one P pass between dx and
+dw; ``fused_ce_dx`` and ``fused_ce_dw`` alone each run their own.  The
+wrapper allocates the scratch; TMA reads x, w and P, so their rows must be
+16-byte multiples: it raises where x's are not (d not a multiple of 8) or a
+base is not 16-byte aligned, and copies w into rows padded to a multiple of
+8 columns where V is not one (no model's vocabulary needs that).  fp32
+inputs take the CUDA-core kernels, which recompute the logits per block.
 
 On a CPU tensor a wrapper computes the plain version in ``kernels/ref.py``;
 on a ``meta`` tensor it returns empty outputs of the right shapes and
-counts nothing; on a CUDA tensor it launches the kernel or raises.
+counts nothing; on a CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 
 # Tiles compiled into csrc/fused_ce.cu (the grids are computed here).
 FWD_ROWS, VOCAB_TILE = 64, 64       # K3: token rows per block, vocab tile
-DX_ROWS, DW_COLS = 16, 16           # K4a dx rows, K4b dw columns per block
-D_SLICE = 1024                      # K4a/K4b: d columns per block (DSW)
+TILE = 128                          # bf16 K4a/K4b: output tile of a block
+P_CAP = 256 * 2**20                 # bytes of the P scratch at most
 GRID_YZ = 65535                     # CUDA's limit on gridDim.y and .z
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset_launches(): one per wrapper call of
-# each kernel (K3's combine pass counts within fused_ce_fwd), counted
-# nowhere else.
-LAUNCHES = {"fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0}
+# Wrapper calls since the last reset_launches(), counted where the call
+# launches its kernels and nowhere else: ``fused_ce_fwd`` one per K3 call
+# (its combine pass included); ``fused_ce_dx`` / ``fused_ce_dw`` one per
+# call that ran the dx / dw products over every vocabulary chunk
+# (``fused_ce_bwd`` counts one of each); ``fused_ce_p`` one per bf16 P pass
+# over every chunk (one per ``fused_ce_bwd`` call, one per ``fused_ce_dx``
+# or ``fused_ce_dw`` call alone).
+LAUNCHES = {"fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0,
+            "fused_ce_p": 0}
 
 
 def reset_launches():
@@ -52,22 +67,43 @@ def vocab_splits(g: int, t: int, v: int, sms: int = 132):
     return _cdiv(nv, tps), tps
 
 
+def _check_grid(name, grid, g, t, d, v):
+    gx, gy, gz = grid
+    if gx > 2**31 - 1 or gy > GRID_YZ or gz > GRID_YZ:
+        raise ValueError(f"{name}: grid {grid} exceeds CUDA's limits at "
+                         f"G={g}, T={t}, d={d}, V={v}")
+
+
+def bwd_plan(g: int, t: int, d: int, v: int) -> dict:
+    """The bf16 backward for ``x [g, t, d]``, ``w [g, d, v]``: the chunk
+    width ``vc`` (a multiple of ``TILE``, the largest that keeps the P
+    scratch ``[g, t, vc]`` bf16 within ``P_CAP``, at most V rounded up; the
+    kernels walk the chunks ``c0 = 0, vc, 2 vc, ...`` in order), w's padded
+    row length ``ldw`` and ``acc``, whether dx needs fp32 partial sums
+    (more than one chunk).  Raises ``ValueError`` where TMA cannot read x
+    (d not a multiple of 8) or a grid (T, d or vc tiles by the others, G
+    groups) exceeds CUDA's limits."""
+    if d % 8:
+        raise ValueError(f"fused_ce bf16 backward: x's rows ({d} columns) "
+                         f"must be 16-byte multiples for TMA")
+    vc = min(_cdiv(v, TILE), P_CAP // (2 * g * t) // TILE) * TILE
+    if vc < TILE:
+        raise ValueError(f"fused_ce bf16 backward: G*T = {g * t} rows leave "
+                         f"no {TILE}-column chunk within {P_CAP} bytes")
+    tt, dt, vt = _cdiv(t, TILE), _cdiv(d, TILE), _cdiv(vc, TILE)
+    _check_grid("fused_ce bwd", (max(tt, dt), max(dt, vt), g), g, t, d, v)
+    return {"vc": vc, "ldw": _cdiv(v, 8) * 8, "acc": v > vc}
+
+
 def launch_plan(g: int, t: int, d: int, v: int, sms: int = 132) -> dict:
-    """The three kernels' grids for ``x [g, t, d]``, ``w [g, d, v]``: K3's
-    ``(row blocks, vocab splits, g)``, K4a's ``(row blocks, g, d slices)``,
-    K4b's ``(vocab blocks, g, d slices)``.  Raises ``ValueError`` where a
-    grid exceeds CUDA's limits."""
+    """K3's vocabulary split and grid ``(row blocks, vocab splits, g)`` for
+    ``x [g, t, d]``, ``w [g, d, v]``.  Raises ``ValueError`` where the grid
+    exceeds CUDA's limits."""
     nsplit, tps = vocab_splits(g, t, v, sms)
-    nds = _cdiv(d, D_SLICE)
-    grids = {"fused_ce_fwd": (_cdiv(t, FWD_ROWS), nsplit, g),
-             "fused_ce_dx": (_cdiv(t, DX_ROWS), g, nds),
-             "fused_ce_dw": (_cdiv(v, DW_COLS), g, nds)}
-    for name, (gx, gy, gz) in grids.items():
-        if gx > 2**31 - 1 or gy > GRID_YZ or gz > GRID_YZ:
-            raise ValueError(f"{name}: grid {(gx, gy, gz)} exceeds CUDA's "
-                             f"limits at G={g}, T={t}, d={d}, V={v}")
-    return {"nsplit": nsplit, "tiles_per_split": tps, "d_slices": nds,
-            "grids": grids}
+    grid = (_cdiv(t, FWD_ROWS), nsplit, g)
+    _check_grid("fused_ce_fwd", grid, g, t, d, v)
+    return {"nsplit": nsplit, "tiles_per_split": tps,
+            "grids": {"fused_ce_fwd": grid}}
 
 
 def _shapes(x, w, labels):
@@ -142,47 +178,75 @@ def fused_ce_fwd(x, w, labels):
     return lse, picked
 
 
-def _bwd(name, x, w, labels, lse, g):
-    """One backward kernel (``fused_ce_dx`` or ``fused_ce_dw``)."""
+def _aligned(t: torch.Tensor, what: str):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: TMA needs a 16-byte aligned base")
+
+
+def _bwd(x, w, labels, lse, g, want_dx: bool, want_dw: bool):
+    """``(dx or None, dw or None)``: one P pass over every chunk, with the
+    dx and / or dw products."""
     gn, t, d, v = _shapes(x, w, labels)
     if tuple(lse.shape) != (gn, t) or tuple(g.shape) != (gn,):
         raise ValueError(f"need lse [G,T] and g [G], got {tuple(lse.shape)} "
                          f"and {tuple(g.shape)}")
-    shape, dtype = ((gn, t, d), x.dtype) if name == "fused_ce_dx" \
-        else ((gn, d, v), w.dtype)
     if x.device.type == "cpu":
-        return getattr(ref, name)(x, w, labels, lse, g)
+        return (ref.fused_ce_dx(x, w, labels, lse, g) if want_dx else None,
+                ref.fused_ce_dw(x, w, labels, lse, g) if want_dw else None)
+    if x.device.type not in ("meta", "cuda"):
+        raise ValueError(f"fused_ce backward runs on cpu or cuda, not "
+                         f"{x.device}")
+    dx = torch.empty((gn, t, d), dtype=x.dtype, device=x.device) \
+        if want_dx else None
+    dw = torch.empty((gn, d, v), dtype=w.dtype, device=x.device) \
+        if want_dw else None
     if x.device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device="meta")
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+        return dx, dw
     from repro_torch.kernels._build import load
     _check_cuda(x, w, labels, (lse, g))
     xg, wg = _group_stride(x, "x"), _group_stride(w, "w")
-    nds = launch_plan(gn, t, d, v)["d_slices"]
-    out = torch.empty(shape, dtype=dtype, device=x.device)
-    err = getattr(load("fused_ce"), name)(
+    bf16 = x.dtype == torch.bfloat16
+    ldw, vc, p, acc = v, 0, None, None
+    if bf16:
+        plan = bwd_plan(gn, t, d, v)
+        _aligned(x, "x")
+        _aligned(w, "w")
+        ldw, vc = plan["ldw"], plan["vc"]
+        if ldw != v:                    # w's rows padded to 16-byte multiples
+            w = F.pad(w if wg else w[:1], (0, ldw - v))
+            wg = w[0].numel() if wg else 0
+        p = torch.empty((gn, t, vc), dtype=x.dtype, device=x.device)
+        if want_dx and plan["acc"]:
+            acc = torch.empty((gn, t, d), dtype=torch.float32,
+                              device=x.device)
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    err = load("fused_ce").fused_ce_bwd(
         x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), out.data_ptr(), gn, t, d, v, xg, wg, nds,
-        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        g.data_ptr(), ptr(p), ptr(acc), ptr(dx), ptr(dw), gn, t, d, v, ldw,
+        xg, wg, vc, DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-    return out
+        raise RuntimeError(f"fused_ce backward launch failed: cudaError {err}")
+    LAUNCHES["fused_ce_p"] += bf16
+    LAUNCHES["fused_ce_dx"] += want_dx
+    LAUNCHES["fused_ce_dw"] += want_dw
+    return dx, dw
 
 
 def fused_ce_dx(x, w, labels, lse, g):
     """``dx [G,T,d]`` in x's dtype of ``g[G] * mean_t CE`` from the saved
-    ``lse`` (K4a)."""
-    return _bwd("fused_ce_dx", x, w, labels, lse, g)
+    ``lse`` (K4a: its own P pass, then the dx products)."""
+    return _bwd(x, w, labels, lse, g, True, False)[0]
 
 
 def fused_ce_dw(x, w, labels, lse, g):
-    """``dw [G,d,V]`` in w's dtype (K4b)."""
-    return _bwd("fused_ce_dw", x, w, labels, lse, g)
+    """``dw [G,d,V]`` in w's dtype (K4b: its own P pass, then the dw
+    products)."""
+    return _bwd(x, w, labels, lse, g, False, True)[1]
 
 
 def fused_ce_bwd(x, w, labels, lse, g):
-    """``(dx, dw)``: K4a, then K4b."""
-    return (fused_ce_dx(x, w, labels, lse, g),
-            fused_ce_dw(x, w, labels, lse, g))
+    """``(dx, dw)``: K4a and K4b on one shared P pass per chunk."""
+    return _bwd(x, w, labels, lse, g, True, True)

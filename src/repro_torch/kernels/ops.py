@@ -23,8 +23,8 @@ tensors the same Functions run with the plain versions inside; on
 
 Tile sizes are compiled into the CUDA sources, derived for Hopper's shared
 memory and registers (each source's note says how); the sizes chosen per
-call are K3's vocabulary split and K4a/K4b's d slices
-(``fused_ce.launch_plan``).
+call are K3's vocabulary split (``fused_ce.launch_plan``) and the bf16
+K4a/K4b's vocabulary chunks (``fused_ce.bwd_plan``).
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from torch.func import grad_and_value, vmap
 
 from repro.configs.registry import ARCHS as JARCHS
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import fused_ce as K
 from repro_torch.kernels import ops, ref
 
@@ -114,7 +115,7 @@ def test_meta_inputs_give_shapes_and_count_nothing():
     assert gx.shape == x.shape and gx.dtype == x.dtype
     assert gw.shape == w.shape and gw.dtype == w.dtype
     assert K.LAUNCHES == {"fused_ce_fwd": 0, "fused_ce_dx": 0,
-                          "fused_ce_dw": 0}
+                          "fused_ce_dw": 0, "fused_ce_p": 0}
 
 
 def test_grouped_plain_versions_and_splits():
@@ -138,28 +139,104 @@ def test_grouped_plain_versions_and_splits():
     assert K.vocab_splits(1, 8, 130) == (3, 1)
 
 
+# (G, T) of the heads: the server's and the aux's at S = 4096 (Qwen3's main
+# path) and at S = 2048 (the Mamba main path's).
+HEADS = [(1, 4096), (4, 4096), (1, 2048), (4, 2048)]
+
+
 @pytest.mark.parametrize("name", sorted(JARCHS))
 def test_launch_plan_takes_every_config_width(name):
-    """K3/K4a/K4b's grids fit CUDA's limits at every config's server head
-    (d = d_model) and aux head (d = aux_rank), S = 4096, with 1 group or
-    4 folded clients; K4a/K4b split d into ceil(d / 1024) slices."""
+    """K3's grid and the bf16 backward's plan at every config's server head
+    (d = d_model) and aux head (d = aux_rank), 1 group or 4 folded clients
+    at S = 4096 and 2048: the chunks cover V exactly and in order, the P
+    scratch stays within P_CAP, every grid fits CUDA's limits and x's, w's
+    and P's rows are 16-byte multiples for TMA."""
     cfg = JARCHS[name]
-    for g, d in ((1, cfg.d_model), (4, cfg.aux_rank)):
-        plan = K.launch_plan(g, 4096, d, cfg.vocab_size)
-        nds = -(-d // K.D_SLICE)
-        assert plan["d_slices"] == nds
-        assert plan["grids"]["fused_ce_dx"] == (256, g, nds)
-        assert plan["grids"]["fused_ce_dw"] == (-(-cfg.vocab_size // 16), g,
-                                                nds)
+    v = cfg.vocab_size
+    for g, t in HEADS:
+        d = cfg.d_model if g == 1 else cfg.aux_rank
+        plan = K.launch_plan(g, t, d, v)
         ns, tps = plan["nsplit"], plan["tiles_per_split"]
-        assert plan["grids"]["fused_ce_fwd"] == (64, ns, g)
-        assert (ns - 1) * tps < -(-cfg.vocab_size // 64) <= ns * tps
+        assert plan["grids"]["fused_ce_fwd"] == (t // 64, ns, g)
+        assert (ns - 1) * tps < -(-v // 64) <= ns * tps
+        bwd = K.bwd_plan(g, t, d, v)       # raises past CUDA's grid limits
+        vc = bwd["vc"]
+        # the chunks as the kernels walk them: c0 = 0, vc, 2 vc, ... < V
+        chunks = [(c0, min(vc, v - c0)) for c0 in range(0, v, vc)]
+        assert vc % K.TILE == 0 and 0 < v - chunks[-1][0] <= vc
+        assert sum(cw for _, cw in chunks) == v
+        assert 2 * g * t * vc <= K.P_CAP            # the P scratch
+        assert bwd["acc"] == (len(chunks) > 1)
+        assert bwd["ldw"] == v              # every vocabulary: no padding
+        # 16-byte rows of x, w and P for TMA
+        assert all(2 * n % 16 == 0 for n in (d, bwd["ldw"], vc))
+        for n in (t, d, vc):
+            assert -(-n // K.TILE) <= 65535 and g <= 65535
+
+
+def test_bwd_plan_at_the_main_paths_heads():
+    """The chunk widths of the Qwen3 and falcon-mamba heads: the P scratch
+    at most 256 MiB, one chunk of all of V at falcon-mamba's server head."""
+    want = {(1, 4096, 1024, 151936): (32768, 5),
+            (4, 4096, 128, 151936): (8192, 19),
+            (1, 2048, 4096, 65024): (65024, 1),
+            (4, 2048, 128, 65024): (16384, 4)}
+    for (g, t, d, v), (vc, n) in want.items():
+        plan = K.bwd_plan(g, t, d, v)
+        assert (plan["vc"], -(-v // plan["vc"])) == (vc, n)
+
+
+def test_bwd_plan_raises_where_tma_cannot_read():
+    """x's rows must be 16-byte multiples (d % 8 == 0) and bases 16-byte
+    aligned; a V that is not a multiple of 8 pads w's rows instead; a grid
+    past CUDA's limits raises."""
+    with pytest.raises(ValueError):
+        K.bwd_plan(1, 24, 12, 80)
+    with pytest.raises(ValueError):
+        K.bwd_plan(70000, 24, 16, 80)
+    assert K.bwd_plan(3, 37, 16, 130)["ldw"] == 136
+    buf = torch.zeros(64, dtype=torch.bfloat16)
+    K._aligned(buf, "x")
+    with pytest.raises(ValueError):
+        K._aligned(buf[1:], "x")
+
+
+@pytest.mark.parametrize("g,t,d,v", [(2, 37, 16, 130), (1, 100, 72, 1000),
+                                     (3, 24, 8, 300)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_wrappers_give_the_plain_grads(g, t, d, v, dtype):
+    """On CPU tensors (ragged T and V, V not a multiple of the tile)
+    ``fused_ce_bwd`` gives the bits of ``fused_ce_dx`` and ``fused_ce_dw``
+    alone, which are the plain versions', in x's and w's dtypes, and counts
+    no launch; in fp32 they equal the JAX reference's ``fused_ce_grads``
+    (rtol 1e-5)."""
+    (x, w, lab), (jx, jw, jlab) = _inputs(t, d, v, dtype, seed=5, lead=(g,))
+    x = x * d ** -0.5
+    gs = torch.linspace(0.5, 1.5, g)
+    lse, _ = K.fused_ce_fwd(x, w, lab)
+    K.reset_launches()
+    dx, dw = K.fused_ce_bwd(x, w, lab, lse, gs)
+    assert sum(K.LAUNCHES.values()) == 0
+    assert (dx.dtype, dx.shape) == (x.dtype, x.shape)
+    assert (dw.dtype, dw.shape) == (w.dtype, w.shape)
+    assert torch.equal(dx, K.fused_ce_dx(x, w, lab, lse, gs))
+    assert torch.equal(dw, K.fused_ce_dw(x, w, lab, lse, gs))
+    assert torch.equal(dx, ref.fused_ce_dx(x, w, lab, lse, gs))
+    assert torch.equal(dw, ref.fused_ce_dw(x, w, lab, lse, gs))
+    if dtype == "float32":
+        for i in range(g):
+            jdx, jdw = jref.fused_ce_grads(jx[i] * d ** -0.5, jw[i], jlab[i],
+                                           float(gs[i]))
+            np.testing.assert_allclose(dx[i].numpy(), np.asarray(jdx),
+                                       rtol=1e-5, atol=1e-7)
+            np.testing.assert_allclose(dw[i].numpy(), np.asarray(jdw),
+                                       rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("d", [128, 1024, 1536, 4096, 8192])
 def test_any_width_d(d):
-    """The grouped plain versions at every width the kernels now take
-    (past the old d <= 1024), and the slices K4a/K4b split d into."""
+    """The grouped plain versions at every width the kernels take, and
+    the bf16 backward's plan there (one chunk)."""
     (x, w, lab), _ = _inputs(24, d, 80, "float32", seed=4, lead=(1,))
     x = x * d ** -0.5
     lse, picked = ref.fused_ce_fwd(x, w, lab)
@@ -172,7 +249,6 @@ def test_any_width_d(d):
                                atol=1e-7)
     np.testing.assert_allclose(dw[0].numpy(), rw.numpy(), rtol=1e-5,
                                atol=1e-7)
-    assert K.launch_plan(1, 24, d, 80)["d_slices"] == {
-        128: 1, 1024: 1, 1536: 2, 4096: 4, 8192: 8}[d]
+    assert K.bwd_plan(1, 24, d, 80) == {"vc": 128, "ldw": 80, "acc": False}
     with pytest.raises(ValueError):
         K.launch_plan(70000, 24, d, 80)
