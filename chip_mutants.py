@@ -9,8 +9,8 @@ The tree itself, then each mutant below, runs phases 1, 2, 7 and 11 of
 raised.  A mutant is one deliberate fault in a kernel source, made in a
 copy of the checkout under a temporary directory; the checkout itself is
 never changed.  The script exits non-zero unless the tree passes every
-check and each mutant fails the bound per element at a main-path shape.
-The last line is a JSON summary: per run, the checks that failed.
+check and each mutant fails a bound of phase 7 or 11 at a main-path
+shape.  The last line is a JSON summary: per run, the checks that failed.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CE = "src/repro_torch/kernels/csrc/fused_ce.cu"
 SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
-# name -> (edits (file, old, new), a check that must fail)
+# name -> (edits (file, old, new), a check that must fail).  A mutant
+# never desynchronises a kernel's producer and consumers (that would hang
+# the card): it changes what both see, or only what a consumer adds up.
 MUTANTS = {
     "P without the softmax term": (
         [(CE, "? (expf(d[4 * j + 2 * h + i] - lse_t) -",
@@ -41,10 +43,25 @@ MUTANTS = {
           "* a.V + a.c0;")],
         "fused_ce_dw [1, 4096, 1024, 151936] bfloat16 per element"),
     "K6 window one kv tile late": (
-        [(SWA, "const int jt0 = max(0, q0 - window + 1) / BK,",
-          "const int jt0 = max(0, q0 - window + 1) / BK "
+        [(SWA, "const int jt0 = max(0, q0 - window + 1) / A_BK,",
+          "const int jt0 = max(0, q0 - window + 1) / A_BK "
           "+ (q0 - window + 1 > 0),")],
-        "swa_attention [1, 8192, 16, 8, 128] W=4096 bfloat16 per element"),
+        "swa_attention_tc [1, 8192, 16, 8, 128] W=4096 bfloat16 per element"),
+    "K6 one kv tile inside the window skipped": (
+        [(SWA, "const bool edge = k0 + A_BK - 1 > qa || k0 <= qa + 63 "
+          "- window;",
+          "const bool edge = k0 + A_BK - 1 > qa || k0 <= qa + 63 - window "
+          "|| jt == jt0 + 1;"),
+         (SWA, "const bool ok = key <= row && key > row - window;",
+          "const bool ok = key <= row && key > row - window "
+          "&& jt != jt0 + 1;")],
+        "swa_attention_tc [4, 4096, 16, 8, 128] W=4096 bfloat16 per element"),
+    "K3 one vocabulary tile of a split skipped": (
+        [(CE, "        fwd_tile(d, n0, a.V, lane, lab, fm, fl, fp);",
+          "        if (tile != 1) fwd_tile(d, n0, a.V, lane, lab, fm, fl, "
+          "fp);")],
+        "fused_ce_fwd [1, 4096, 1024, 151936] bfloat16 lse, picked within "
+        "1e-4"),
     "K5 state reset every 128 steps": (
         [(SSM, "const int tn = min(TC, S - t0);",
           "const int tn = min(TC, S - t0);\n    if (t0 % 128 == 0) h = 0.f;")],

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/`` at the repo root
-(listed in ``.gitignore``), at first use and again whenever the source is
+(listed in ``.gitignore``), at first use and again whenever the source or
+any ``csrc/*.cuh`` header (``hopper.cuh``, the Hopper building blocks) is
 newer than the library, and loaded with ``ctypes``.  All sources build in
 parallel, one ``nvcc`` each.  No ``--use_fast_math``: the quantizer's
 divide must stay IEEE-rounded.
@@ -32,14 +33,16 @@ SIGNATURES = {
         "quantize_philox": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "fused_ce": {
-        "fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                         _I, _I, _I, _P],
+        "fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                         _L, _I, _I, _I, _P],
         "fused_ce_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _L, _L, _I, _I, _P],
     },
     "swa_attention": {
         "swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P],
+        "swa_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                             _P],
     },
     "ssm_scan": {
         "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -65,8 +68,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = _lib_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """The library is missing or older than its source or any header."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:

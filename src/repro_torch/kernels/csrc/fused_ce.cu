@@ -11,58 +11,65 @@
 // group stride of 0, i.e. be shared by all groups), labels and lse [G, T],
 // g [G].  One launch serves all clients of a vmapped client phase.
 //
-// K3 (both dtypes) and the fp32 K4a/K4b: a K3 block owns 64 token rows and
-// walks its share of the vocabulary in 64-wide tiles, keeping the online
-// max / sum-exp / picked logit of each row in registers (the loop replaces
-// the TPU's sequential vocab grid axis and its scratch); the vocabulary is
-// split across `nsplit` blocks to fill 132 SMs and a tiny second pass
-// combines the partials of each row in a fixed order.  bf16 K3 runs
-// mma.sync m16n8k16 on shared-memory tiles.  fp32 inputs (the tests' and
-// the CPU comparison's fidelity path, reached by no bf16 configuration)
-// keep CUDA-core versions of all three, kept as they were and not tuned: a
-// fp32 K4a block owns 16 dx rows, a K4b block 16 dw columns, each over one
-// slice of at most 1024 columns of d, recomputing its logits per slice.
+// What bounds them on an H100: tensor-core operations at the server heads
+// (each product is 2 T d V flops against (T d + d V) * 2 bytes, far above
+// the 295 flop/byte ridge); at the d = 128 aux heads the products are
+// short, and the forward's exps (T V of them on the special-function units)
+// and the backward's bytes of P weigh as much as the products.
 //
-// The bf16 backward (the main path), redesigned for Hopper.  What bounds it
-// on an H100: tensor-core operations at the server heads (each of its three
-// products is 2 T d V flops against (T d + d V) * 2 bytes, far above the
-// 295 flop/byte ridge), and the bytes of P at the d = 128 aux heads (the
-// products are then short and P is written once and read twice).  The old
-// kernels recomputed the logits in every block that owned a slice of dx or
-// dw, 2 ceil(d / 1024) times a backward, on mma.sync tiles with a barrier
-// every 64-deep chunk.  Now, for each vocabulary chunk c of width Vc (the
-// P scratch G T Vc bf16 stays <= 256 MiB, fused_ce.bwd_plan), in order:
-//   1. P pass: logits x @ w[:, c] over all of d, once; the epilogue writes
-//      P_c = (exp(l - lse) - onehot) g / T in bf16 to the scratch (0 past V);
-//   2. dx: dx_acc += P_c w[:, c]^T, one block per (row tile, d tile), summed
-//      over Vc inside the block; chunk partials added in chunk order in fp32
-//      device memory, the last chunk writes dx in bf16;
-//   3. dw: dw[:, :, c] = x^T P_c, one block per (d tile, vocab tile), summed
-//      over all T inside the block, written once in bf16.
-// fused_ce_bwd shares one P pass between dx and dw.  Each logit is computed
-// once a call.  All three are one GEMM main loop (ce_gemm_kernel): a
-// 128 x 128 output tile a block, 3 warpgroups (one TMA producer, two wgmma
-// consumers of 64 rows each), a 4-stage ring of 64-deep bf16 tiles in
-// dynamic shared memory fed by TMA (128-byte swizzle, zero fill out of
-// bounds) and mbarriers, wgmma m64n128k16 with fp32 accumulators in
-// registers; wgmma's transpose bits read x^T and w^T (MN-major tiles)
-// straight from shared memory.  Every output element has one owner and a
-// fixed summation order: no atomics, the same bits from run to run.  P
-// enters its products rounded to bf16, as in the old kernels.
+// bf16, the main path: every logit product runs in one TMA + wgmma GEMM
+// main loop (ce_gemm_kernel): a 128 x 128 output tile at a time, 3
+// warpgroups (one TMA producer, two wgmma consumers of 64 rows each), a
+// 4-stage ring of 64-deep bf16 tiles in dynamic shared memory fed by TMA
+// (128-byte swizzle, zero fill out of bounds) and mbarriers, wgmma
+// m64n128k16 with fp32 accumulators in registers; wgmma's transpose bits
+// read x^T and w^T (MN-major tiles) straight from shared memory.  Four
+// epilogues share it:
+//   K3 (CE_F): a block owns 128 token rows and one split of the
+//      vocabulary, and walks the split's 128-column tiles in order; the
+//      producer streams the (tile, k step) pairs of the whole split through
+//      the ring, so the next tile's loads overlap this tile's epilogue.
+//      After each tile the epilogue masks the columns past V and updates
+//      each row's running max, sum of exps and picked logit in registers
+//      (the loop replaces the TPU's sequential vocab grid axis and its
+//      scratch); at the end of the split it writes the row's (m, l, picked)
+//      partial, and a second pass combines the splits of each row in split
+//      order.  The splits (fused_ce.launch_plan) fill 132 SMs at one
+//      160 KB block an SM.
+//   The backward, for each vocabulary chunk c of width Vc (the P scratch
+//   G T Vc bf16 stays <= 256 MiB, fused_ce.bwd_plan), in order:
+//   1. P pass (CE_P): logits x @ w[:, c] over all of d, once; the epilogue
+//      writes P_c = (exp(l - lse) - onehot) g / T in bf16 to the scratch
+//      (0 past V);
+//   2. dx (CE_DX): dx_acc += P_c w[:, c]^T, one block per (row tile, d
+//      tile), summed over Vc inside the block; chunk partials added in
+//      chunk order in fp32 device memory, the last chunk writes dx in bf16;
+//   3. dw (CE_DW): dw[:, :, c] = x^T P_c, one block per (d tile, vocab
+//      tile), summed over all T inside the block, written once in bf16.
+//   fused_ce_bwd shares one P pass between dx and dw.  Each logit is
+//   computed once a call.  P enters its products rounded to bf16.
+// Every output element has one owner and a fixed summation order: no
+// atomics, the same bits from run to run.
 //
-// Plain C interface (ctypes); each launcher returns a cudaError_t.  The TMA
-// descriptors are encoded with cuTensorMapEncodeTiled reached through
-// cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// fp32 inputs (the tests' and the CPU comparison's fidelity path, reached
+// by no bf16 configuration) keep CUDA-core versions of all three, kept as
+// they were and not tuned: a K3 block owns 64 token rows and walks its
+// split in 64-wide tiles; a K4a block owns 16 dx rows, a K4b block 16 dw
+// columns, each over one slice of at most 1024 columns of d, recomputing
+// its logits per slice.
+//
+// Plain C interface (ctypes); each launcher returns a cudaError_t.  The
+// Hopper building blocks (mbarriers, TMA, wgmma, tensor maps) are in
+// hopper.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int NT = 256;           // threads per block, all kernels
 constexpr int DSW = 1024;         // d columns an fp32 K4a/K4b block owns
@@ -431,153 +438,20 @@ ce_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K3 on the tensor cores (mma.sync)
+// bf16 on Hopper: one TMA + wgmma GEMM main loop, four epilogues
 // ---------------------------------------------------------------------------
-// Every product runs as mma.sync m16n8k16 (bf16 in, fp32 accumulators) on
-// fragments read from shared memory, 8 warps a block.  The logits are the
-// exact products of the bf16 inputs summed in fp32, as on the CUDA cores.
-// x and w stream through shared memory in 64-deep chunks of d.
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int TC_KC = 64;               // d chunk of the streamed logit tiles
-constexpr int TC_LD = 64 + 8;           // row stride of the 64-wide tiles
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment (16 x 16) at (m0, k0) of a [m][k] tile (k contiguous, row
-// stride ld); gq = lane / 4, tq = lane % 4.
-__device__ __forceinline__ void frag_a(const bf16* s, int ld, int m0, int k0,
-                                       int gq, int tq, uint32_t a[4]) {
-  const bf16* p = s + (m0 + gq) * ld + k0 + 2 * tq;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8) at (k0, n0) of a [k][n] tile (n contiguous, rows
-// 16-byte aligned), transposed by ldmatrix.
-__device__ __forceinline__ void frag_b_kn(const bf16* s, int ld, int k0,
-                                          int n0, int lane, uint32_t b[2]) {
-  const uint32_t addr = static_cast<uint32_t>(
-      __cvta_generic_to_shared(s + (k0 + (lane & 15)) * ld + n0));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b[0]), "=r"(b[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ bf16 ld_or_0(const bf16* p, long long i, bool ok) {
-  return ok ? p[i] : __float2bfloat16(0.f);
-}
-
-// dst[r][c] = src[r0 + r][c0 + c] (row strides ldd, lds) for r < rows,
-// c < cols, 0 outside [0, R) x [0, C); 16-byte vectors where a group of 8
-// lies inside and is aligned.  cols is a multiple of 8, dst rows 16-byte
-// aligned.
-__device__ __forceinline__ void tile_copy(bf16* dst, int ldd, const bf16* src,
-                                          long long lds, int r0, int c0,
-                                          int R, int C, int rows, int cols) {
-  const int vc = cols / 8;
-  for (int e = threadIdx.x; e < rows * vc; e += NT) {
-    const int r = e / vc, c = (e % vc) * 8;
-    const bool row_ok = r0 + r < R;
-    const bf16* sp = src + (long long)(r0 + r) * lds + c0 + c;
-    alignas(16) bf16 v[8];
-    if (row_ok && c0 + c + 8 <= C &&
-        (reinterpret_cast<uintptr_t>(sp) & 15) == 0) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(sp);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        v[i] = ld_or_0(sp, i, row_ok && c0 + c + i < C);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// K3 on the tensor cores.  Warp w computes rows 16 (w % 4) .. +16 and
-// columns 32 (w / 4) .. +32 of each 64 x 64 logits tile.
-__global__ void __launch_bounds__(NT)
-ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const int* __restrict__ labels, float* __restrict__ part,
-                 int G, int Tn, int d, int V, long long xg, long long wg,
-                 int nsplit, int tiles_per_split) {
-  __shared__ float Ls[F_BT * (F_BV + 1)];            // [64][65] logits
-  __shared__ __align__(16) bf16 Xs[F_BT * TC_LD];    // [64][TC_LD]  [t][c]
-  __shared__ __align__(16) bf16 Ws[TC_KC * TC_LD];   // [TC_KC][TC_LD] [c][v]
-
-  const int g = blockIdx.z, sp = blockIdx.y, r0 = blockIdx.x * F_BT;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mb = (warp & 3) * 16, nb = (warp >> 2) * 32;
-  const bf16* xb = x + g * xg;
-  const bf16* wb = w + g * wg;
-  const int srow = tid >> 2, slane = tid & 3, trow = r0 + srow;
-  const int lab = trow < Tn ? labels[(long long)g * Tn + trow] : -1;
-  float m = NEG, l = 0.f, pk = 0.f;
-
-  const int nv = (V + F_BV - 1) / F_BV;
-  const int vt_end = min(nv, (sp + 1) * tiles_per_split);
-  for (int vt = sp * tiles_per_split; vt < vt_end; ++vt) {
-    const int v0 = vt * F_BV;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < d; k0 += TC_KC) {
-      __syncthreads();                     // previous chunk consumed
-      tile_copy(Xs, TC_LD, xb, d, r0, k0, Tn, d, F_BT, TC_KC);
-      tile_copy(Ws, TC_LD, wb, V, k0, v0, d, V, TC_KC, F_BV);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < TC_KC; kk += 16) {
-        uint32_t a[4];
-        frag_a(Xs, TC_LD, mb, kk, gq, tq, a);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t b[2];
-          frag_b_kn(Ws, TC_LD, kk, nb + 8 * j, lane, b);
-          mma_bf16(acc[j], a, b);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* top = Ls + (mb + gq) * (F_BV + 1) + nb + 8 * j + 2 * tq;
-      top[0] = acc[j][0];
-      top[1] = acc[j][1];
-      top[8 * (F_BV + 1)] = acc[j][2];
-      top[8 * (F_BV + 1) + 1] = acc[j][3];
-    }
-    __syncthreads();
-    row_stats(Ls + srow * (F_BV + 1), slane, v0, V, lab, m, l, pk);
-  }
-  write_part(part, m, l, pk, G, Tn, nsplit, g, sp, trow, slane);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 K4a/K4b on Hopper: one TMA + wgmma GEMM main loop, three epilogues
-// ---------------------------------------------------------------------------
-// A block computes one 128 x 128 tile C[m0 + i][n0 + j] = sum_k A[m][k]
-// B[k][n].  Warpgroup 0 is the producer: one thread keeps G_ST stages of
-// 64-deep A and B tiles in flight with TMA (each tile two 64 x 64 boxes,
-// 128-byte rows, 128-byte swizzle).  Warpgroups 1 and 2 each own 64 rows
-// of C and issue wgmma m64n128k16 on the stage that has arrived; a stage
-// goes back to the producer once the wgmma group after it has been issued
-// and the one reading it has completed.
+// A block computes 128 x 128 tiles C[m0 + i][n0 + j] = sum_k A[m][k]
+// B[k][n]: one tile, or for K3 every vocabulary tile of its split in turn.
+// Warpgroup 0 is the producer: one thread keeps G_ST stages of 64-deep A
+// and B tiles in flight with TMA (each tile two 64 x 64 boxes, 128-byte
+// rows, 128-byte swizzle), across tile boundaries.  Warpgroups 1 and 2 each
+// own 64 rows of C and issue wgmma m64n128k16 on the stage that has
+// arrived; a stage goes back to the producer once the wgmma group after it
+// has been issued and the one reading it has completed (after a tile's last
+// group, once it has completed).
 //
-// The three modes, with their operands as stored in device memory:
+// The four modes, with their operands as stored in device memory:
+//   CE_F  C[t][v]    = x[t][:]  . w[:][v]       A = x K-major,  B = w MN-major
 //   CE_P  C[t][v]    = x[t][:]  . w[:][c0+v]    A = x K-major,  B = w MN-major
 //   CE_DX C[t][dc]   = P[t][:]  . w[dc][c0+:]   A = P K-major,  B = w K-major
 //   CE_DW C[dc][v]   = x[:][dc] . P[:][v]       A = x MN-major, B = P MN-major
@@ -586,7 +460,7 @@ ce_fwd_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // of every tile arrive as zeros, so ragged T, d and V need no masks in the
 // main loop.
 
-enum { CE_P = 0, CE_DX = 1, CE_DW = 2 };
+enum { CE_P = 0, CE_DX = 1, CE_DW = 2, CE_F = 3 };
 
 constexpr int G_BM = 128, G_BN = 128, G_BK = 64, G_ST = 4;
 constexpr int G_THREADS = 384;               // 3 warpgroups
@@ -601,171 +475,116 @@ struct GemmArgs {
   bf16* p;            // P scratch [G, T, ldp] (written by CE_P)
   float* acc;         // dx partial sums [G, T, d] fp32 (CE_DX)
   bf16* out;          // dx [G, T, d] (CE_DX) or dw [G, d, V] (CE_DW)
+  float* part;        // K3 partials [3, G, nsplit, T] (CE_F)
   int Tn, d, V, ldp;
   int c0, cw;         // the chunk: vocabulary columns c0 .. c0 + cw
   int first, last;    // CE_DX: the first / last chunk
   int x_groups, w_groups;   // 0: one copy shared by all groups
   int nk;             // 64-deep k steps
+  int nsplit, tps;    // CE_F: vocabulary splits, 128-column tiles a split
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(b)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(b)) : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(smem_u32(b)), "r"(parity) : "memory");
-}
-
-// One 64 x 64 box at (inner, row, group) of a 3D tensor map.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        uint64_t* bar, int inner, int row,
-                                        int group) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(inner), "r"(row), "r"(group)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-// K-major tiles: rows of 64 k (128 B), 8-row groups 1024 B apart (SBO).
-// MN-major tiles: rows of 64 m or n (128 B) per k, 8-k groups 1024 B apart
-// (SBO), the next 64 columns of m or n one box (8192 B) on (LBO).
-__device__ __forceinline__ uint64_t gdesc(const void* p, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+// K3's epilogue of one vocabulary tile at column n0, for this thread's
+// rows r (h = 0) and r + 8 (h = 1): columns past V masked out, then each
+// row's running max m (the same on the 4 lanes of the row's quad), this
+// lane's share of the sum of exps l (ex2.approx on the special-function
+// units), and the picked logit pk, which the lane holding column
+// labels[row] adds.
+__device__ __forceinline__ void fwd_tile(float (&d)[64], int n0, int V,
+                                         int lane, const int (&lab)[2],
+                                         float (&m)[2], float (&l)[2],
+                                         float (&pk)[2]) {
+  const int cl = n0 + 2 * (lane % 4);
+  if (n0 + G_BN > V) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (cl + 8 * j + (q & 1) >= V) d[4 * j + q] = -INFINITY;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mb = mx * LOG2E;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        s += ex2(fmaf(d[4 * j + 2 * h + i], LOG2E, -mb));
+    l[h] = l[h] * ex2((m[h] - mx) * LOG2E) + s;
+    m[h] = mx;
+    if ((unsigned)(lab[h] - n0) < (unsigned)G_BN) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (cl + 8 * j + i == lab[h]) pk[h] += d[4 * j + 2 * h + i];
+    }
+  }
 }
 
-// d[64 x 128] += A[64 x 16] B[16 x 128]; TA / TB: the tile is MN-major.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// Grid: (M tiles, N tiles, G).  Map a is A's tensor and b B's: for CE_P
-// x and w, for CE_DX P and w, for CE_DW x and P.
+// Grid: (M tiles, N tiles or, for CE_F, vocabulary splits, G).  Map a is
+// A's tensor and b B's: for CE_F and CE_P x and w, for CE_DX P and w, for
+// CE_DW x and P.
 template <int MODE>
 __global__ void __launch_bounds__(G_THREADS, 1)
 ce_gemm_kernel(const __grid_constant__ CUtensorMap ma,
                const __grid_constant__ CUtensorMap mb, const GemmArgs a) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_ST * G_STAGE_BYTES);
   uint64_t* empty = full + G_ST;
 
-  const int m0 = blockIdx.x * G_BM, n0 = blockIdx.y * G_BN, g = blockIdx.z;
+  const int m0 = blockIdx.x * G_BM, g = blockIdx.z;
   const int gx = a.x_groups ? g : 0, gw = a.w_groups ? g : 0;
   const int wg = threadIdx.x / 128;
+  // The block's output tiles: tile = 0 .. ntiles - 1 at columns
+  // (vt0 + tile) G_BN
+  const int vt0 = MODE == CE_F ? blockIdx.y * a.tps : blockIdx.y;
+  const int ntiles =
+      MODE == CE_F ? min(a.tps, (a.V + G_BN - 1) / G_BN - vt0) : 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < G_ST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);               // the 8 consumer warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
   if (wg == 0) {
     // ---- producer: one thread issues every copy --------------------------
     if (threadIdx.x == 0) {
-      for (int kt = 0; kt < a.nk; ++kt) {
-        const int s = kt % G_ST, k0 = kt * G_BK;
-        if (kt >= G_ST) mbar_wait(&empty[s], ((kt / G_ST) - 1) & 1);
-        bf16* sa = reinterpret_cast<bf16*>(smem + s * G_STAGE_BYTES);
-        bf16* sb = sa + 2 * G_BOX;
-        mbar_expect_tx(&full[s], G_STAGE_BYTES);
+      int it = 0;                            // loads issued
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int n0 = (vt0 + tile) * G_BN;
+        for (int kt = 0; kt < a.nk; ++kt, ++it) {
+          const int s = it % G_ST, k0 = kt * G_BK;
+          if (it >= G_ST) mbar_wait(&empty[s], ((it / G_ST) - 1) & 1);
+          bf16* sa = reinterpret_cast<bf16*>(smem + s * G_STAGE_BYTES);
+          bf16* sb = sa + 2 * G_BOX;
+          mbar_expect_tx(&full[s], G_STAGE_BYTES);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (MODE == CE_P) {
-            tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, gx);
-            tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + n0 + 64 * h, k0, gw);
-          } else if (MODE == CE_DX) {
-            tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, g);
-            tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + k0, n0 + 64 * h, gw);
-          } else {
-            tma_box(sa + h * G_BOX, &ma, &full[s], m0 + 64 * h, k0, gx);
-            tma_box(sb + h * G_BOX, &mb, &full[s], n0 + 64 * h, k0, g);
+          for (int h = 0; h < 2; ++h) {
+            if (MODE == CE_P || MODE == CE_F) {
+              tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, gx);
+              tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + n0 + 64 * h, k0,
+                      gw);
+            } else if (MODE == CE_DX) {
+              tma_box(sa + h * G_BOX, &ma, &full[s], k0, m0 + 64 * h, g);
+              tma_box(sb + h * G_BOX, &mb, &full[s], a.c0 + k0, n0 + 64 * h,
+                      gw);
+            } else {
+              tma_box(sa + h * G_BOX, &ma, &full[s], m0 + 64 * h, k0, gx);
+              tma_box(sb + h * G_BOX, &mb, &full[s], n0 + 64 * h, k0, g);
+            }
           }
         }
       }
@@ -775,106 +594,144 @@ ce_gemm_kernel(const __grid_constant__ CUtensorMap ma,
     const int wc = wg - 1;
     const int tid = threadIdx.x - 128 * wg, warp = tid / 32, lane = tid % 32;
     constexpr int TA = MODE == CE_DW, TB = MODE != CE_DX;
-    float d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-
-    for (int kt = 0; kt < a.nk; ++kt) {
-      const int s = kt % G_ST;
-      mbar_wait(&full[s], (kt / G_ST) & 1);
-      const bf16* sa = reinterpret_cast<const bf16*>(smem + s * G_STAGE_BYTES);
-      const bf16* sb = sa + 2 * G_BOX;
-      fence_acc(d);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < G_BK / 16; ++j) {
-        // A: this warpgroup's 64 rows; k advances 16 columns (K-major) or
-        // 16 rows (MN-major) of the tile.
-        const uint64_t da = TA
-            ? gdesc(sa + wc * G_BOX + j * 16 * 64, 8192, 1024)
-            : gdesc(sa + wc * G_BOX + j * 16, 16, 1024);
-        const uint64_t db = TB ? gdesc(sb + j * 16 * 64, 8192, 1024)
-                               : gdesc(sb + j * 16, 16, 1024);
-        wgmma_m64n128k16<TA, TB>(d, da, db);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();                       // stage kt - 1 has been read
-      fence_acc(d);
-      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % G_ST]);
-    }
-    wgmma_wait<0>();
-    fence_acc(d);
-
-    // ---- epilogue: d[4j + 2h + i] is C[r + 8h][8j + 2 (lane % 4) + i] ----
+    // d[4j + 2h + i] is C[r + 8h][8j + 2 (lane % 4) + i] of the tile
     const int r = m0 + 64 * wc + 16 * warp + lane / 4;
-    const int cl = n0 + 2 * (lane % 4);
-    if (MODE == CE_P) {
-      const float scale = a.gsc[g] / (float)a.Tn;
+    float d[64];
+    // CE_F: the running (max, sum of exps, picked logit) of rows r, r + 8
+    float fm[2] = {-1e30f, -1e30f}, fl[2] = {0.f, 0.f}, fp[2] = {0.f, 0.f};
+    int lab[2] = {-1, -1};
+    if (MODE == CE_F) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = r + 8 * h;
-        if (t >= a.Tn) continue;
-        const long long at = (long long)g * a.Tn + t;
-        const float lse_t = a.lse[at];
-        const int lab = a.labels[at] - a.c0;
-        bf16* prow = a.p + at * a.ldp;
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < a.Tn)
+          lab[h] = a.labels[(long long)g * a.Tn + r + 8 * h];
+    }
+
+    int it = 0;                              // stages consumed
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int n0 = (vt0 + tile) * G_BN;
+      for (int kt = 0; kt < a.nk; ++kt, ++it) {
+        const int s = it % G_ST;
+        mbar_wait(&full[s], (it / G_ST) & 1);
+        const bf16* sa =
+            reinterpret_cast<const bf16*>(smem + s * G_STAGE_BYTES);
+        const bf16* sb = sa + 2 * G_BOX;
+        fence_regs(d);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int v = cl + 8 * j;
-          float pv[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            pv[i] = v + i < a.cw
-                        ? (expf(d[4 * j + 2 * h + i] - lse_t) -
-                           (v + i == lab ? 1.f : 0.f)) * scale
-                        : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(prow + v) =
-              __floats2bfloat162_rn(pv[0], pv[1]);
+        for (int j = 0; j < G_BK / 16; ++j) {
+          // A: this warpgroup's 64 rows; k advances 16 columns (K-major) or
+          // 16 rows (MN-major) of the tile.
+          const uint64_t da = TA
+              ? gdesc(sa + wc * G_BOX + j * 16 * 64, 8192, 1024)
+              : gdesc(sa + wc * G_BOX + j * 16, 16, 1024);
+          const uint64_t db = TB ? gdesc(sb + j * 16 * 64, 8192, 1024)
+                                 : gdesc(sb + j * 16, 16, 1024);
+          wgmma_m64n128k16<TA, TB>(d, da, db, kt > 0 || j > 0);
         }
+        wgmma_commit();
+        wgmma_wait<1>();                     // stage it - 1 has been read
+        fence_regs(d);
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % G_ST]);
       }
-    } else if (MODE == CE_DX) {
+      wgmma_wait<0>();
+      fence_regs(d);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % G_ST]);
+
+      // ---- epilogue ------------------------------------------------------
+      const int cl = n0 + 2 * (lane % 4);
+      if (MODE == CE_F) {
+        fwd_tile(d, n0, a.V, lane, lab, fm, fl, fp);
+      } else if (MODE == CE_P) {
+        const float scale = a.gsc[g] / (float)a.Tn;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = r + 8 * h;
-        if (t >= a.Tn) continue;
-        const long long row = ((long long)g * a.Tn + t) * a.d;
+        for (int h = 0; h < 2; ++h) {
+          const int t = r + 8 * h;
+          if (t >= a.Tn) continue;
+          const long long at = (long long)g * a.Tn + t;
+          const float lse_t = a.lse[at];
+          const int lb = a.labels[at] - a.c0;
+          bf16* prow = a.p + at * a.ldp;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int c = cl + 8 * j;
-          if (c >= a.d) continue;                // d is a multiple of 8
-          float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-          if (!a.first) {
-            const float2 prev = *reinterpret_cast<const float2*>(a.acc + row + c);
-            v.x = prev.x + v.x;
-            v.y = prev.y + v.y;
-          }
-          if (a.last)
-            *reinterpret_cast<__nv_bfloat162*>(a.out + row + c) =
-                __floats2bfloat162_rn(v.x, v.y);
-          else
-            *reinterpret_cast<float2*>(a.acc + row + c) = v;
-        }
-      }
-    } else {
-      const bool even = (a.V & 1) == 0;   // rows of dw start 4-byte aligned
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int dc = r + 8 * h;
-        if (dc >= a.d) continue;
-        bf16* orow = a.out + ((long long)g * a.d + dc) * a.V + a.c0;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int v = cl + 8 * j;
-          if (even && v < a.cw) {      // then v + 1 < cw too: cw is even
-            *reinterpret_cast<__nv_bfloat162*>(orow + v) =
-                __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-          } else {
+          for (int j = 0; j < 16; ++j) {
+            const int v = cl + 8 * j;
+            float pv[2];
 #pragma unroll
             for (int i = 0; i < 2; ++i)
-              if (v + i < a.cw)
-                orow[v + i] = __float2bfloat16(d[4 * j + 2 * h + i]);
+              pv[i] = v + i < a.cw
+                          ? (expf(d[4 * j + 2 * h + i] - lse_t) -
+                             (v + i == lb ? 1.f : 0.f)) * scale
+                          : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(prow + v) =
+                __floats2bfloat162_rn(pv[0], pv[1]);
           }
         }
+      } else if (MODE == CE_DX) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = r + 8 * h;
+          if (t >= a.Tn) continue;
+          const long long row = ((long long)g * a.Tn + t) * a.d;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int c = cl + 8 * j;
+            if (c >= a.d) continue;              // d is a multiple of 8
+            float2 v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            if (!a.first) {
+              const float2 prev =
+                  *reinterpret_cast<const float2*>(a.acc + row + c);
+              v.x = prev.x + v.x;
+              v.y = prev.y + v.y;
+            }
+            if (a.last)
+              *reinterpret_cast<__nv_bfloat162*>(a.out + row + c) =
+                  __floats2bfloat162_rn(v.x, v.y);
+            else
+              *reinterpret_cast<float2*>(a.acc + row + c) = v;
+          }
+        }
+      } else {
+        const bool even = (a.V & 1) == 0;   // rows of dw start 4-byte aligned
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int dc = r + 8 * h;
+          if (dc >= a.d) continue;
+          bf16* orow = a.out + ((long long)g * a.d + dc) * a.V + a.c0;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int v = cl + 8 * j;
+            if (even && v < a.cw) {      // then v + 1 < cw too: cw is even
+              *reinterpret_cast<__nv_bfloat162*>(orow + v) =
+                  __floats2bfloat162_rn(d[4 * j + 2 * h],
+                                        d[4 * j + 2 * h + 1]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+                if (v + i < a.cw)
+                  orow[v + i] = __float2bfloat16(d[4 * j + 2 * h + i]);
+            }
+          }
+        }
+      }
+    }
+
+    if (MODE == CE_F) {
+      // the split's partial (m, l, picked) of rows r, r + 8: l and picked
+      // summed over the row's quad
+      const long long plane = (long long)gridDim.z * a.nsplit * a.Tn;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float l = fl[h], pk = fp[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        pk += __shfl_xor_sync(0xffffffffu, pk, 1);
+        pk += __shfl_xor_sync(0xffffffffu, pk, 2);
+        const int t = r + 8 * h;
+        if (lane % 4 != 0 || t >= a.Tn) continue;
+        const long long at = ((long long)g * a.nsplit + blockIdx.y) * a.Tn + t;
+        a.part[at] = fm[h];
+        a.part[plane + at] = l;
+        a.part[2 * plane + at] = pk;
       }
     }
   }
@@ -884,22 +741,61 @@ ce_gemm_kernel(const __grid_constant__ CUtensorMap ma,
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// A bf16 [groups, rows, inner] tensor (row stride ld elements, groups
+// dense) in 64 x 64 boxes.
+bool tensor_map(CUtensorMap* m, const void* base, long long inner,
+                long long rows, long long groups, long long ld) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)groups};
+  const cuuint64_t strides[2] = {(cuuint64_t)(ld * 2),
+                                 (cuuint64_t)(ld * rows * 2)};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return tensor_map_bf16(m, base, 3, dims, strides, box);
+}
+
+template <int MODE>
+cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
+                        const GemmArgs& a, int mtiles, int ntiles, int G,
+                        cudaStream_t st) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ce_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        G_SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  ce_gemm_kernel<MODE><<<dim3(mtiles, ntiles, G), G_THREADS, G_SMEM, st>>>(
+      ma, mb, a);
+  return cudaGetLastError();
+}
+
+// K3: the partials of every (row tile, split, group), then the combine
+// pass.  bf16: w's rows are ldw >= V elements apart (a multiple of 8).
 cudaError_t launch_fwd(const void* x, const void* w, const int* labels,
                        float* part, float* lse, float* picked, int G, int Tn,
-                       int d, int V, long long xg, long long wg, int nsplit,
-                       int tps, cudaStream_t st) {
-  dim3 grid((Tn + F_BT - 1) / F_BT, nsplit, G);
-  if constexpr (std::is_same<T, bf16>::value) {
-    ce_fwd_tc_kernel<<<grid, NT, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), labels,
-        part, G, Tn, d, V, xg, wg, nsplit, tps);
+                       int d, int V, int ldw, long long xg, long long wg,
+                       int nsplit, int tps, bool bf16_in, cudaStream_t st) {
+  cudaError_t err;
+  if (bf16_in) {
+    if (d % 8 || ldw % 8 || ldw < V || !aligned16(x) || !aligned16(w))
+      return cudaErrorInvalidValue;
+    CUtensorMap mx, mw;
+    if (!tensor_map(&mx, x, d, Tn, xg ? G : 1, d) ||
+        !tensor_map(&mw, w, V, d, wg ? G : 1, ldw))
+      return cudaErrorInvalidValue;
+    GemmArgs a{labels, nullptr, nullptr, nullptr, nullptr, nullptr, part,
+               Tn, d, V, 0, 0, V, 0, 0, xg != 0, wg != 0,
+               (d + G_BK - 1) / G_BK, nsplit, tps};
+    err = launch_gemm<CE_F>(mx, mw, a, (Tn + G_BM - 1) / G_BM, nsplit, G, st);
   } else {
-    ce_fwd_kernel<T><<<grid, NT, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), labels, part, G,
-        Tn, d, V, xg, wg, nsplit, tps);
+    if (ldw != V) return cudaErrorInvalidValue;
+    ce_fwd_kernel<float><<<dim3((Tn + F_BT - 1) / F_BT, nsplit, G), NT, 0,
+                           st>>>(static_cast<const float*>(x),
+                                 static_cast<const float*>(w), labels, part,
+                                 G, Tn, d, V, xg, wg, nsplit, tps);
+    err = cudaGetLastError();
   }
-  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long rows = (long long)G * Tn;
   ce_combine_kernel<<<(unsigned)((rows + NT - 1) / NT), NT, 0, st>>>(
@@ -942,70 +838,6 @@ cudaError_t launch_fp32(bool dx_not_dw, const float* x, const float* w,
   return cudaErrorInvalidValue;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [groups, rows, inner] tensor (row stride ld elements, groups
-// dense) in 64 x 64 boxes, 128-byte swizzle, zeros out of bounds.
-bool tensor_map(CUtensorMap* m, const void* base, long long inner,
-                long long rows, long long groups, long long ld) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)groups};
-  const cuuint64_t strides[2] = {(cuuint64_t)(ld * 2),
-                                 (cuuint64_t)(ld * rows * 2)};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int MODE>
-cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb,
-                        const GemmArgs& a, int mtiles, int ntiles, int G,
-                        cudaStream_t st) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ce_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        G_SMEM);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  ce_gemm_kernel<MODE><<<dim3(mtiles, ntiles, G), G_THREADS, G_SMEM, st>>>(
-      ma, mb, a);
-  return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // The bf16 backward, chunk by chunk (see the head of this file).
 cudaError_t launch_bwd_bf16(const bf16* x, const bf16* w, const int* labels,
                             const float* lse, const float* gsc, bf16* p,
@@ -1022,8 +854,8 @@ cudaError_t launch_bwd_bf16(const bf16* x, const bf16* w, const int* labels,
       !tensor_map(&mp, p, vc, Tn, G, vc))
     return cudaErrorInvalidValue;
   const int ttiles = (Tn + G_BM - 1) / G_BM, dtiles = (d + G_BM - 1) / G_BM;
-  GemmArgs a{labels, lse, gsc, p, dx_acc, nullptr, Tn, d, V, vc,
-             0, 0, 0, 0, xg != 0, wg != 0, 0};
+  GemmArgs a{labels, lse, gsc, p, dx_acc, nullptr, nullptr, Tn, d, V, vc,
+             0, 0, 0, 0, xg != 0, wg != 0, 0, 0, 0};
   for (int c0 = 0; c0 < V; c0 += vc) {
     a.c0 = c0;
     a.cw = V - c0 < vc ? V - c0 : vc;
@@ -1052,20 +884,18 @@ cudaError_t launch_bwd_bf16(const bf16* x, const bf16* w, const int* labels,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  part: scratch fp32 [3, G, nsplit, T].
+// dtype: 0 float32, 1 bfloat16.  part: scratch fp32 [3, G, nsplit, T];
+// bf16: w's rows are ldw >= V elements apart (ldw % 8 == 0), splits of tps
+// 128-column tiles over 128-row tiles; fp32: ldw == V, 64-wide tiles over
+// 64-row tiles.
 extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels,
                             float* part, float* lse, float* picked, int G,
-                            int Tn, int d, int V, long long xg, long long wg,
-                            int nsplit, int tiles_per_split, int dtype,
-                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 1
-                   ? launch_fwd<bf16>(x, w, labels, part, lse, picked, G, Tn,
-                                      d, V, xg, wg, nsplit, tiles_per_split,
-                                      st)
-                   : launch_fwd<float>(x, w, labels, part, lse, picked, G, Tn,
-                                       d, V, xg, wg, nsplit, tiles_per_split,
-                                       st));
+                            int Tn, int d, int V, int ldw, long long xg,
+                            long long wg, int nsplit, int tiles_per_split,
+                            int dtype, void* stream) {
+  return (int)launch_fwd(x, w, labels, part, lse, picked, G, Tn, d, V, ldw,
+                         xg, wg, nsplit, tiles_per_split, dtype == 1,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // dx [G, T, d] and / or dw [G, d, V] (either may be null).  bf16: w's rows

@@ -6,17 +6,23 @@ All are grouped: ``x [G, T, d]``, ``w [G, d, V]`` (a group stride of 0
 shares one ``w`` or ``x`` across groups), ``labels [G, T]`` int32; the
 client ``vmap`` folds its clients into ``G`` so one launch serves them all.
 
-The bf16 backward walks the vocabulary in chunks of ``Vc`` columns
-(``bwd_plan``): per chunk a P pass writes ``P = (softmax(x w) - onehot) g/T``
-in bf16 to a scratch ``[G, T, Vc]`` (at most ``P_CAP`` bytes), then the dx
-products add ``P w^T`` into fp32 partial sums ``[G, T, d]`` and the dw
-products write ``x^T P``.  ``fused_ce_bwd`` shares one P pass between dx and
-dw; ``fused_ce_dx`` and ``fused_ce_dw`` alone each run their own.  The
-wrapper allocates the scratch; TMA reads x, w and P, so their rows must be
-16-byte multiples: it raises where x's are not (d not a multiple of 8) or a
-base is not 16-byte aligned, and copies w into rows padded to a multiple of
-8 columns where V is not one (no model's vocabulary needs that).  fp32
-inputs take the CUDA-core kernels, which recompute the logits per block.
+bf16 runs every logit product in one TMA + wgmma main loop.  The forward
+(``launch_plan``): a block owns 128 token rows and one split of the
+vocabulary, walks the split's 128-column tiles keeping each row's running
+max, sum of exps and picked logit, and writes a partial per row and split;
+a second pass combines the splits in order.  The backward walks the
+vocabulary in chunks of ``Vc`` columns (``bwd_plan``): per chunk a P pass
+writes ``P = (softmax(x w) - onehot) g/T`` in bf16 to a scratch
+``[G, T, Vc]`` (at most ``P_CAP`` bytes), then the dx products add
+``P w^T`` into fp32 partial sums ``[G, T, d]`` and the dw products write
+``x^T P``.  ``fused_ce_bwd`` shares one P pass between dx and dw;
+``fused_ce_dx`` and ``fused_ce_dw`` alone each run their own.  The wrapper
+allocates the scratch; TMA reads x, w and P, so their rows must be 16-byte
+multiples: it raises where x's are not (d not a multiple of 8) or a base is
+not 16-byte aligned, and copies w into rows padded to a multiple of 8
+columns where V is not one (no model's vocabulary needs that).  fp32 inputs
+take the CUDA-core kernels: the forward on 64 x 64 tiles, the backward
+recomputing the logits per block.
 
 On a CPU tensor a wrapper computes the plain version in ``kernels/ref.py``;
 on a ``meta`` tensor it returns empty outputs of the right shapes and
@@ -24,14 +30,16 @@ counts nothing; on a CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 
 # Tiles compiled into csrc/fused_ce.cu (the grids are computed here).
-FWD_ROWS, VOCAB_TILE = 64, 64       # K3: token rows per block, vocab tile
-TILE = 128                          # bf16 K4a/K4b: output tile of a block
+TILE = 128              # bf16: rows and columns of a block's output tile
+FP32_TILE = 64          # fp32 K3: token rows per block and vocab tile
 P_CAP = 256 * 2**20                 # bytes of the P scratch at most
 GRID_YZ = 65535                     # CUDA's limit on gridDim.y and .z
 
@@ -57,14 +65,29 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def vocab_splits(g: int, t: int, v: int, sms: int = 132):
-    """``(nsplit, tiles_per_split)`` of K3's vocabulary: enough blocks for
-    about four per SM, every split non-empty."""
-    blocks = g * _cdiv(t, FWD_ROWS)
-    nv = _cdiv(v, VOCAB_TILE)
-    want = min(nv, max(1, _cdiv(4 * sms, blocks)))
-    tps = _cdiv(nv, want)
-    return _cdiv(nv, tps), tps
+@functools.lru_cache(maxsize=None)
+def vocab_splits(g: int, t: int, v: int, sms: int = 132, bf16: bool = True):
+    """``(nsplit, tiles_per_split)`` of K3's vocabulary, every split
+    non-empty.  bf16: one block (128 rows, 160 KB of shared memory) an SM
+    at a time, so the split count that minimises the modelled time,
+    ``ceil(blocks / sms)`` waves of ``tiles_per_split + 1`` tile times each
+    (the 1: filling the ring and writing the partials), the fewest splits
+    on a tie.  fp32: 64 x 64 tiles, about four blocks an SM."""
+    if not bf16:
+        blocks = g * _cdiv(t, FP32_TILE)
+        nv = _cdiv(v, FP32_TILE)
+        want = min(nv, max(1, _cdiv(4 * sms, blocks)))
+        tps = _cdiv(nv, want)
+        return _cdiv(nv, tps), tps
+    rows, nv = g * _cdiv(t, TILE), _cdiv(v, TILE)
+    best = None
+    for want in range(1, nv + 1):
+        tps = _cdiv(nv, want)
+        ns = _cdiv(nv, tps)
+        cost = _cdiv(rows * ns, sms) * (tps + 1)
+        if best is None or cost < best[0]:
+            best = (cost, ns, tps)
+    return best[1], best[2]
 
 
 def _check_grid(name, grid, g, t, d, v):
@@ -95,14 +118,21 @@ def bwd_plan(g: int, t: int, d: int, v: int) -> dict:
     return {"vc": vc, "ldw": _cdiv(v, 8) * 8, "acc": v > vc}
 
 
-def launch_plan(g: int, t: int, d: int, v: int, sms: int = 132) -> dict:
-    """K3's vocabulary split and grid ``(row blocks, vocab splits, g)`` for
-    ``x [g, t, d]``, ``w [g, d, v]``.  Raises ``ValueError`` where the grid
-    exceeds CUDA's limits."""
-    nsplit, tps = vocab_splits(g, t, v, sms)
-    grid = (_cdiv(t, FWD_ROWS), nsplit, g)
+def launch_plan(g: int, t: int, d: int, v: int, sms: int = 132,
+                bf16: bool = True) -> dict:
+    """K3's vocabulary split, grid ``(row tiles, vocab splits, g)`` and w's
+    row length ``ldw`` for ``x [g, t, d]``, ``w [g, d, v]``: 128-row tiles
+    and 128-column vocabulary tiles in bf16, 64 and 64 in fp32.  Raises
+    ``ValueError`` where TMA cannot read x (bf16, d not a multiple of 8) or
+    the grid exceeds CUDA's limits."""
+    if bf16 and d % 8:
+        raise ValueError(f"fused_ce_fwd bf16: x's rows ({d} columns) must be "
+                         f"16-byte multiples for TMA")
+    nsplit, tps = vocab_splits(g, t, v, sms, bf16)
+    grid = (_cdiv(t, TILE if bf16 else FP32_TILE), nsplit, g)
     _check_grid("fused_ce_fwd", grid, g, t, d, v)
     return {"nsplit": nsplit, "tiles_per_split": tps,
+            "ldw": _cdiv(v, 8) * 8 if bf16 else v,
             "grids": {"fused_ce_fwd": grid}}
 
 
@@ -161,17 +191,23 @@ def fused_ce_fwd(x, w, labels):
     from repro_torch.kernels._build import load
     _check_cuda(x, w, labels)
     xg, wg = _group_stride(x, "x"), _group_stride(w, "w")
+    bf16 = x.dtype == torch.bfloat16
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = launch_plan(g, t, d, v, sms)
-    nsplit, tps = plan["nsplit"], plan["tiles_per_split"]
+    plan = launch_plan(g, t, d, v, sms, bf16)
+    nsplit, tps, ldw = plan["nsplit"], plan["tiles_per_split"], plan["ldw"]
+    if bf16:
+        _aligned(x, "x")
+        _aligned(w, "w")
+        w, wg = _pad_rows(w, wg, v, ldw)
     lse = torch.empty((g, t), dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
     part = torch.empty((3, g, nsplit, t), dtype=torch.float32,
                        device=x.device)
     err = load("fused_ce").fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(),
-        lse.data_ptr(), picked.data_ptr(), g, t, d, v, xg, wg, nsplit, tps,
-        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        lse.data_ptr(), picked.data_ptr(), g, t, d, v, ldw, xg, wg, nsplit,
+        tps, DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_ce_fwd launch failed: cudaError {err}")
     LAUNCHES["fused_ce_fwd"] += 1
@@ -181,6 +217,15 @@ def fused_ce_fwd(x, w, labels):
 def _aligned(t: torch.Tensor, what: str):
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: TMA needs a 16-byte aligned base")
+
+
+def _pad_rows(w: torch.Tensor, wg: int, v: int, ldw: int):
+    """``(w, group stride)`` with w's rows padded to ``ldw`` columns where
+    ``ldw != v`` (16-byte rows for TMA)."""
+    if ldw == v:
+        return w, wg
+    w = F.pad(w if wg else w[:1], (0, ldw - v))
+    return w, w[0].numel() if wg else 0
 
 
 def _bwd(x, w, labels, lse, g, want_dx: bool, want_dw: bool):
@@ -212,9 +257,7 @@ def _bwd(x, w, labels, lse, g, want_dx: bool, want_dw: bool):
         _aligned(x, "x")
         _aligned(w, "w")
         ldw, vc = plan["ldw"], plan["vc"]
-        if ldw != v:                    # w's rows padded to 16-byte multiples
-            w = F.pad(w if wg else w[:1], (0, ldw - v))
-            wg = w[0].numel() if wg else 0
+        w, wg = _pad_rows(w, wg, v, ldw)
         p = torch.empty((gn, t, vc), dtype=x.dtype, device=x.device)
         if want_dx and plan["acc"]:
             acc = torch.empty((gn, t, d), dtype=torch.float32,

@@ -1,12 +1,15 @@
-"""Causal sliding-window attention, forward: wrapper of the CUDA kernel in
-``csrc/swa_attention.cu`` (port of the JAX package's Pallas kernel
+"""Causal sliding-window attention, forward: wrappers of the CUDA kernels
+in ``csrc/swa_attention.cu`` (port of the JAX package's Pallas kernel
 ``repro.kernels.swa_attention``, K6).
 
 q ``[B, S, H, hd]``, k/v ``[B, S, KH, hd]`` -> ``[B, S, H, hd]`` in q's
-dtype; hd in {16, 32, 64, 128}.  On a CPU tensor the wrapper computes the
-plain version in ``kernels/ref.py``; on a ``meta`` tensor it returns an
-empty output and counts nothing; on a CUDA tensor it launches the kernel
-or raises.
+dtype; hd in {16, 32, 64, 128}.  Two hand-written kernels, chosen up front
+from dtype and hd (``kernel_for``): bf16 at hd 64 or 128 (every model's
+main path) takes the tensor-core kernel (TMA + wgmma, P rounded to bf16
+before ``P v``), fp32 and hd 16 or 32 the CUDA-core one (fp32 products and
+sums).  On a CPU tensor the wrapper computes the plain version in
+``kernels/ref.py``; on a ``meta`` tensor it returns an empty output and
+counts nothing; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -16,16 +19,27 @@ import torch
 
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)       # the CUDA-core kernel's instances
+TC_HEAD_DIMS = (64, 128)            # the tensor-core kernel's (bf16)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset_launches(), one per wrapper call.
-LAUNCHES = {"swa_attention": 0}
+# Kernel launches since the last reset_launches(), one per wrapper call
+# that launched: ``swa_attention`` the CUDA-core kernel,
+# ``swa_attention_tc`` the tensor-core one.
+LAUNCHES = {"swa_attention": 0, "swa_attention_tc": 0}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_for(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call with q of ``dtype`` and head width ``hd``
+    launches (its ``LAUNCHES`` key)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "swa_attention_tc"
+    return "swa_attention"
 
 
 def swa_attention_fwd(q, k, v, window: int):
@@ -57,11 +71,19 @@ def swa_attention_fwd(q, k, v, window: int):
             raise ValueError(f"{what} must be contiguous on {q.device}")
     from repro_torch.kernels._build import load
     o = torch.empty_like(q)
-    err = load("swa_attention").swa_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
-        k.shape[2], hd, window, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    name = kernel_for(q.dtype, hd)
+    lib = load("swa_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
+            k.shape[2], hd, window, 1.0 / math.sqrt(hd))
+    if name == "swa_attention_tc":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("swa_attention bf16: TMA needs 16-byte aligned "
+                             "q, k and v")
+        err = lib.swa_attention_tc(*args, stream)
+    else:
+        err = lib.swa_attention_fwd(*args, DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"swa_attention launch failed: cudaError {err}")
-    LAUNCHES["swa_attention"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return o

@@ -134,9 +134,16 @@ def test_grouped_plain_versions_and_splits():
                                    atol=1e-7)
         np.testing.assert_allclose(dw[i].numpy(), rw.numpy(), rtol=1e-5,
                                    atol=1e-7)
-    assert K.vocab_splits(1, 4096, 151936) == (9, 264)
-    assert K.vocab_splits(4, 4096, 151936) == (3, 792)
-    assert K.vocab_splits(1, 8, 130) == (3, 1)
+    # bf16: 128-column tiles, one block an SM in flight; Qwen3's server and
+    # aux heads fill 8 and 32 whole waves of 132 blocks
+    assert K.vocab_splits(1, 4096, 151936) == (33, 36)
+    assert K.vocab_splits(4, 4096, 151936) == (33, 36)
+    assert K.vocab_splits(1, 2048, 65024) == (8, 64)
+    assert K.vocab_splits(1, 8, 130) == (2, 1)
+    # fp32 (the CUDA-core K3): 64-column tiles, about four blocks an SM
+    assert K.vocab_splits(1, 4096, 151936, bf16=False) == (9, 264)
+    assert K.vocab_splits(4, 4096, 151936, bf16=False) == (3, 792)
+    assert K.vocab_splits(1, 8, 130, bf16=False) == (3, 1)
 
 
 # (G, T) of the heads: the server's and the aux's at S = 4096 (Qwen3's main
@@ -155,10 +162,14 @@ def test_launch_plan_takes_every_config_width(name):
     v = cfg.vocab_size
     for g, t in HEADS:
         d = cfg.d_model if g == 1 else cfg.aux_rank
-        plan = K.launch_plan(g, t, d, v)
-        ns, tps = plan["nsplit"], plan["tiles_per_split"]
-        assert plan["grids"]["fused_ce_fwd"] == (t // 64, ns, g)
-        assert (ns - 1) * tps < -(-v // 64) <= ns * tps
+        for bf16, tile in ((True, K.TILE), (False, K.FP32_TILE)):
+            plan = K.launch_plan(g, t, d, v, bf16=bf16)
+            ns, tps = plan["nsplit"], plan["tiles_per_split"]
+            assert plan["grids"]["fused_ce_fwd"] == (-(-t // tile), ns, g)
+            # the splits cover the vocabulary tiles exactly, in order
+            assert (ns - 1) * tps < -(-v // tile) <= ns * tps
+            assert plan["ldw"] == v
+            assert ns <= 65535 and g <= 65535
         bwd = K.bwd_plan(g, t, d, v)       # raises past CUDA's grid limits
         vc = bwd["vc"]
         # the chunks as the kernels walk them: c0 = 0, vc, 2 vc, ... < V
@@ -184,6 +195,25 @@ def test_bwd_plan_at_the_main_paths_heads():
     for (g, t, d, v), (vc, n) in want.items():
         plan = K.bwd_plan(g, t, d, v)
         assert (plan["vc"], -(-v // plan["vc"])) == (vc, n)
+
+
+def test_launch_plan_raises_where_tma_cannot_read():
+    """The bf16 K3 reads x with TMA: its rows must be 16-byte multiples
+    (the fp32 K3 takes any d); a V that is not a multiple of 8 pads w's
+    rows; a grid past CUDA's limits raises."""
+    with pytest.raises(ValueError):
+        K.launch_plan(1, 24, 12, 80)
+    assert K.launch_plan(1, 24, 12, 80, bf16=False)["ldw"] == 80
+    assert K.launch_plan(3, 37, 16, 130)["ldw"] == 136
+    with pytest.raises(ValueError):
+        K.launch_plan(70000, 24, 16, 80)
+    w = torch.arange(2 * 3 * 5, dtype=torch.bfloat16).reshape(2, 3, 5)
+    padded, wg = K._pad_rows(w, 15, 5, 8)
+    assert padded.shape == (2, 3, 8) and wg == 24
+    assert torch.equal(padded[..., :5], w) and not padded[..., 5:].any()
+    shared, wg0 = K._pad_rows(w[:1].expand(4, 3, 5), 0, 5, 8)
+    assert shared.shape == (1, 3, 8) and wg0 == 0
+    assert K._pad_rows(w, 15, 5, 5) == (w, 15)
 
 
 def test_bwd_plan_raises_where_tma_cannot_read():

@@ -94,7 +94,7 @@ def test_vmap_folds_clients_into_the_batch(monkeypatch):
     K.reset_launches()
     out = ops.swa_attention(*(t[0].to("meta") for t in (q, k, v)), 48)
     assert out.shape == q.shape[1:] and out.device.type == "meta"
-    assert K.LAUNCHES == {"swa_attention": 0}
+    assert K.LAUNCHES == {"swa_attention": 0, "swa_attention_tc": 0}
 
 
 def test_window_covering_sequence_is_causal_attention():
@@ -106,3 +106,33 @@ def test_window_covering_sequence_is_causal_attention():
                                atol=2e-5)
     np.testing.assert_allclose(want.numpy(), np.asarray(jwant), rtol=2e-5,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 128, "swa_attention_tc"),   # every model's main path
+    (torch.bfloat16, 64, "swa_attention_tc"),
+    (torch.bfloat16, 32, "swa_attention"),
+    (torch.bfloat16, 16, "swa_attention"),
+    (torch.float32, 128, "swa_attention"),       # the fp32 fidelity path
+    (torch.float32, 64, "swa_attention"),
+    (torch.float32, 32, "swa_attention"),
+    (torch.float32, 16, "swa_attention")])
+def test_kernel_for_picks_by_dtype_and_head_width(dtype, hd, want):
+    """bf16 at hd 64 or 128 takes the tensor-core kernel, fp32 and the
+    narrow heads the CUDA-core one; each name is a launch counter."""
+    assert K.kernel_for(dtype, hd) == want
+    assert want in K.LAUNCHES
+
+
+def test_meta_inputs_give_shapes_and_count_nothing():
+    """At the Qwen3 main path's shapes (bf16, 16 q / 8 kv heads of 128,
+    S = 4096, 4 folded clients) meta inputs give the output's shape and
+    dtype and launch nothing, through the wrapper and the op."""
+    K.reset_launches()
+    q = torch.empty((4, 4096, 16, 128), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((4, 4096, 8, 128), dtype=torch.bfloat16, device="meta")
+    for out in (K.swa_attention_fwd(q, k, k, 4096),
+                ops.swa_attention(q, k, k, 4096)):
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert out.device.type == "meta"
+    assert K.LAUNCHES == {"swa_attention": 0, "swa_attention_tc": 0}
