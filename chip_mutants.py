@@ -4,13 +4,15 @@ fail.  Run from the repo root on a machine with one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
-The tree itself, then each mutant below, runs phases 1, 2, 7 and 11 of
-``chip_smoke.py`` in a fresh process, with every check reported instead of
-raised.  A mutant is one deliberate fault in a kernel source, made in a
-copy of the checkout under a temporary directory; the checkout itself is
-never changed.  The script exits non-zero unless the tree passes every
-check and each mutant fails a bound of phase 7 or 11 at a main-path
-shape.  The last line is a JSON summary: per run, the checks that failed.
+The tree itself runs phases 1, 2, 7 and 11 of ``chip_smoke.py`` in a
+fresh process, with every check reported instead of raised; each mutant
+below runs phases 1, 2 and the one of 7 (fused CE, K6) and 11 (K5) that
+holds its kernel.  A mutant is one deliberate fault in a kernel source,
+made in a copy of the checkout under a temporary directory; the checkout
+itself is never changed.  The script exits non-zero unless the tree passes
+every check and each mutant fails a bound of its phase at a main-path
+shape.  The last line is a JSON summary: per run, the checks that
+failed.
 """
 from __future__ import annotations
 
@@ -63,9 +65,19 @@ MUTANTS = {
         "fused_ce_fwd [1, 4096, 1024, 151936] bfloat16 lse, picked within "
         "1e-4"),
     "K5 state reset every 128 steps": (
-        [(SSM, "const int tn = min(TC, S - t0);",
-          "const int tn = min(TC, S - t0);\n    if (t0 % 128 == 0) h = 0.f;")],
+        [(SSM, "float h0 = hin[n * 32 + lane], h1 = hin[(n + 1) * 32 + lane];",
+          "float h0 = 0.f * hin[n * 32 + lane],\n"
+          "              h1 = 0.f * hin[(n + 1) * 32 + lane];")],
         "ssm_scan [4, 2048, 8192, 16] G=4 bfloat16 per element"),
+    "K5 backward: adjoint carry dropped at one chunk boundary": (
+        [(SSM, "if (w == 0) gout[n * 32 + lane] = g;",
+          "if (w == 0) gout[n * 32 + lane] = i == nt / 2 ? 0.f : g;")],
+        "ssm_scan_bwd [4, 2048, 8192, 16] G=4 bfloat16 du per element"),
+    "K5 backward: one db/dc slab partial skipped in the ordered sum": (
+        [(SSM, "for (int k = 0; k < nslab; ++k) s += p[k * bsn + f];",
+          "for (int k = 0; k < nslab; ++k) s += k == 1 ? 0.f "
+          ": p[k * bsn + f];")],
+        "ssm_scan_bwd [4, 2048, 8192, 16] G=4 bfloat16 db per element"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -76,18 +88,25 @@ def report(cond, what):
 cs.check = report
 cs.phase_device()
 cs.phase_build()
-cs.phase_lm_kernels(torch.device("cuda"))
-cs.phase_mamba_kernels(torch.device("cuda"))
 """
+PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
+          "11": 'cs.phase_mamba_kernels(torch.device("cuda"))\n'}
 
 
-def run(where: str) -> list:
-    """Phases 1, 2, 7 and 11 in ``where``; returns the failed checks."""
-    r = subprocess.run([sys.executable, "-c", KERNEL_PHASES], cwd=where,
+def phase_of(path: str) -> str:
+    """The chip_smoke.py phase that holds the kernels of ``path``."""
+    return "11" if path == SSM else "7"
+
+
+def run(where: str, phases=("7", "11")) -> list:
+    """Phases 1, 2 and ``phases`` in ``where``; returns the failed
+    checks."""
+    code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)
+    r = subprocess.run([sys.executable, "-c", code], cwd=where,
                        capture_output=True, text=True, timeout=900)
     sys.stdout.write(r.stdout)
     if r.returncode != 0:
-        raise RuntimeError(f"phases 7 and 11 did not run to their end in "
+        raise RuntimeError(f"phases {phases} did not run to their end in "
                            f"{where}:\n"
                            f"{r.stderr[-3000:]}")
     return [ln[len("  FAIL "):] for ln in r.stdout.splitlines()
@@ -95,6 +114,10 @@ def run(where: str) -> list:
 
 
 def main() -> int:
+    for name, (edits, _) in MUTANTS.items():    # every edit applies once
+        for path, old, _ in edits:
+            with open(os.path.join(ROOT, path)) as f:
+                assert f.read().count(old) == 1, (name, old)
     print("== the tree as it is", flush=True)
     failed = {"tree": run(ROOT)}
     ok = not failed["tree"]
@@ -111,7 +134,8 @@ def main() -> int:
                 assert src.count(old) == 1, (name, old)
                 with open(p, "w") as f:
                     f.write(src.replace(old, new))
-            failed[name] = run(copy)
+            failed[name] = run(copy, sorted({phase_of(p)
+                                             for p, _, _ in edits}))
             caught = any(c.startswith(must_fail) for c in failed[name])
             print(f"  {'caught' if caught else 'MISSED'}: {must_fail}")
             ok = ok and caught

@@ -22,12 +22,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. CNN times: CUDA-event medians of the quantize kernels, their plain
    versions and a CNN round, beside each kernel's bound;
 7. LM kernels vs plain: the fused cross-entropy kernels (K3 forward, K4a
-   dx, K4b dw) and sliding-window attention (K6: the tensor-core kernel in
-   bf16, the CUDA-core one in fp32) against their plain versions at the
-   main path's shapes and at ragged small ones, K3 and the bf16 K6
-   bitwise repeatable, and ``fused_ce_bwd`` at every case bitwise
-   repeatable, bitwise equal to K4a and K4b run alone and so held against
-   the same plain versions;
+   dx, K4b dw; bf16 also at d = 100, which runs zero-padded) and
+   sliding-window attention (K6: the tensor-core kernel in bf16, the
+   CUDA-core one in fp32 and at zamba2-7b's hd = 112 in bf16) against their
+   plain versions at the main path's shapes and at ragged small ones, K3
+   and the bf16 K6 bitwise repeatable, and ``fused_ce_bwd`` at every case
+   bitwise repeatable, bitwise equal to K4a and K4b run alone and so held
+   against the same plain versions;
 8. LM main path: CSE-FSL on full-width Qwen3-0.6B (bf16, the kernels on)
    through ``Trainer.run``, with per-round launch counts of every kernel,
    finite losses, state on the card and the meter equal to CommProfile;
@@ -39,21 +40,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    w^T))`` for K3/K4) at the main shapes, the CUDA-core K6 in fp32 at the
    server's shape, and a main-path round with its device time, idle
    share, top kernels and peak memory;
-11. Mamba kernels vs plain: the selective scan (K5) at the main path's
-   shapes (4 clients folded with their own a and d; one server sequence)
-   and at tests/test_kernels.py's fp32 cases, and the fused CE kernels at
-   falcon-mamba's server and aux heads and at ragged shapes past
-   d = 1024 (d = 1536, 4096, 8192) in both dtypes, ``fused_ce_bwd`` as in
-   phase 7;
+11. Mamba kernels vs plain: the selective scan's forward (K5, y and the
+   saved boundary states) and backward (its scan kernel and the kernel
+   adding its partials: all six gradients) at the main path's shapes (4
+   clients folded with their own a and d; one server sequence), at
+   tests/test_kernels.py's fp32 cases and at ragged fp32 ones (S, D off
+   the tiles; N in {1, 5, 64}), each bitwise repeatable, and the fused CE
+   kernels at falcon-mamba's server and aux heads and at ragged shapes
+   past d = 1024 (d = 1536, 4096, 8192) in both dtypes, ``fused_ce_bwd``
+   as in phase 7;
 12. Mamba main path: CSE-FSL on full-width falcon-mamba-7b (16 layers cut
    at 8, S = 2048, bf16, the kernels on) through ``Trainer.run``, with
-   per-round launch counts, finite losses, state on the card, the meter
-   equal to CommProfile and the peak device memory;
+   per-round launch counts (the scan's backward kernels included, and the
+   plain scan backward never called), finite losses, state on the card,
+   the meter equal to CommProfile and the peak device memory;
 13. Mamba CPU vs card: reduced falcon-mamba in fp32, the kernels on the
-   card and the plain versions on the CPU, agree over 2 rounds;
-14. Mamba times: K5 and the d = 4096 fused CE kernels beside their bounds,
-   plain versions and library yardsticks, and a main-path round with its
-   device time, idle share, top kernels and peak memory.
+   card (K5's backward included) and the plain versions on the CPU, agree
+   over 2 rounds;
+14. Mamba times: K5's forward, its backward's two kernels and the d = 4096
+   fused CE kernels beside their bounds, plain versions and library
+   yardsticks, at the server's and the folded clients' shapes, and a
+   main-path round with its device time, idle share, top kernels and peak
+   memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -129,23 +137,29 @@ REPLACES = {"quantize_bits": "src/repro/kernels/quantize.py:174",
             "fused_ce_bwd": "src/repro/kernels/fused_ce.py:186",
             "swa_attention": "src/repro/kernels/swa_attention.py:94",
             "swa_attention_tc": "src/repro/kernels/swa_attention.py:94",
-            "ssm_scan": "src/repro/kernels/ssm_scan.py:63"}
+            "ssm_scan": "src/repro/kernels/ssm_scan.py:63",
+            # no TPU kernel: the JAX package's jax.vjp of selective_scan
+            "ssm_scan_bwd": "src/repro/kernels/ops.py:113",
+            "ssm_scan_bwd_sum": "src/repro/kernels/ops.py:113"}
 SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
           "fused_ce_fwd": "fused_ce.cu", "fused_ce_dx": "fused_ce.cu",
           "fused_ce_dw": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu",
           "swa_attention": "swa_attention.cu",
           "swa_attention_tc": "swa_attention.cu",
-          "ssm_scan": "ssm_scan.cu"}
+          "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan.cu",
+          "ssm_scan_bwd_sum": "ssm_scan.cu"}
 # K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
-# ragged ones in both dtypes (bf16 and fp32 take different kernels); K6
-# cases (B, S, H, KH, hd, W): the main path's and a longer one the window
-# cuts, ragged ones for the tensor-core kernel (S not a multiple of 128,
-# windows that cut the kv tiles, hd = 64), then tests/test_kernels.py's
-# four in fp32.
+# ragged ones in both dtypes (bf16 and fp32 take different kernels; bf16 at
+# d = 100 runs zero-padded to 104); K6 cases (B, S, H, KH, hd, W): the main
+# path's and a longer one the window cuts, ragged ones for the tensor-core
+# kernel (S not a multiple of 128, windows that cut the kv tiles, hd = 64),
+# zamba2-7b's attention (hd = 112, the CUDA-core kernel in bf16), then
+# tests/test_kernels.py's four in fp32.
 CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((1, 4096, 1024, 151936), torch.bfloat16),
             ((2, 100, 72, 1000), torch.bfloat16),
             ((3, 37, 16, 130), torch.bfloat16),
+            ((2, 100, 100, 1000), torch.bfloat16),
             ((1, 100, 72, 1000), torch.float32),
             ((3, 37, 16, 130), torch.float32)]
 # falcon-mamba's heads (G, T, d, V), then ragged cases past d = 1024.
@@ -159,16 +173,22 @@ MB_CE_CASES = [((1, MB_S, 4096, 65024), torch.bfloat16),
                ((2, 37, 8192, 130), torch.float32)]
 # K5 cases (B, S, D, N, G): the client fold (4 clients, each its own a and
 # d) and one server sequence, at the main path's S and at S = 4096, then
-# tests/test_kernels.py's four in fp32.
+# tests/test_kernels.py's four in fp32, then ragged ones in fp32: S not a
+# multiple of the 128-step chunk, D not a multiple of the 32-channel slab,
+# N in {1, 5, 64} (64: two groups of 32 states, summed in fp32).
 SSM_CASES = [((4, MB_S, 8192, 16, 4), torch.bfloat16),
              ((1, MB_S, 8192, 16, 1), torch.bfloat16),
              ((4, 4096, 8192, 16, 4), torch.bfloat16)] + [
     ((b, s, d, n, 1), torch.float32) for b, s, d, n in
-    ((1, 16, 8, 4), (2, 64, 32, 16), (2, 128, 64, 16), (1, 32, 128, 8))]
+    ((1, 16, 8, 4), (2, 64, 32, 16), (2, 128, 64, 16), (1, 32, 128, 8))] + [
+    ((b, s, d, n, g), torch.float32) for b, s, d, n, g in
+    ((2, 300, 100, 5, 2), (1, 200, 40, 1, 1), (2, 130, 70, 64, 1))]
+SSM_GRADS = ("du", "ddt", "da", "db", "dc", "dd")
 SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
              ((1, 8192, 16, 8, 128, 4096), torch.bfloat16),
              ((1, 777, 8, 2, 128, 200), torch.bfloat16),
-             ((2, 1000, 4, 2, 64, 300), torch.bfloat16)] + [
+             ((2, 1000, 4, 2, 64, 300), torch.bfloat16),
+             ((1, 4096, 32, 32, 112, 4096), torch.bfloat16)] + [
     (c, torch.float32) for c in ((1, 128, 2, 2, 16, 32),
                                  (1, 256, 4, 2, 32, 64),
                                  (2, 128, 4, 1, 16, 128),
@@ -757,9 +777,14 @@ def phase_lm_kernels(dev):
       (~7e-3 at sum w|v| ~ 0.8), so over millions of outputs the worst
       ratio lies several times past 1; chip_mutants.py shows it for a tile
       at the window's edge and one inside.  The fp32 cases (the CUDA-core
-      kernel, fp32 P) keep tests/test_kernels.py's 2e-5.  K6 launches the
-      kernel that swa_attention.kernel_for names, and its bf16 cases give
-      the same bits on two calls."""
+      kernel, fp32 P) keep tests/test_kernels.py's 2e-5.  The CUDA-core
+      kernel in bf16 (zamba2-7b's hd = 112) keeps P in fp32 and rounds only
+      its output, so it meets the same bf16 bound with room.  K6 launches
+      the kernel that swa_attention.kernel_for names, and its bf16 cases
+      give the same bits on two calls.
+    * K3/K4 at d = 100 (bf16): the wrappers zero-pad x's rows and w's d
+      rows to 104 and slice dx and dw back; the case meets the bounds
+      above."""
     t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
     err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
            "fused_ce_bwd": 0.0, "swa_attention": 0.0, "swa_attention_tc": 0.0}
@@ -875,7 +900,9 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
     """Phase 10: K3/K4a/K4b/K6 and a main-path round, timed.  The bf16 K6
     (the tensor-core kernel) at the server's and the 4 folded clients'
     shapes, the CUDA-core K6 at the server's in fp32 (its launches are
-    phase 9's, ``fp32_launches``; its bound at the fp32 rate)."""
+    phase 9's, ``fp32_launches``; its bound at the fp32 rate) and in bf16
+    at zamba2-7b's heads (32 of width 112; no path here runs zamba2,
+    so its record sits beside the fp32 one)."""
     t0 = phase("10 LM times (CUDA events, medians)")
     ce_times = time_ce({"server": (1, LM_S, 1024, 151936),
                         "aux": (LM_N, LM_S, 128, 151936)},
@@ -888,10 +915,14 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
         records.append(rec)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    hh, kh, hd, win = 16, 8, 128, 4096
-    cases = (("server", 1, torch.bfloat16), ("client", LM_N, torch.bfloat16),
-             ("fp32", 1, torch.float32))
-    for tag, b, dtype in cases:
+    win = 4096
+    # (tag, B, dtype, H, KH, hd): Qwen3's server and folded clients, the
+    # CUDA-core kernel in fp32 there, and at zamba2-7b's heads in bf16
+    cases = (("server", 1, torch.bfloat16, 16, 8, 128),
+             ("client", LM_N, torch.bfloat16, 16, 8, 128),
+             ("fp32", 1, torch.float32, 16, 8, 128),
+             ("zamba2", 1, torch.bfloat16, 32, 32, 112))
+    for tag, b, dtype, hh, kh, hd in cases:
         s = LM_S
         name = swa.kernel_for(dtype, hd)
         q, k, v = swa_inputs(b, s, hh, kh, hd, dtype, 9, dev)
@@ -910,12 +941,16 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                                                   enable_gqa=True),
                                      reps=5, inner=3, warm=2)
         fp32 = dtype == torch.float32
-        rec = record(name, fp32_launches[name] if fp32 else launches[name],
+        cuda_core = name == "swa_attention"
+        rec = record(name, fp32_launches[name] if cuda_core else
+                     launches[name],
                      err[name],
                      graph_ms(lambda: swa.swa_attention_fwd(q, k, v, win),
-                              reps=3 if fp32 else 5, inner=3 if fp32 else 5),
+                              reps=3 if cuda_core else 5,
+                              inner=3 if cuda_core else 5),
                      event_ms(lambda: swa.swa_attention_fwd(q, k, v, win),
-                              reps=3 if fp32 else 5, inner=3 if fp32 else 5),
+                              reps=3 if cuda_core else 5,
+                              inner=3 if cuda_core else 5),
                      event_ms(lambda: ref.swa_attention(q, k, v, win),
                               reps=3, inner=1, warm=1),
                      io, flops, FP32_OPS if fp32 else BF16_OPS,
@@ -933,9 +968,9 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                  else "n/a (W < S)")
               + f"; {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
               f"{rec['bound_ms'] / rec['ms']:.4f} of the bound")
-        if tag == "client":
-            records[-1]["client"] = {k_: rec[k_] for k_ in (
-                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+        if tag in ("client", "zamba2"):      # beside the kernel's record
+            records[-1][tag] = {k_: rec[k_] for k_ in (
+                "shape", "dtype", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "library_ms", "library_band_ms", "library_causal_ms")}
         else:
             records.append(rec)
@@ -983,47 +1018,137 @@ def ssm_inputs(b, s, d, n, grp, dtype, seed, dev):
             for i, t in enumerate((u, dt, a, bm, cm, dv))]
 
 
-def phase_mamba_kernels(dev):
-    """Phase 11: K5 and the fused CE kernels at falcon-mamba's shapes
-    against their plain versions.  Returns the largest difference seen per
-    kernel.
+def ssm_cotangent(b, s, d, dtype, seed, dev):
+    """gy ~ N(0, 1) [B, S, D] in ``dtype``, the output cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((b, s, d), generator=gen).to(dtype).to(dev)
 
-    * K5 fp32 cases: within tests/test_kernels.py's 2e-4.
-    * K5 bf16 cases, per element against the plain version in fp32 on the
-      same inputs: |got - plain| <= 2^-7 |plain| + 1e-4.  The kernel keeps
-      the state in fp32 as the plain version does, so they differ by the
-      bf16 rounding of y (<= 2^-8 |y|) and fp32 order of operations (about
-      1e-6 of |y|, which is about 1 on average here); 1e-4 covers that
-      near y = 0.  A state lost at a 128-step chunk boundary moves the next
-      steps' y by O(0.1), far outside the bound.
+
+def ssm_envelopes(f, gy):
+    """Per element, the sum of |terms| of each gradient of the scan at the
+    fp32 inputs ``f`` (u, dt, a, b, c, d) and cotangent ``gy``: the plain
+    backward on |u|, |b|, |c|, |d|, |gy| (dt > 0 and a < 0 unchanged, so
+    exp(dt a) is too) has every term of du, da, db, dc and dd nonnegative,
+    with h and the adjoint g bounded by their own absolute values.  Its
+    ddt is |u| S1 - S2 (a < 0), with S1 = sum_n g|b| = (du - |d||gy|) / dt
+    and S2 = sum_n g h_{t-1} exp(dt a) |a|, so ddt's envelope is
+    |u| S1 + S2 = 2 |u| S1 - ddt."""
+    u, dt, a, bm, cm, dv = f
+    check(bool((dt > 0).all()) and bool((a < 0).all()),
+          "ssm envelopes: dt > 0 and a < 0")
+    env = list(ref.ssm_scan_bwd(u.abs(), dt, a, bm.abs(), cm.abs(),
+                                dv.abs(), gy.float().abs()))
+    drows = dv.abs().repeat_interleave(u.shape[0] // dv.shape[0], 0)
+    s1 = (env[0] - drows[:, None, :] * gy.float().abs()).div_(dt)
+    env[1] = s1.clamp_min_(0).mul_(u.abs()).mul_(2).sub_(env[1])
+    return env
+
+
+def check_ssm(k, b, s, d, n, grp, dtype, err, dev):
+    """K5 forward and backward at one case against the plain versions
+    (``phase_mamba_kernels`` states the bounds)."""
+    args = ssm_inputs(b, s, d, n, grp, dtype, 200 + k, dev)
+    tag = f"[{b}, {s}, {d}, {n}] G={grp} {str(dtype)[6:]}"
+    got, hs = ssm.ssm_scan_fwd(*args)
+    f = [t.float() for t in args]
+    want, whs = ref.ssm_scan(*f, ssm.CHUNK)
+    sync(dev)
+    e = diff(got, want)
+    err["ssm_scan"] = max(err["ssm_scan"], e)
+    check(got.dtype == args[0].dtype and got.shape == want.shape
+          and hs.shape == whs.shape, f"ssm_scan {tag} dtype and shapes")
+    if dtype == torch.float32:
+        check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+              f"ssm_scan {tag} == plain at 2e-4 (max |diff| {e:.3g})")
+    else:
+        r = worst_ratio(got, want, want.abs().mul_(2.0 ** -7).add_(1e-4))
+        check(r <= 1.0, f"ssm_scan {tag} per element within 2^-7 "
+              f"|plain fp32| + 1e-4 (mean |plain| "
+              f"{float(want.abs().mean()):.3g}; worst |diff|/bound "
+              f"{r:.3g})")
+    del want
+    _, env = ref.ssm_scan(f[0].abs(), f[1], f[2], f[3].abs(), f[4], f[5],
+                          ssm.CHUNK)
+    r = worst_ratio(hs, whs, env.mul_(2.0 ** -13).clamp_min_(1e-30))
+    check(r <= 1.0, f"ssm_scan {tag} boundary states per element within "
+          f"2^-13 sum|terms| (worst |diff|/bound {r:.3g})")
+    del whs, env
+    again = ssm.ssm_scan_fwd(*args)
+    sync(dev)
+    check(same(got, again[0]) and same(hs, again[1]),
+          f"ssm_scan {tag} bitwise equal y and states on two calls")
+    del got, again
+    gy = ssm_cotangent(b, s, d, dtype, 300 + k, dev)
+    grads = ssm.ssm_scan_bwd(*args, gy, hs)
+    again = ssm.ssm_scan_bwd(*args, gy, hs)
+    sync(dev)
+    check(all(same(x, y) for x, y in zip(grads, again)),
+          f"ssm_scan_bwd {tag} bitwise equal grads on two calls")
+    del again
+    wants = ref.ssm_scan_bwd(*f, gy.float())
+    envs = ssm_envelopes(f, gy)
+    for i, name in enumerate(SSM_GRADS):
+        g, w, e = grads[i], wants[i], envs[i]
+        kern = "ssm_scan_bwd" if i < 2 else "ssm_scan_bwd_sum"
+        err[kern] = max(err[kern], diff(g, w))
+        rt = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        r = worst_ratio(g, w, e.mul_(2.0 ** -13).add_(w.abs(), alpha=rt)
+                        .clamp_min_(1e-30))
+        check(g.dtype == args[i].dtype and g.shape == w.shape and r <= 1.0,
+              f"ssm_scan_bwd {tag} {name} per element within {rt:g} "
+              f"|plain fp32| + 2^-13 sum|terms| (max |diff| "
+              f"{diff(g, w):.3g}; worst |diff|/bound {r:.3g})")
+    torch.cuda.empty_cache()
+
+
+def phase_mamba_kernels(dev):
+    """Phase 11: K5 forward and backward and the fused CE kernels at
+    falcon-mamba's shapes against their plain versions.  Returns the
+    largest difference seen per kernel.
+
+    * K5 forward, fp32 cases: within tests/test_kernels.py's 2e-4.
+    * K5 forward, bf16 cases, per element against the plain version in fp32
+      on the same inputs: |got - plain| <= 2^-7 |plain| + 1e-4.  The kernel
+      keeps the state in fp32 as the plain version does, so they differ by
+      the bf16 rounding of y (<= 2^-8 |y|), fp32 order of operations, and
+      the exps: ex2.approx of dt (a log2 e) against expf of dt a differ by
+      at most about 2^-21 relative (2^-22 for each, plus |dt a| 2^-23 from
+      the rounded argument), and a state carries the products of the exps
+      over its memory, 1 / (dt |a|) steps, under 50 here (a =
+      -exp(0.3 N(0, 1)) >= -exp(-1.35), dt about 0.08): about 2.4e-5 of
+      |y| at worst, about 1 on average here; 1e-4 covers it near y = 0.  A
+      state lost at a 128-step chunk boundary moves the next steps' y by
+      O(0.1), far outside the bound.
+    * K5 boundary states (both dtypes): |got - plain| <= 2^-13 sum|terms|,
+      the terms' envelope being the states of the plain run on |u| and |b|
+      (every term then >= 0); the exps' 2.4e-5 is 0.2 of that.
+    * K5 backward (both dtypes): for each of du, ddt, da, db, dc, dd,
+      |got - plain| <= r |plain| + 2^-13 sum|terms|, with r = 2^-7 for a
+      bf16 output (its rounding, <= 2^-8, twice) and 0 for an fp32 one,
+      and sum|terms| per element from ``ssm_envelopes``.  The kernel adds
+      in another order than the plain version wherever it sums: over the
+      states for du and ddt, over the channels for db and dc (a warp's 32
+      in a tree, then the slabs in order), over time and batch rows for da
+      and dd; reordering an fp32 sum of m terms moves it by about sqrt(m)
+      2^-24 of its envelope (m <= 8192: 5.4e-6; the kernel's own chains,
+      32 channels in a tree then 256 slabs in order, stay under 1.6e-5 even
+      at worst), and its h and g carry the exps' 2.4e-5 as the forward
+      does: 2^-13 = 1.2e-4 holds both with room.  A
+      slab of 32 channels left out of db moves it by about sqrt(32 / 8192)
+      = 1/16 of |plain| at D = 8192, some 4 times the bound; an adjoint
+      lost at a tile boundary moves du and ddt of that tile's slowly
+      decaying channels by O(1) of |plain|.  Both gradients' bits repeat on
+      two calls, as do the forward's y and states.
     * K3/K4a/K4b: phase 7's bounds, at the server head (d = 4096), the aux
       head (d = 128), the server head at S = 4096 and ragged shapes past
       d = 1024."""
-    t0 = phase("11 Mamba kernels vs plain (selective scan K5; fused CE "
-               "K3/K4a/K4b at d > 1024)")
-    err = {"ssm_scan": 0.0, "fused_ce_fwd": 0.0, "fused_ce_dx": 0.0,
-           "fused_ce_dw": 0.0, "fused_ce_bwd": 0.0}
+    t0 = phase("11 Mamba kernels vs plain (selective scan K5 forward and "
+               "backward; fused CE K3/K4a/K4b at d > 1024)")
+    err = {"ssm_scan": 0.0, "ssm_scan_bwd": 0.0, "ssm_scan_bwd_sum": 0.0,
+           "fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "fused_ce_bwd": 0.0}
     for k, ((b, s, d, n, grp), dtype) in enumerate(SSM_CASES):
-        args = ssm_inputs(b, s, d, n, grp, dtype, 200 + k, dev)
-        got = ssm.ssm_scan_fwd(*args)
-        want = ref.ssm_scan(*(t.float() for t in args))
-        sync(dev)
-        e = diff(got, want)
-        err["ssm_scan"] = max(err["ssm_scan"], e)
-        tag = f"[{b}, {s}, {d}, {n}] G={grp} {str(dtype)[6:]}"
-        check(got.dtype == args[0].dtype and got.shape == want.shape,
-              f"ssm_scan {tag} dtype and shape")
-        if dtype == torch.float32:
-            check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
-                  f"ssm_scan {tag} == plain at 2e-4 (max |diff| {e:.3g})")
-        else:
-            r = worst_ratio(got, want, want.abs().mul_(2.0 ** -7).add_(1e-4))
-            check(r <= 1.0, f"ssm_scan {tag} per element within 2^-7 "
-                  f"|plain fp32| + 1e-4 (mean |plain| "
-                  f"{float(want.abs().mean()):.3g}; worst |diff|/bound "
-                  f"{r:.3g})")
-        del args, got, want
-        torch.cuda.empty_cache()
+        check_ssm(k, b, s, d, n, grp, dtype, err, dev)
     check_ce(MB_CE_CASES, err, dev)
     done(t0)
     return err
@@ -1046,17 +1171,35 @@ def phase_mamba_main(dev):
     cm = cost_model(bundle, LM_N, LM_SAMPLES)
     tr = Trainer(bundle, fsl)
     torch.cuda.reset_peak_memory_stats(dev)
-    state, hist, meter, launches, per_round = drive(
-        tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
-        "falcon-mamba-7b int8", LM_ROUNDS, LM_B)
+    plain_bwd, plain_calls = ref.ssm_scan_bwd, []
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain_bwd(*a, **kw)
+
+    ref.ssm_scan_bwd = counted
+    try:
+        state, hist, meter, launches, per_round = drive(
+            tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
+            "falcon-mamba-7b int8", LM_ROUNDS, LM_B)
+    finally:
+        ref.ssm_scan_bwd = plain_bwd
     peak = torch.cuda.max_memory_allocated(dev)
     cut = cfg.resolved_cut
     heads = LM_H + LM_N                 # as in phase 8
+    # K5 forward once per client layer a client step (vmapped: h steps and
+    # the smashed pass) and once per server layer a server update; its
+    # backward (the scan kernel and the kernel adding its partials) once
+    # per client layer a client step and per server layer an update
+    bwd = cut * LM_H + (cfg.num_layers - cut) * LM_N
     want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
                 fused_ce_dw=heads, fused_ce_p=heads,
-                ssm_scan=cut * (LM_H + 1) + (cfg.num_layers - cut) * LM_N)
+                ssm_scan=cut * (LM_H + 1) + (cfg.num_layers - cut) * LM_N,
+                ssm_scan_bwd=bwd, ssm_scan_bwd_sum=bwd)
     for i, c in enumerate(per_round):
         check(c == want, f"round {i + 1} launches {c} == {want}")
+    check(not plain_calls, "the plain scan backward (ref.ssm_scan_bwd) ran "
+          "no time on the main path")
     wire = MB_S * cfg.d_model + (MB_S // 8) * (cfg.d_model // 128) * 4
     check(wire == 8_421_376 and meter.counts["uplink_smashed"]
           == LM_ROUNDS * LM_N * wire,
@@ -1085,10 +1228,11 @@ def phase_mamba_cpu_vs(dev):
         sync(d)
         runs[str(d)] = counts()
     check(sum(runs["cpu"].values()) == 0, "CPU run launched no kernel")
-    check(all(runs[str(dev)][k] > 0 for k in ("ssm_scan", "fused_ce_fwd",
-                                              "fused_ce_dx", "fused_ce_dw",
-                                              "quantize_philox")),
-          f"card run launched K5, K3, K4a, K4b and K2: {runs[str(dev)]}")
+    check(all(runs[str(dev)][k] > 0 for k in (
+        "ssm_scan", "ssm_scan_bwd", "ssm_scan_bwd_sum", "fused_ce_fwd",
+        "fused_ce_dx", "fused_ce_dw", "quantize_philox")),
+          f"card run launched K5 and its backward, K3, K4a, K4b and K2: "
+          f"{runs[str(dev)]}")
     compare_rounds(hists, dev, 1e-3)
     done(t0)
 
@@ -1172,10 +1316,92 @@ def time_ce(cases, launches, err, dev):
     return out
 
 
+def time_ssm(b, grp, launches, err, dev) -> dict:
+    """K5 forward (with the boundary states the main path saves), the
+    backward's scan kernel and its partial-sum kernel at ``[b, MB_S,
+    8192, 16]`` with ``grp`` groups in bf16: times, plain times and bounds.
+    A backward call launches both kernels (``call_ms``); the scan kernel
+    is timed alone through ``ssm_scan._bwd_partials``, the partial sums
+    through ``ssm_scan.sum_partials``."""
+    s, d, n = MB_S, 8192, 16
+    args = ssm_inputs(b, s, d, n, grp, torch.bfloat16, 11, dev)
+    gy = ssm_cotangent(b, s, d, torch.bfloat16, 12, dev)
+    _, hs = ssm.ssm_scan_fwd(*args)
+    el = b * s * d * n
+    nc, slabs = hs.shape[1], -(-d // ssm.SLAB)
+    io_ad = grp * d * (n + 1) * 4                # a and d, or da and dd
+    # the states the forward saves for the backward, and the partials a
+    # backward call holds until its second kernel has run
+    states_bytes = b * nc * d * n * 4
+    part = 2 * slabs * b * s * n * 4 + b * d * (n + 1) * 4
+    shape = [b, s, d, n, grp]
+    out = {}
+    fwd = lambda: ssm.ssm_scan_fwd(*args)   # noqa: E731
+    terms = {"sfu": el / SFU_EXPS * 1e3, "fp32": 6 * el / FP32_OPS * 1e3}
+    r = record("ssm_scan", launches["ssm_scan"], err["ssm_scan"],
+               graph_ms(fwd, reps=5, inner=5), event_ms(fwd, reps=5, inner=5),
+               event_ms(lambda: ref.ssm_scan(*args, ssm.CHUNK), reps=3,
+                        inner=1, warm=1),
+               b * s * d * 2 * 3 + b * s * n * 2 * 2 + io_ad + states_bytes,
+               el, SFU_EXPS, shape=shape)
+    r["bound_terms_ms"] = {"bytes": r["bytes"] / HBM_BPS * 1e3, **terms}
+    out["ssm_scan"] = r
+    bwd = lambda: ssm.ssm_scan_bwd(*args, gy, hs)      # noqa: E731
+    scan = lambda: ssm._bwd_partials(*args, gy, hs)    # noqa: E731
+    # 19 fp32 flops an element: the recurrence 4, the adjoint 3, the
+    # gradient terms 12; one exp an element on the SFUs
+    terms = {"sfu": el / SFU_EXPS * 1e3, "fp32": 19 * el / FP32_OPS * 1e3}
+    io = b * s * d * 2 * 5 + b * s * n * 2 * 2 + io_ad + states_bytes + part
+    r = record("ssm_scan_bwd", launches["ssm_scan_bwd"],
+               err["ssm_scan_bwd"], graph_ms(scan, reps=5, inner=2),
+               event_ms(scan, reps=5, inner=2),
+               event_ms(lambda: ref.ssm_scan_bwd(*args, gy), reps=3,
+                        inner=1, warm=1),
+               io, *max(((el, SFU_EXPS), (19 * el, FP32_OPS)),
+                        key=lambda o: o[0] / o[1]),
+               shape=shape, call_ms=graph_ms(bwd, reps=5, inner=2),
+               call_eager_ms=event_ms(bwd, reps=5, inner=2),
+               states_bytes=states_bytes, partials_bytes=part)
+    r["bound_terms_ms"] = {"bytes": r["bytes"] / HBM_BPS * 1e3, **terms}
+    out["ssm_scan_bwd"] = r
+    print(f"  {shape}: the forward saves {states_bytes / 1e6:.1f} MB of "
+          f"states a layer; a backward call holds {part / 1e6:.1f} MB of "
+          f"partials")
+    gen = torch.Generator().manual_seed(13)
+    pt = torch.randn((2, slabs, b, n, s), generator=gen).to(dev)
+    ra = torch.randn((b, d, n), generator=gen).to(dev)
+    rd = torch.randn((b, d), generator=gen).to(dev)
+    sums = lambda: ssm.sum_partials(pt, ra, rd, grp, torch.bfloat16)  # noqa
+    got = sums()
+    want = ref.ssm_scan_bwd_sum(pt, ra, rd, grp, torch.float32)
+    env = ref.ssm_scan_bwd_sum(pt.abs(), ra.abs(), rd.abs(), grp,
+                               torch.float32)
+    ok = True
+    for i, name in enumerate(("db", "dc", "da", "dd")):
+        rt = 2.0 ** -7 if got[i].dtype == torch.bfloat16 else 0.0
+        ratio = worst_ratio(got[i], want[i], env[i].mul_(2.0 ** -13)
+                            .add_(want[i].abs(), alpha=rt).clamp_min_(1e-30))
+        ok = ok and ratio <= 1.0
+    check(ok, f"ssm_scan_bwd_sum {shape} == its plain version within "
+          f"r |plain| + 2^-13 sum|partials| (r 2^-7 bf16, 0 fp32)")
+    r = record("ssm_scan_bwd_sum", launches["ssm_scan_bwd_sum"],
+               err["ssm_scan_bwd_sum"], graph_ms(sums, reps=5, inner=5),
+               event_ms(sums, reps=5, inner=5),
+               event_ms(lambda: ref.ssm_scan_bwd_sum(pt, ra, rd, grp,
+                                                     torch.bfloat16),
+                        reps=3, inner=2, warm=1),
+               part + 2 * b * s * n * 2 + io_ad, 2 * slabs * b * s * n,
+               FP32_OPS, shape=shape)
+    r["bound_terms_ms"] = {"bytes": r["bytes"] / HBM_BPS * 1e3}
+    out["ssm_scan_bwd_sum"] = r
+    return out
+
+
 def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
-    """Phase 14: K5, the d = 4096 fused CE kernels and a Mamba round,
-    timed.  Returns K5's record and the round's numbers; the CE times go
-    into ``lm_records`` under ``"mamba"``."""
+    """Phase 14: K5 forward and backward, the d = 4096 fused CE kernels
+    and a Mamba round, timed.  Returns the K5 kernels' records and the
+    round's numbers; the CE times go into ``lm_records`` under
+    ``"mamba"``."""
     t0 = phase("14 Mamba times (CUDA events, medians)")
     ce_times = time_ce({"server": (1, MB_S, 4096, 65024),
                         "aux": (LM_N, MB_S, 128, 65024)}, launches, err, dev)
@@ -1185,28 +1411,18 @@ def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
                 "shape", "launches", "max_abs_err", "ms", "eager_ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
                 for tag, t in ce_times.items()}
-    rec = None
+    recs = {}
     for tag, (b, grp) in (("server", (1, 1)), ("client", (LM_N, LM_N))):
-        s, d, n = MB_S, 8192, 16
-        args = ssm_inputs(b, s, d, n, grp, torch.bfloat16, 11, dev)
-        io = b * s * d * 2 * 3 + b * s * n * 2 * 2 + grp * d * (n + 1) * 4
-        r = record("ssm_scan", launches["ssm_scan"], err["ssm_scan"],
-                   graph_ms(lambda: ssm.ssm_scan_fwd(*args), reps=5,
-                            inner=5),
-                   event_ms(lambda: ssm.ssm_scan_fwd(*args), reps=5,
-                            inner=5),
-                   event_ms(lambda: ref.ssm_scan(*args), reps=3, inner=1,
-                            warm=1),
-                   io, b * s * d * n, SFU_EXPS, shape=[b, s, d, n, grp])
-        print(f"  [{tag}]", end="")
-        print_record(r)
-        if rec is None:
-            rec = r
-        else:
-            rec["client"] = {k: r[k] for k in (
-                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
-                "bound_by")}
-        del args
+        for name, r in time_ssm(b, grp, launches, err, dev).items():
+            print(f"  [{tag}]", end="")
+            print_record(r)
+            if name in recs:
+                recs[name]["client"] = {k: r[k] for k in (
+                    "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "bound_terms_ms", "call_ms", "states_bytes",
+                    "partials_bytes") if k in r}
+            else:
+                recs[name] = r
         torch.cuda.empty_cache()
 
     batch = tr.to_device(LMBatcher(mb_cfg(), fed, LM_B, LM_H,
@@ -1225,8 +1441,9 @@ def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
           f"{[round(p, 3) for p in per]}")
     busy, idle = profile_round(step, 1, round_ms, top=12)
     done(t0)
-    return rec, {"round_ms": round_ms, "rounds_ms": per, "device_ms": busy,
-                 "idle_share": idle, "peak_bytes": peak}
+    return list(recs.values()), {"round_ms": round_ms, "rounds_ms": per,
+                                 "device_ms": busy, "idle_share": idle,
+                                 "peak_bytes": peak}
 
 
 def main() -> int:
@@ -1253,11 +1470,11 @@ def main() -> int:
     mb_err = phase_mamba_kernels(dev)
     mtr, mstate, mfed, mlaunches, mpeak = phase_mamba_main(dev)
     phase_mamba_cpu_vs(dev)
-    ssm_record, mb = phase_mamba_times(dev, mb_err, mlaunches, lm_records,
-                                       mtr, mstate, mfed, mpeak)
+    ssm_records, mb = phase_mamba_times(dev, mb_err, mlaunches, lm_records,
+                                        mtr, mstate, mfed, mpeak)
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
-    print(json.dumps({"kernels": records + lm_records + [ssm_record],
+    print(json.dumps({"kernels": records + lm_records + ssm_records,
                       "round_ms": round_ms, "lm": lm, "mamba": mb,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {

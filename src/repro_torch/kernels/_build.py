@@ -45,8 +45,9 @@ SIGNATURES = {
                              _P],
     },
     "ssm_scan": {
-        "ssm_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P],
+        "ssm_scan_fwd": [_P] * 9 + [_I] * 6 + [_P],
+        "ssm_scan_bwd": [_P] * 15 + [_I] * 6 + [_P],
+        "ssm_scan_bwd_sum": [_P] * 8 + [_I] * 6 + [_P],
     },
 }
 

@@ -45,10 +45,12 @@
 //   one's softmax also runs under the other's products.  The exps run as
 //   ex2.approx on the special-function units.  Shared memory at hd = 128:
 //   32 KB of q plus 2 x 64 KB of k and v.
-// * fp32, and bf16 at hd in {16, 32}: swa_fwd_kernel on the fp32 CUDA
-//   cores (the tests' fidelity path and the fp32 CPU-vs-card run), kept as
-//   it was: one block per (64-row q tile, q head, sequence), S = q k^T as
-//   a 4x4 register micro-tile per thread, P through shared memory for P v.
+// * fp32, and bf16 at hd in {16, 32, 112}: swa_fwd_kernel on the fp32
+//   CUDA cores (the tests' fidelity path, the fp32 CPU-vs-card run and
+//   zamba2's hd = 112): one block per (64-row q tile, q head, sequence),
+//   S = q k^T as a 4x4 register micro-tile per thread, P through shared
+//   memory for P v; a thread owns hd / 16 output columns (7 at hd = 112,
+//   with 75 KB of dynamic shared memory).
 //
 // Plain C interface (ctypes); the launchers return cudaGetLastError().
 
@@ -233,6 +235,8 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
     case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KH, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 112:                            // zamba2-7b: 3584 / 32 heads
+      return launch<T, 112>(q, k, v, o, B, S, H, KH, window, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
     default: return cudaErrorInvalidValue;

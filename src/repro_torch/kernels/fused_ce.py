@@ -18,11 +18,12 @@ writes ``P = (softmax(x w) - onehot) g/T`` in bf16 to a scratch
 ``x^T P``.  ``fused_ce_bwd`` shares one P pass between dx and dw;
 ``fused_ce_dx`` and ``fused_ce_dw`` alone each run their own.  The wrapper
 allocates the scratch; TMA reads x, w and P, so their rows must be 16-byte
-multiples: it raises where x's are not (d not a multiple of 8) or a base is
-not 16-byte aligned, and copies w into rows padded to a multiple of 8
-columns where V is not one (no model's vocabulary needs that).  fp32 inputs
-take the CUDA-core kernels: the forward on 64 x 64 tiles, the backward
-recomputing the logits per block.
+multiples: where d is not a multiple of 8 it zero-pads x's rows and w's d
+rows to the next one (zeros add nothing to ``x w``; dx and dw are sliced
+back), copies w into rows padded to a multiple of 8 columns where V is not
+one (no model's width or vocabulary needs either copy), and raises where a
+base is not 16-byte aligned.  fp32 inputs take the CUDA-core kernels: the
+forward on 64 x 64 tiles, the backward recomputing the logits per block.
 
 On a CPU tensor a wrapper computes the plain version in ``kernels/ref.py``;
 on a ``meta`` tensor it returns empty outputs of the right shapes and
@@ -97,42 +98,44 @@ def _check_grid(name, grid, g, t, d, v):
                          f"G={g}, T={t}, d={d}, V={v}")
 
 
+def _dpad(d: int) -> int:
+    """d rounded up to a multiple of 8: 16-byte bf16 rows for TMA."""
+    return _cdiv(d, 8) * 8
+
+
 def bwd_plan(g: int, t: int, d: int, v: int) -> dict:
     """The bf16 backward for ``x [g, t, d]``, ``w [g, d, v]``: the chunk
     width ``vc`` (a multiple of ``TILE``, the largest that keeps the P
     scratch ``[g, t, vc]`` bf16 within ``P_CAP``, at most V rounded up; the
     kernels walk the chunks ``c0 = 0, vc, 2 vc, ...`` in order), w's padded
-    row length ``ldw`` and ``acc``, whether dx needs fp32 partial sums
-    (more than one chunk).  Raises ``ValueError`` where TMA cannot read x
-    (d not a multiple of 8) or a grid (T, d or vc tiles by the others, G
-    groups) exceeds CUDA's limits."""
-    if d % 8:
-        raise ValueError(f"fused_ce bf16 backward: x's rows ({d} columns) "
-                         f"must be 16-byte multiples for TMA")
+    row length ``ldw``, ``acc``, whether dx needs fp32 partial sums (more
+    than one chunk), and ``dp``, the width the kernels run at (d padded to a
+    multiple of 8).  Raises ``ValueError`` where a grid (T, d or vc tiles by
+    the others, G groups) exceeds CUDA's limits."""
+    dp = _dpad(d)
     vc = min(_cdiv(v, TILE), P_CAP // (2 * g * t) // TILE) * TILE
     if vc < TILE:
         raise ValueError(f"fused_ce bf16 backward: G*T = {g * t} rows leave "
                          f"no {TILE}-column chunk within {P_CAP} bytes")
-    tt, dt, vt = _cdiv(t, TILE), _cdiv(d, TILE), _cdiv(vc, TILE)
+    tt, dt, vt = _cdiv(t, TILE), _cdiv(dp, TILE), _cdiv(vc, TILE)
     _check_grid("fused_ce bwd", (max(tt, dt), max(dt, vt), g), g, t, d, v)
-    return {"vc": vc, "ldw": _cdiv(v, 8) * 8, "acc": v > vc}
+    return {"vc": vc, "ldw": _cdiv(v, 8) * 8, "acc": v > vc, "dp": dp}
 
 
 def launch_plan(g: int, t: int, d: int, v: int, sms: int = 132,
                 bf16: bool = True) -> dict:
-    """K3's vocabulary split, grid ``(row tiles, vocab splits, g)`` and w's
-    row length ``ldw`` for ``x [g, t, d]``, ``w [g, d, v]``: 128-row tiles
-    and 128-column vocabulary tiles in bf16, 64 and 64 in fp32.  Raises
-    ``ValueError`` where TMA cannot read x (bf16, d not a multiple of 8) or
-    the grid exceeds CUDA's limits."""
-    if bf16 and d % 8:
-        raise ValueError(f"fused_ce_fwd bf16: x's rows ({d} columns) must be "
-                         f"16-byte multiples for TMA")
+    """K3's vocabulary split, grid ``(row tiles, vocab splits, g)``, w's
+    row length ``ldw`` and the width ``dp`` the kernel runs at, for
+    ``x [g, t, d]``, ``w [g, d, v]``: 128-row tiles and 128-column
+    vocabulary tiles in bf16 (d padded to a multiple of 8), 64 and 64 in
+    fp32 (any d).  Raises ``ValueError`` where the grid exceeds CUDA's
+    limits."""
     nsplit, tps = vocab_splits(g, t, v, sms, bf16)
     grid = (_cdiv(t, TILE if bf16 else FP32_TILE), nsplit, g)
     _check_grid("fused_ce_fwd", grid, g, t, d, v)
     return {"nsplit": nsplit, "tiles_per_split": tps,
             "ldw": _cdiv(v, 8) * 8 if bf16 else v,
+            "dp": _dpad(d) if bf16 else d,
             "grids": {"fused_ce_fwd": grid}}
 
 
@@ -195,9 +198,12 @@ def fused_ce_fwd(x, w, labels):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = launch_plan(g, t, d, v, sms, bf16)
     nsplit, tps, ldw = plan["nsplit"], plan["tiles_per_split"], plan["ldw"]
+    dp = plan["dp"]
     if bf16:
         _aligned(x, "x")
         _aligned(w, "w")
+        x, xg = _pad_d(x, xg, 2, dp)
+        w, wg = _pad_d(w, wg, 1, dp)
         w, wg = _pad_rows(w, wg, v, ldw)
     lse = torch.empty((g, t), dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
@@ -205,7 +211,7 @@ def fused_ce_fwd(x, w, labels):
                        device=x.device)
     err = load("fused_ce").fused_ce_fwd(
         x.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(),
-        lse.data_ptr(), picked.data_ptr(), g, t, d, v, ldw, xg, wg, nsplit,
+        lse.data_ptr(), picked.data_ptr(), g, t, dp, v, ldw, xg, wg, nsplit,
         tps, DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -217,6 +223,17 @@ def fused_ce_fwd(x, w, labels):
 def _aligned(t: torch.Tensor, what: str):
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: TMA needs a 16-byte aligned base")
+
+
+def _pad_d(t: torch.Tensor, tg: int, axis: int, dp: int):
+    """``(t, group stride)`` with the d axis of ``t`` (``axis`` 2 of x
+    ``[G, T, d]``, 1 of w ``[G, d, V]``) zero-padded to ``dp``."""
+    d = t.shape[axis]
+    if d == dp:
+        return t, tg
+    pad = (0, dp - d) if axis == 2 else (0, 0, 0, dp - d)
+    t = F.pad(t if tg else t[:1], pad)
+    return t, t[0].numel() if tg else 0
 
 
 def _pad_rows(w: torch.Tensor, wg: int, v: int, ldw: int):
@@ -251,23 +268,30 @@ def _bwd(x, w, labels, lse, g, want_dx: bool, want_dw: bool):
     _check_cuda(x, w, labels, (lse, g))
     xg, wg = _group_stride(x, "x"), _group_stride(w, "w")
     bf16 = x.dtype == torch.bfloat16
-    ldw, vc, p, acc = v, 0, None, None
+    ldw, vc, p, acc, dp = v, 0, None, None, d
     if bf16:
         plan = bwd_plan(gn, t, d, v)
         _aligned(x, "x")
         _aligned(w, "w")
-        ldw, vc = plan["ldw"], plan["vc"]
+        ldw, vc, dp = plan["ldw"], plan["vc"], plan["dp"]
+        x, xg = _pad_d(x, xg, 2, dp)
+        w, wg = _pad_d(w, wg, 1, dp)
         w, wg = _pad_rows(w, wg, v, ldw)
         p = torch.empty((gn, t, vc), dtype=x.dtype, device=x.device)
         if want_dx and plan["acc"]:
-            acc = torch.empty((gn, t, d), dtype=torch.float32,
+            acc = torch.empty((gn, t, dp), dtype=torch.float32,
                               device=x.device)
+        if dp != d:             # the kernels write the padded widths
+            dx = torch.empty((gn, t, dp), dtype=x.dtype, device=x.device) \
+                if want_dx else None
+            dw = torch.empty((gn, dp, v), dtype=w.dtype, device=x.device) \
+                if want_dw else None
     def ptr(a):
         return None if a is None else a.data_ptr()
 
     err = load("fused_ce").fused_ce_bwd(
         x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), ptr(p), ptr(acc), ptr(dx), ptr(dw), gn, t, d, v, ldw,
+        g.data_ptr(), ptr(p), ptr(acc), ptr(dx), ptr(dw), gn, t, dp, v, ldw,
         xg, wg, vc, DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -275,6 +299,9 @@ def _bwd(x, w, labels, lse, g, want_dx: bool, want_dw: bool):
     LAUNCHES["fused_ce_p"] += bf16
     LAUNCHES["fused_ce_dx"] += want_dx
     LAUNCHES["fused_ce_dw"] += want_dw
+    if dp != d:
+        dx = None if dx is None else dx[..., :d].contiguous()
+        dw = None if dw is None else dw[:, :d].contiguous()
     return dx, dw
 
 

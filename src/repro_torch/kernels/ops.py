@@ -7,9 +7,11 @@
     q, k, v (``ref.swa_attention_bwd``), as the JAX package's backward
     recomputes through its reference.
   - ``ssm_scan(u, dt, a, b, c, d, chunk)``: the Mamba-1 selective scan;
-    kernel forward (K5); the backward recomputes chunk by chunk in plain
-    tensor ops (``ref.ssm_scan_bwd``), as the JAX package's backward
-    recomputes through ``selective_scan``.
+    kernels forward (K5, which also saves the state every
+    ``ssm_scan.CHUNK`` steps) and backward (``ssm_scan.ssm_scan_bwd``,
+    which restarts each tile from those states), where the JAX package's
+    backward recomputes through ``selective_scan``.  On the CPU the
+    backward is the plain ``ref.ssm_scan_bwd``, in blocks of ``chunk``.
 
 All three are ``torch.autograd.Function``s built for ``torch.func``:
 ``forward`` takes no ``ctx`` (``setup_context`` saves the residuals) and a
@@ -187,14 +189,13 @@ def swa_attention(q, k, v, window: int):
 
 
 class SSMScanBwd(torch.autograd.Function):
-    """``(du, ddt, da, db, dc, dd)`` of the grouped scan, recomputed chunk
-    by chunk in plain tensor ops.  A Function of its own so that
-    ``torch.func.grad`` (``create_graph=True``) records none of its
-    ``[B, chunk, D, N]`` temporaries."""
+    """``(du, ddt, da, db, dc, dd)`` of the grouped scan from the
+    forward's boundary states.  A Function of its own so that
+    ``torch.func.grad`` (``create_graph=True``) records none of it."""
 
     @staticmethod
-    def forward(u, dt, a, b, c, d, gy, chunk):
-        return ref.ssm_scan_bwd(u, dt, a, b, c, d, gy, chunk)
+    def forward(u, dt, a, b, c, d, gy, states, chunk):
+        return _ssm.ssm_scan_bwd(u, dt, a, b, c, d, gy, states, chunk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -205,18 +206,19 @@ class SSMScanBwd(torch.autograd.Function):
         raise RuntimeError("ssm_scan has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, u, dt, a, b, c, d, gy, chunk):
+    def vmap(info, in_dims, u, dt, a, b, c, d, gy, states, chunk):
         n = info.batch_size
         out = SSMScanBwd.apply(*(_fold(t, i, n) for t, i in
-                                 zip((u, dt, a, b, c, d, gy), in_dims[:7])),
-                               chunk)
+                                 zip((u, dt, a, b, c, d, gy, states),
+                                     in_dims[:8])), chunk)
         return tuple(_unfold(t, n) for t in out), (0,) * 6
 
 
 class SSMScan(torch.autograd.Function):
     """Grouped scan: u, dt [B,S,D], a [G,D,N], b, c [B,S,N], d [G,D] ->
-    y [B,S,D]; batch row i uses group ``i // (B // G)``, so the vmapped
-    clients, each with its own ``a``/``d``, fold into one launch."""
+    ``(y [B,S,D], states [B, ceil(S/CHUNK), D, N])``; batch row i uses
+    group ``i // (B // G)``, so the vmapped clients, each with its own
+    ``a``/``d``, fold into one launch.  ``states`` is the saved residual."""
 
     @staticmethod
     def forward(u, dt, a, b, c, d, chunk):
@@ -225,23 +227,26 @@ class SSMScan(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs[:6])
+        ctx.save_for_backward(*inputs[:6], output[1])
+        ctx.mark_non_differentiable(output[1])
         ctx.chunk = inputs[6]
 
     @staticmethod
-    def backward(ctx, gy):
-        return (*SSMScanBwd.apply(*ctx.saved_tensors, gy, ctx.chunk), None)
+    def backward(ctx, gy, gstates):
+        return (*SSMScanBwd.apply(*ctx.saved_tensors[:6], gy,
+                                  ctx.saved_tensors[6], ctx.chunk), None)
 
     @staticmethod
     def vmap(info, in_dims, u, dt, a, b, c, d, chunk):
         n = info.batch_size
-        y = SSMScan.apply(*(_fold(t, i, n) for t, i in
-                            zip((u, dt, a, b, c, d), in_dims[:6])), chunk)
-        return _unfold(y, n), 0
+        y, states = SSMScan.apply(*(_fold(t, i, n) for t, i in
+                                    zip((u, dt, a, b, c, d), in_dims[:6])),
+                                  chunk)
+        return (_unfold(y, n), _unfold(states, n)), (0, 0)
 
 
 def ssm_scan(u, dt, a, b_mat, c_mat, d_vec, chunk: int = 128):
     """Mamba-1 selective scan.  u, dt: [B,S,D]; a: [D,N]; b_mat, c_mat:
     [B,S,N]; d_vec: [D] -> [B,S,D] in u's dtype."""
     cs = chunk if u.shape[1] % chunk == 0 else u.shape[1]
-    return SSMScan.apply(u, dt, a[None], b_mat, c_mat, d_vec[None], cs)
+    return SSMScan.apply(u, dt, a[None], b_mat, c_mat, d_vec[None], cs)[0]

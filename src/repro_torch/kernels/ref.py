@@ -316,24 +316,31 @@ def _per_batch(a, d, bsz: int):
             d.float().repeat_interleave(bsz // g, 0))
 
 
-def ssm_scan(u, dt, a, b_mat, c_mat, d_vec):
+def ssm_scan(u, dt, a, b_mat, c_mat, d_vec, chunk=None):
     """Sequential-in-time Mamba-1 scan (the plain version of K5).
 
     u, dt: [B,S,D]; a: [G,D,N] (or [D,N]); b_mat, c_mat: [B,S,N];
     d_vec: [G,D] (or [D]) -> y [B,S,D] in u's dtype, with fp32 state:
     h_t = exp(dt_t a) h_{t-1} + (dt_t u_t) b_t ;  y_t = c_t . h_t + d u_t.
+    With ``chunk`` returns ``(y, states)``: states [B, ceil(S/chunk), D, N]
+    fp32 holds h after min((i + 1) chunk, S) steps.
     """
     bsz, s, dim = u.shape
     ab, db = _per_batch(a, d_vec, bsz)
     h = torch.zeros(ab.shape, dtype=torch.float32, device=u.device)
     y = torch.empty((bsz, s, dim), dtype=torch.float32, device=u.device)
+    hs = None if chunk is None else torch.empty(
+        (bsz, -(-s // chunk)) + tuple(ab.shape[1:]), dtype=torch.float32,
+        device=u.device)
     for t in range(s):
         dtt, ut = dt[:, t].float(), u[:, t].float()
         h = torch.exp(dtt[..., None] * ab) * h \
             + (dtt * ut)[..., None] * b_mat[:, t, None, :].float()
         y[:, t] = torch.einsum("bdn,bn->bd", h, c_mat[:, t].float()) \
             + db * ut
-    return y.to(u.dtype)
+        if hs is not None and ((t + 1) % chunk == 0 or t == s - 1):
+            hs[:, t // chunk] = h
+    return y.to(u.dtype) if hs is None else (y.to(u.dtype), hs)
 
 
 def _linear_scan_(a, b):
@@ -419,3 +426,16 @@ def ssm_scan_bwd(u, dt, a, b_mat, c_mat, d_vec, gy, chunk: int = 128):
         g_a, g_d = g_a.sum(0), g_d.sum(0)
     return (g_u.to(u.dtype), g_dt.to(dt.dtype), g_a.to(a.dtype),
             g_b.to(b_mat.dtype), g_c.to(c_mat.dtype), g_d.to(d_vec.dtype))
+
+
+def ssm_scan_bwd_sum(part, rows_a, rows_d, groups: int, dtype):
+    """The plain version of the K5 backward's second kernel
+    (``ssm_scan.sum_partials``): ``db, dc [B, S, N]`` in ``dtype`` are the
+    per-slab partials ``part [2, slabs, B, N, S]`` summed over the slabs,
+    ``da [G, D, N]`` and ``dd [G, D]`` the per-row partials summed over
+    each group's rows."""
+    db, dc = part.sum(1).transpose(-1, -2).contiguous().to(dtype)
+    bsz = rows_a.shape[0]
+    return (db, dc,
+            rows_a.reshape(groups, bsz // groups, *rows_a.shape[1:]).sum(1),
+            rows_d.reshape(groups, bsz // groups, -1).sum(1))

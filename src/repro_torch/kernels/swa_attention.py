@@ -3,13 +3,14 @@ in ``csrc/swa_attention.cu`` (port of the JAX package's Pallas kernel
 ``repro.kernels.swa_attention``, K6).
 
 q ``[B, S, H, hd]``, k/v ``[B, S, KH, hd]`` -> ``[B, S, H, hd]`` in q's
-dtype; hd in {16, 32, 64, 128}.  Two hand-written kernels, chosen up front
-from dtype and hd (``kernel_for``): bf16 at hd 64 or 128 (every model's
-main path) takes the tensor-core kernel (TMA + wgmma, P rounded to bf16
-before ``P v``), fp32 and hd 16 or 32 the CUDA-core one (fp32 products and
-sums).  On a CPU tensor the wrapper computes the plain version in
-``kernels/ref.py``; on a ``meta`` tensor it returns an empty output and
-counts nothing; on a CUDA tensor it launches the kernel or raises.
+dtype; hd in {16, 32, 64, 112, 128}.  Two hand-written kernels, chosen up
+front from dtype and hd (``kernel_for``): bf16 at hd 64 or 128 (the dense
+models' main paths) takes the tensor-core kernel (TMA + wgmma, P rounded
+to bf16 before ``P v``), fp32 and hd 16, 32 or 112 (zamba2's heads) the
+CUDA-core one (fp32 products and sums).  On a CPU tensor the wrapper
+computes the plain version in ``kernels/ref.py``; on a ``meta`` tensor it
+returns an empty output and counts nothing; on a CUDA tensor it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (16, 32, 64, 128)       # the CUDA-core kernel's instances
+HEAD_DIMS = (16, 32, 64, 112, 128)  # the CUDA-core kernel's instances
 TC_HEAD_DIMS = (64, 128)            # the tensor-core kernel's (bf16)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

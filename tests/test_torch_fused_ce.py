@@ -198,11 +198,11 @@ def test_bwd_plan_at_the_main_paths_heads():
 
 
 def test_launch_plan_raises_where_tma_cannot_read():
-    """The bf16 K3 reads x with TMA: its rows must be 16-byte multiples
-    (the fp32 K3 takes any d); a V that is not a multiple of 8 pads w's
-    rows; a grid past CUDA's limits raises."""
-    with pytest.raises(ValueError):
-        K.launch_plan(1, 24, 12, 80)
+    """The bf16 K3 reads x with TMA: its rows must be 16-byte multiples,
+    so a d that is not a multiple of 8 runs padded (the fp32 K3 takes any
+    d); a V that is not a multiple of 8 pads w's rows; a grid past CUDA's
+    limits raises."""
+    assert K.launch_plan(1, 24, 12, 80)["dp"] == 16    # x, w zero-padded
     assert K.launch_plan(1, 24, 12, 80, bf16=False)["ldw"] == 80
     assert K.launch_plan(3, 37, 16, 130)["ldw"] == 136
     with pytest.raises(ValueError):
@@ -217,11 +217,10 @@ def test_launch_plan_raises_where_tma_cannot_read():
 
 
 def test_bwd_plan_raises_where_tma_cannot_read():
-    """x's rows must be 16-byte multiples (d % 8 == 0) and bases 16-byte
-    aligned; a V that is not a multiple of 8 pads w's rows instead; a grid
-    past CUDA's limits raises."""
-    with pytest.raises(ValueError):
-        K.bwd_plan(1, 24, 12, 80)
+    """x's rows must be 16-byte multiples (a d that is not a multiple of
+    8 runs padded) and bases 16-byte aligned; a V that is not a multiple of
+    8 pads w's rows instead; a grid past CUDA's limits raises."""
+    assert K.bwd_plan(1, 24, 12, 80)["dp"] == 16       # x, w zero-padded
     with pytest.raises(ValueError):
         K.bwd_plan(70000, 24, 16, 80)
     assert K.bwd_plan(3, 37, 16, 130)["ldw"] == 136
@@ -279,6 +278,45 @@ def test_any_width_d(d):
                                atol=1e-7)
     np.testing.assert_allclose(dw[0].numpy(), rw.numpy(), rtol=1e-5,
                                atol=1e-7)
-    assert K.bwd_plan(1, 24, d, 80) == {"vc": 128, "ldw": 80, "acc": False}
+    assert K.bwd_plan(1, 24, d, 80) == {"vc": 128, "ldw": 80, "acc": False,
+                                        "dp": d}
     with pytest.raises(ValueError):
         K.launch_plan(70000, 24, d, 80)
+
+
+def test_padding_plan_at_d_100():
+    """At d = 100 the bf16 plans run the kernels at d = 104 (fp32 at 100),
+    and the zero padding of x's rows and w's d rows is exact: the padded
+    problem gives the same (lse, picked) and, sliced back, the same dx and
+    dw (fp32 plain versions, rtol 1e-6)."""
+    g, t, d, v = 2, 37, 100, 300
+    fwd = K.launch_plan(g, t, d, v)
+    bwd = K.bwd_plan(g, t, d, v)
+    assert fwd["dp"] == bwd["dp"] == 104
+    assert K.launch_plan(g, t, d, v, bf16=False)["dp"] == 100
+    assert fwd["grids"]["fused_ce_fwd"] == (1, fwd["nsplit"], g)
+    assert (bwd["vc"], bwd["ldw"], bwd["acc"]) == (384, 304, False)
+    (x, w, lab), _ = _inputs(t, d, v, "float32", seed=11, lead=(g,))
+    x = x * d ** -0.5
+    gs = torch.tensor([0.5, 1.5])
+    xp, xg = K._pad_d(x, x[0].numel(), 2, 104)
+    wp, wg = K._pad_d(w, w[0].numel(), 1, 104)
+    assert xp.shape == (g, t, 104) and xg == t * 104
+    assert wp.shape == (g, 104, v) and wg == 104 * v
+    assert not xp[..., d:].any() and not wp[:, d:].any()
+    assert torch.equal(xp[..., :d], x) and torch.equal(wp[:, :d], w)
+    shared, sg = K._pad_d(w[:1].expand(3, d, v), 0, 1, 104)
+    assert shared.shape == (1, 104, v) and sg == 0
+    assert K._pad_d(x, 7, 2, d) == (x, 7)
+    lse, picked = ref.fused_ce_fwd(x, w, lab)
+    plse, ppicked = ref.fused_ce_fwd(xp, wp, lab)
+    np.testing.assert_allclose(plse.numpy(), lse.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(ppicked.numpy(), picked.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    dx, dw = ref.fused_ce_bwd(x, w, lab, lse, gs)
+    pdx, pdw = ref.fused_ce_bwd(xp, wp, lab, lse, gs)
+    assert not pdw[:, d:].any()
+    np.testing.assert_allclose(pdx[..., :d].numpy(), dx.numpy(), rtol=1e-6,
+                               atol=1e-8)
+    np.testing.assert_allclose(pdw[:, :d].numpy(), dw.numpy(), rtol=1e-6,
+                               atol=1e-8)

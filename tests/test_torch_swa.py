@@ -111,17 +111,21 @@ def test_window_covering_sequence_is_causal_attention():
 @pytest.mark.parametrize("dtype,hd,want", [
     (torch.bfloat16, 128, "swa_attention_tc"),   # every model's main path
     (torch.bfloat16, 64, "swa_attention_tc"),
+    (torch.bfloat16, 112, "swa_attention"),      # zamba2-7b's heads
     (torch.bfloat16, 32, "swa_attention"),
     (torch.bfloat16, 16, "swa_attention"),
+    (torch.float32, 112, "swa_attention"),
     (torch.float32, 128, "swa_attention"),       # the fp32 fidelity path
     (torch.float32, 64, "swa_attention"),
     (torch.float32, 32, "swa_attention"),
     (torch.float32, 16, "swa_attention")])
 def test_kernel_for_picks_by_dtype_and_head_width(dtype, hd, want):
-    """bf16 at hd 64 or 128 takes the tensor-core kernel, fp32 and the
-    narrow heads the CUDA-core one; each name is a launch counter."""
+    """bf16 at hd 64 or 128 takes the tensor-core kernel, fp32, the
+    narrow heads and hd 112 the CUDA-core one, which has an instance of
+    every head width; each name is a launch counter."""
     assert K.kernel_for(dtype, hd) == want
     assert want in K.LAUNCHES
+    assert hd in K.HEAD_DIMS
 
 
 def test_meta_inputs_give_shapes_and_count_nothing():
@@ -135,4 +139,25 @@ def test_meta_inputs_give_shapes_and_count_nothing():
                 ops.swa_attention(q, k, k, 4096)):
         assert out.shape == q.shape and out.dtype == q.dtype
         assert out.device.type == "meta"
+    assert K.LAUNCHES == {"swa_attention": 0, "swa_attention_tc": 0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_width_112_matches_reference(dtype):
+    """zamba2-7b's head width (3584 / 32 = 112), windowed, with GQA: the
+    port's op equals the JAX package's Pallas kernel (interpret mode) at
+    the tolerances of ``tests/test_kernels.py``, and ``meta`` inputs give
+    the shape and launch nothing."""
+    qkv = _qkv(1, 256, 4, 2, 112, seed=11)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = ops.swa_attention(*(torch.from_numpy(a).to(tdt) for a in qkv), 96)
+    want = jops.swa_attention(*(jnp.asarray(a).astype(jdt) for a in qkv), 96)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    assert got.dtype == tdt and got.shape == (1, 256, 4, 112)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    K.reset_launches()
+    q = torch.empty((1, 4096, 32, 112), dtype=torch.bfloat16, device="meta")
+    assert K.swa_attention_fwd(q, q, q, 4096).shape == q.shape
     assert K.LAUNCHES == {"swa_attention": 0, "swa_attention_tc": 0}
