@@ -6,10 +6,10 @@ fail.  Run from the repo root on a machine with one NVIDIA GPU and nvcc:
 
 The tree itself runs phases 1, 2, 7 and 11 of ``chip_smoke.py`` in a
 fresh process, with every check reported instead of raised; each mutant
-below runs phases 1, 2 and the one of 7 (fused CE, K6) and 11 (K5) that
-holds its kernel.  A mutant is one deliberate fault in a kernel source,
-made in a copy of the checkout under a temporary directory; the checkout
-itself is never changed.  The script exits non-zero unless the tree passes
+below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward)
+and 11 (K5) that holds its kernel.  A mutant is one deliberate fault in a
+kernel source, made in a copy of the checkout under a temporary
+directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
 failed.
@@ -58,6 +58,30 @@ MUTANTS = {
           "const bool ok = key <= row && key > row - window "
           "&& jt != jt0 + 1;")],
         "swa_attention_tc [4, 4096, 16, 8, 128] W=4096 bfloat16 per element"),
+    "K6 backward: dS without its -delta term": (
+        [(SWA, "  return p * (dp - delta);",
+          "  return p * dp + 0.f * delta;")],
+        "swa_attention_bwd [1, 4096, 16, 8, 128] W=4096 bfloat16 dq per "
+        "element"),
+    "K6 backward: the dK/dV kernel skips one q tile inside the band": (
+        [(SWA, "      kv_tile_p(sacc, dpacc, pa, dsa, lrow, lrow + B_ROWS, q0, "
+          "ka, kr, cq,\n                window, sl2);",
+          "      kv_tile_p(sacc, dpacc, pa, dsa, lrow, lrow + B_ROWS, q0, "
+          "ka, kr, cq,\n                window, sl2);\n"
+          "      if (n == nqi / 2)\n"
+          "        for (int kk = 0; kk < 16; ++kk)\n"
+          "          pa[kk / 4][kk % 4] = dsa[kk / 4][kk % 4] = 0u;")],
+        "swa_attention_bwd [4, 4096, 16, 8, 128] W=4096 bfloat16 dv per "
+        "element"),
+    "K6 backward: the dQ kernel skips one kv tile inside the band": (
+        [(SWA, "      q_tile_ds(sacc, dpacc, dsa, lrow, drow, lt * B_ROWS, qa, "
+          "r, cq, window,\n                sl2);",
+          "      q_tile_ds(sacc, dpacc, dsa, lrow, drow, lt * B_ROWS, qa, "
+          "r, cq, window,\n                sl2);\n"
+          "      if (lt == lt0 + 1)\n"
+          "        for (int kk = 0; kk < 16; ++kk) dsa[kk / 4][kk % 4] = 0u;")],
+        "swa_attention_bwd [1, 4096, 16, 8, 128] W=4096 bfloat16 dq per "
+        "element"),
     "K3 one vocabulary tile of a split skipped": (
         [(CE, "        fwd_tile(d, n0, a.V, lane, lab, fm, fl, fp);",
           "        if (tile != 1) fwd_tile(d, n0, a.V, lane, lab, fm, fl, "

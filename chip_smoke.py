@@ -23,21 +23,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions and a CNN round, beside each kernel's bound;
 7. LM kernels vs plain: the fused cross-entropy kernels (K3 forward, K4a
    dx, K4b dw; bf16 also at d = 100, which runs zero-padded) and
-   sliding-window attention (K6: the tensor-core kernel in bf16, the
-   CUDA-core one in fp32 and at zamba2-7b's hd = 112 in bf16) against their
-   plain versions at the main path's shapes and at ragged small ones, K3
-   and the bf16 K6 bitwise repeatable, and ``fused_ce_bwd`` at every case
-   bitwise repeatable, bitwise equal to K4a and K4b run alone and so held
-   against the same plain versions;
+   sliding-window attention (K6: the tensor-core kernel in bf16, zamba2-
+   7b's hd = 112 included, the CUDA-core one in fp32; o and its lse)
+   against their plain versions at the main path's shapes and at ragged
+   small ones, K3 and the bf16 K6 bitwise repeatable, ``fused_ce_bwd`` at
+   every case bitwise repeatable, bitwise equal to K4a and K4b run alone
+   and so held against the same plain versions; and K6's backward (the
+   delta, dK/dV and dQ kernels) per element against the plain backward at
+   the Qwen3 shapes, at hd 112 and 64, banded and ragged, bitwise
+   repeatable;
 8. LM main path: CSE-FSL on full-width Qwen3-0.6B (bf16, the kernels on)
-   through ``Trainer.run``, with per-round launch counts of every kernel,
-   finite losses, state on the card and the meter equal to CommProfile;
+   through ``Trainer.run``, with per-round launch counts of every kernel
+   (K6's backward kernels 104 times a round, the plain attention backward
+   no time), finite losses, state on the card and the meter equal to
+   CommProfile;
 9. LM CPU vs card: reduced Qwen3 in fp32, the kernels on the card (the
-   CUDA-core K6) and the plain versions on the CPU, agree over 2 rounds;
+   CUDA-core K6, the plain backward) and the plain versions on the CPU,
+   agree over 2 rounds;
 10. LM times: the kernels and ``fused_ce_bwd``, their plain versions and
    library yardsticks (SDPA with the band mask and, where the window
-   covers the sequence, ``is_causal`` for K6; ``cross_entropy(linear(x,
-   w^T))`` for K3/K4) at the main shapes, the CUDA-core K6 in fp32 at the
+   covers the sequence, ``is_causal`` for K6 and, through autograd, for
+   its backward; ``cross_entropy(linear(x, w^T))`` for K3/K4) at the main
+   shapes and at zamba2-7b's heads, the CUDA-core K6 in fp32 at the
    server's shape, and a main-path round with its device time, idle
    share, top kernels and peak memory;
 11. Mamba kernels vs plain: the selective scan's forward (K5, y and the
@@ -137,6 +144,10 @@ REPLACES = {"quantize_bits": "src/repro/kernels/quantize.py:174",
             "fused_ce_bwd": "src/repro/kernels/fused_ce.py:186",
             "swa_attention": "src/repro/kernels/swa_attention.py:94",
             "swa_attention_tc": "src/repro/kernels/swa_attention.py:94",
+            # no TPU kernel: the JAX package's jax.vjp of its reference
+            "swa_attention_bwd_delta": "src/repro/kernels/ops.py:140",
+            "swa_attention_bwd_dkdv": "src/repro/kernels/ops.py:140",
+            "swa_attention_bwd_dq": "src/repro/kernels/ops.py:140",
             "ssm_scan": "src/repro/kernels/ssm_scan.py:63",
             # no TPU kernel: the JAX package's jax.vjp of selective_scan
             "ssm_scan_bwd": "src/repro/kernels/ops.py:113",
@@ -146,6 +157,9 @@ SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
           "fused_ce_dw": "fused_ce.cu", "fused_ce_bwd": "fused_ce.cu",
           "swa_attention": "swa_attention.cu",
           "swa_attention_tc": "swa_attention.cu",
+          "swa_attention_bwd_delta": "swa_attention.cu",
+          "swa_attention_bwd_dkdv": "swa_attention.cu",
+          "swa_attention_bwd_dq": "swa_attention.cu",
           "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan.cu",
           "ssm_scan_bwd_sum": "ssm_scan.cu"}
 # K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
@@ -153,7 +167,7 @@ SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
 # d = 100 runs zero-padded to 104); K6 cases (B, S, H, KH, hd, W): the main
 # path's and a longer one the window cuts, ragged ones for the tensor-core
 # kernel (S not a multiple of 128, windows that cut the kv tiles, hd = 64),
-# zamba2-7b's attention (hd = 112, the CUDA-core kernel in bf16), then
+# zamba2-7b's attention (hd = 112, on the tensor cores), then
 # tests/test_kernels.py's four in fp32.
 CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((1, 4096, 1024, 151936), torch.bfloat16),
@@ -193,6 +207,21 @@ SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
                                  (1, 256, 4, 2, 32, 64),
                                  (2, 128, 4, 1, 16, 128),
                                  (1, 256, 2, 2, 64, 200))]
+# K6 backward cases (B, S, H, KH, hd, W): the Qwen3 main path's (one server
+# sequence, 4 folded clients), zamba2-7b's heads, a longer sequence the
+# window cuts (W < S), ragged ones (S off the 64- and 128-row tiles,
+# windows that cut them) at hd 128, 64 and 112 with GQA; then the plain
+# backward's routes on the card (bf16 at hd 32, fp32).
+SWA_BWD_CASES = [((1, 4096, 16, 8, 128, 4096), torch.bfloat16),
+                 ((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
+                 ((1, 4096, 32, 32, 112, 4096), torch.bfloat16),
+                 ((1, 8192, 16, 8, 128, 4096), torch.bfloat16),
+                 ((1, 777, 8, 2, 128, 200), torch.bfloat16),
+                 ((2, 1000, 4, 2, 64, 300), torch.bfloat16),
+                 ((1, 1000, 4, 2, 112, 1000), torch.bfloat16),
+                 ((1, 256, 4, 2, 32, 64), torch.bfloat16),
+                 ((1, 256, 2, 2, 64, 200), torch.float32)]
+SWA_GRADS = ("dq", "dk", "dv")
 
 
 def phase(name: str):
@@ -777,38 +806,71 @@ def phase_lm_kernels(dev):
       (~7e-3 at sum w|v| ~ 0.8), so over millions of outputs the worst
       ratio lies several times past 1; chip_mutants.py shows it for a tile
       at the window's edge and one inside.  The fp32 cases (the CUDA-core
-      kernel, fp32 P) keep tests/test_kernels.py's 2e-5.  The CUDA-core
-      kernel in bf16 (zamba2-7b's hd = 112) keeps P in fp32 and rounds only
-      its output, so it meets the same bf16 bound with room.  K6 launches
-      the kernel that swa_attention.kernel_for names, and its bf16 cases
-      give the same bits on two calls.
+      kernel, fp32 P) keep tests/test_kernels.py's 2e-5.  At zamba2-7b's
+      hd = 112 the tensor-core kernel multiplies 16 zero columns more and
+      meets the same bound.  K6 launches the kernel that
+      swa_attention.kernel_for names, and its bf16 cases give the same bits
+      on two calls.  Its lse (base 2) is within 2^-7 of the plain one's in
+      bf16: the kernel's l sums P rounded to bf16, each within 2^-8 of
+      p, so log2 l moves by at most log2(1 + 2^-8) = 0.0056; 1e-4 in fp32.
+    * The K6 backward (bf16, hd 64/112/128: the delta, dK/dV and dQ
+      kernels; swa_attention.bwd_kernel_for) against the plain backward in
+      fp32 on the same inputs, per element: |got - plain| <= 2^-7 |plain|
+      + env, with env from ``swa_bwd_envelopes``: each term of dS = P (dP
+      - delta) may move by A = P (c_ds |dP - delta| + c_delta |delta|' +
+      c_dp |dP|'), where |dP|' = |g| |v|^T and |delta|' = rowsum(P
+      |dP|'); dq's env is A |k| / sqrt(hd), dk's A^T |q| / sqrt(hd), dv's
+      c_dv P^T |g|.  The kernels' P is the plain P times a row factor
+      1 + a, |a| <= 2^-8 (1 + 2^-8): the forward's lse sums P rounded to
+      bf16.  dV's P is rounded to bf16 (2^-8) and dS before dK and dQ
+      (2^-8), so c_dv = c_ds = 2^-7 + 2^-10 (2^-10 for fp32 sums of up to
+      8,192 products, 2^-11 at worst, and second-order terms).  delta =
+      rowsum(g o) takes the forward kernel's bf16 o, whose error is at
+      most (2^-7 + 2^-8 + 2^-11) sum_k P|v| (P's rounding in o and l, o's
+      rounding; the forward bound's derivation), so delta moves by at most
+      that times |delta|': c_delta = 2^-7 + 2^-8 + 2^-9.  dP sums hd <= 128
+      exact products in fp32: c_dp = 2^-14.  The bf16 outputs' rounding,
+      2^-8 |got|, lies within 2^-7 |plain| with room.  dS's rows sum to 0,
+      so at a sequence's first rows a dS without its delta term moves dq
+      by |delta| against c_delta |delta|'; a q tile left out of the dK/dV
+      kernel drops all of one head's terms of the keys near its end;
+      chip_mutants.py shows both caught at main-path shapes.  The
+      delta kernel is within 2^-16 rowsum|g o| of its plain version (fp32
+      sums of at most 128 exact products), the bits of all three outputs
+      repeat on two calls, and the plain backward's routes on the card
+      (fp32, hd 32) are the plain backward bit for bit.
     * K3/K4 at d = 100 (bf16): the wrappers zero-pad x's rows and w's d
       rows to 104 and slice dx and dw back; the case meets the bounds
       above."""
     t0 = phase("7 LM kernels vs plain (fused CE K3/K4a/K4b, SWA K6)")
     err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
-           "fused_ce_bwd": 0.0, "swa_attention": 0.0, "swa_attention_tc": 0.0}
+           "fused_ce_bwd": 0.0, "swa_attention": 0.0, "swa_attention_tc": 0.0,
+           **{n: 0.0 for n in swa.BWD_KERNELS}}
     check_ce(CE_CASES, err, dev)
     for k, ((b, s, h, kh, hd, win), dtype) in enumerate(SWA_CASES):
         q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 100 + k, dev)
         name = swa.kernel_for(dtype, hd)
         tag = f"[{b}, {s}, {h}, {kh}, {hd}] W={win} {str(dtype)[6:]}"
         reset_counts()
-        got = swa.swa_attention_fwd(q, kk, vv, win)
+        got, lse = swa.swa_attention_fwd(q, kk, vv, win)
         sync(dev)
         check(counts() == only(**{name: 1}), f"{name} {tag} launched "
               f"(kernel_for)")
-        want = ref.swa_attention(q, kk, vv, win)
+        want, wlse = ref.swa_attention_fwd(q, kk, vv, win)
         tol = 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels
         e = diff(got, want)
         err[name] = max(err[name], e)
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
               f"{name} {tag} == plain at {tol:g} (max |diff| {e:.3g})")
+        ltol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        check(lse.shape == wlse.shape and diff(lse, wlse) <= ltol,
+              f"{name} {tag} lse (base 2) == plain within {ltol:g} (max "
+              f"|diff| {diff(lse, wlse):.3g})")
         if dtype == torch.bfloat16:
             again = swa.swa_attention_fwd(q, kk, vv, win)
             sync(dev)
-            check(same(got, again), f"{name} {tag} bitwise equal on two "
-                  f"calls")
+            check(same(got, again[0]) and same(lse, again[1]),
+                  f"{name} {tag} bitwise equal o and lse on two calls")
             del want, again
             want = ref.swa_attention(q.float(), kk, vv, win)
             bound = ref.swa_attention(q.float(), kk, vv.abs(), win)
@@ -819,10 +881,106 @@ def phase_lm_kernels(dev):
                   f"|plain fp32| + (2^-7 + 2^-10) sum w|v| (worst "
                   f"|diff|/bound {r:.3g})")
             del bound
-        del q, kk, vv, got, want
+        del q, kk, vv, got, want, lse, wlse
         torch.cuda.empty_cache()
+    check_swa_bwd(SWA_BWD_CASES, err, dev)
     done(t0)
     return err
+
+
+def swa_bwd_envelopes(q, k, v, g, window):
+    """Per element, the error the K6 backward's kernels may make in dq, dk
+    and dv at fp32 q, k, v, g (``phase_lm_kernels`` derives it), head by
+    head: with P the softmax weights, dP = g v^T, delta = rowsum(P dP),
+    |dP|' = |g| |v|^T and |delta|' = rowsum(P |dP|'), each dS term may
+    move by A = P (c_ds |dP - delta| + c_delta |delta|' + c_dp |dP|'), so
+    dq by A |k| / sqrt(hd) and dk by A^T |q| / sqrt(hd); dv by c_dv P^T
+    |g| (the GQA groups summed onto their kv head)."""
+    c = SWA_BWD_C
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    eq = torch.empty_like(q)
+    ek, ev = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(h):
+        j = i // rep
+        p = ref._swa_probs(q[:, :, i:i + 1], k[:, :, j:j + 1], window)[:, 0]
+        ev[:, :, j] += (p.transpose(1, 2) @ g[:, :, i].abs()).mul_(c["dv"])
+        dpa = g[:, :, i].abs() @ v[:, :, j].abs().transpose(1, 2)
+        ds = g[:, :, i] @ v[:, :, j].transpose(1, 2)
+        ds.sub_((p * ds).sum(-1, keepdim=True)).abs_().mul_(c["ds"])
+        ds.add_((p * dpa).sum(-1, keepdim=True), alpha=c["delta"])
+        a = p.mul_(ds.add_(dpa, alpha=c["dp"]))
+        del dpa, ds
+        eq[:, :, i] = (a @ k[:, :, j].abs()).mul_(scale)
+        ek[:, :, j] += (a.transpose(1, 2) @ q[:, :, i].abs()).mul_(scale)
+        del p, a
+    return eq, ek, ev
+
+
+# The K6 backward's per-element bound (see phase_lm_kernels): 2^-7 |plain|
+# (the bf16 outputs) plus ``swa_bwd_envelopes``, whose coefficients these
+# are: dS's rounding and the lse's row factor (c_ds), the saved o's error
+# through delta (c_delta), dP's fp32 sums (c_dp), and dv's (c_dv).
+SWA_BWD_C = {"ds": 2.0 ** -7 + 2.0 ** -10,
+             "delta": 2.0 ** -7 + 2.0 ** -8 + 2.0 ** -9,
+             "dp": 2.0 ** -14,
+             "dv": 2.0 ** -7 + 2.0 ** -10}
+
+
+def check_swa_bwd(cases, err, dev):
+    """The K6 backward at ``cases`` against the plain backward in fp32
+    (``phase_lm_kernels`` states the bounds); the largest differences go
+    into ``err``."""
+    for k, ((b, s, h, kh, hd, win), dtype) in enumerate(cases):
+        q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 400 + k, dev)
+        g = swa_inputs(b, s, h, kh, hd, dtype, 500 + k, dev)[0]
+        tag = f"[{b}, {s}, {h}, {kh}, {hd}] W={win} {str(dtype)[6:]}"
+        names = swa.bwd_kernel_for(dtype, hd)
+        o, lse = swa.swa_attention_fwd(q, kk, vv, win)
+        reset_counts()
+        grads = swa.swa_attention_bwd(q, kk, vv, o, lse, g, win)
+        sync(dev)
+        check(counts() == only(**{n: 1 for n in names}),
+              f"swa_attention_bwd {tag} launched {names} (bwd_kernel_for)")
+        if names == (swa.BWD_PLAIN,):
+            want = ref.swa_attention_bwd(q, kk, vv, g, win)
+            check(all(same(x, y) for x, y in zip(grads, want)),
+                  f"swa_attention_bwd {tag} is the plain backward, bitwise")
+            continue
+        delta = swa._bwd_delta(o, g)
+        wdelta = ref.swa_attention_bwd_delta(o, g)
+        bound = ref.swa_attention_bwd_delta(o.abs(), g.abs()).mul_(2.0 ** -16)
+        r = worst_ratio(delta, wdelta, bound.clamp_min_(1e-30))
+        err["swa_attention_bwd_delta"] = max(
+            err["swa_attention_bwd_delta"], diff(delta, wdelta))
+        check(r <= 1.0, f"swa_attention_bwd_delta {tag} within 2^-16 "
+              f"rowsum|g o| (worst |diff|/bound {r:.3g})")
+        del delta, wdelta, bound
+        again = swa.swa_attention_bwd(q, kk, vv, o, lse, g, win)
+        sync(dev)
+        check(all(same(x, y) for x, y in zip(grads, again)),
+              f"swa_attention_bwd {tag} bitwise equal dq, dk, dv on two "
+              f"calls")
+        del again, o, lse
+        f = [t.float() for t in (q, kk, vv, g)]
+        wants = ref.swa_attention_bwd(*f, win)
+        envs = swa_bwd_envelopes(*f, win)
+        del f
+        for i, name in enumerate(SWA_GRADS):
+            got, want, env = grads[i], wants[i], envs[i]
+            kern = "swa_attention_bwd_dq" if name == "dq" \
+                else "swa_attention_bwd_dkdv"
+            err[kern] = max(err[kern], diff(got, want))
+            r = worst_ratio(got, want, env.add_(want.abs(), alpha=2.0 ** -7)
+                            .clamp_min_(1e-30))
+            check(got.dtype == dtype and got.shape == want.shape
+                  and r <= 1.0,
+                  f"swa_attention_bwd {tag} {name} per element within "
+                  f"2^-7 |plain fp32| + its envelope (max |diff| "
+                  f"{diff(got, want):.3g}; worst |diff|/bound {r:.3g})")
+        del q, kk, vv, g, grads, wants, envs
+        torch.cuda.empty_cache()
 
 
 def lm_cfg():
@@ -840,9 +998,19 @@ def phase_lm_main(dev):
     cm = cost_model(bundle, LM_N, LM_SAMPLES)
     tr = Trainer(bundle, fsl)
     torch.cuda.reset_peak_memory_stats(dev)
-    state, hist, meter, launches, per_round = drive(
-        tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
-        "qwen3-0.6b int8", LM_ROUNDS, LM_B)
+    plain_bwd, plain_calls = ref.swa_attention_bwd, []
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain_bwd(*a, **kw)
+
+    ref.swa_attention_bwd = counted
+    try:
+        state, hist, meter, launches, per_round = drive(
+            tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm,
+            "qwen3-0.6b int8", LM_ROUNDS, LM_B)
+    finally:
+        ref.swa_attention_bwd = plain_bwd
     peak = torch.cuda.max_memory_allocated(dev)
     cut = cfg.resolved_cut
     # one fused_ce_fwd and one fused_ce_bwd (a P pass, the dx and the dw
@@ -850,13 +1018,22 @@ def phase_lm_main(dev):
     heads = LM_H + LM_N
     # K6 (bf16, hd = 128: the tensor-core kernel) once per client layer a
     # client step (vmapped: h steps and the smashed pass) and once per
-    # server layer a server update
+    # server layer a server update; its backward (the delta, dK/dV and dQ
+    # kernels) once per client layer a client step and per server layer an
+    # update
+    bwd = cut * LM_H + (cfg.num_layers - cut) * LM_N
     want = only(quantize_philox=1, fused_ce_fwd=heads, fused_ce_dx=heads,
                 fused_ce_dw=heads, fused_ce_p=heads,
                 swa_attention_tc=cut * (LM_H + 1)
-                + (cfg.num_layers - cut) * LM_N)
+                + (cfg.num_layers - cut) * LM_N,
+                **{n: bwd for n in swa.BWD_KERNELS})
+    check(bwd == 104, f"{bwd} == 104 attention backward calls a round "
+          f"({cut} client layers x h = {LM_H}, {cfg.num_layers - cut} server "
+          f"layers x n = {LM_N})")
     for i, c in enumerate(per_round):
         check(c == want, f"round {i + 1} launches {c} == {want}")
+    check(not plain_calls, "the plain attention backward "
+          "(ref.swa_attention_bwd) ran no time on the main path")
     wire = LM_S * cfg.d_model + (LM_S // 8) * (cfg.d_model // 128) * 4
     check(wire == 4_210_688 and meter.counts["uplink_smashed"]
           == LM_ROUNDS * LM_N * wire,
@@ -887,22 +1064,110 @@ def phase_lm_cpu_vs(dev):
     check(sum(runs["cpu"].values()) == 0, "CPU run launched no kernel")
     check(all(runs[str(dev)][k] > 0 for k in (
         "quantize_philox", "fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
-        "swa_attention")) and runs[str(dev)]["swa_attention_tc"] == 0,
-          f"card run launched every LM kernel, fp32 K6 on the CUDA cores: "
-          f"{runs[str(dev)]}")
+        "swa_attention", swa.BWD_PLAIN)) and not any(
+            runs[str(dev)][k] for k in ("swa_attention_tc",)
+            + swa.BWD_KERNELS),
+          f"card run launched every LM kernel, fp32 K6 on the CUDA cores "
+          f"and its backward plain (bwd_kernel_for): {runs[str(dev)]}")
     compare_rounds(hists, dev, 1e-3)
     done(t0)
     return runs[str(dev)]
 
 
+def sdpa_ms(q, k, v, win, dev, backward=False) -> dict:
+    """SDPA's time on [B, H, S, hd] copies of q, k, v with GQA: with the
+    band mask and, where the window covers the sequence, ``is_causal``.
+    ``backward``: the backward's time, through autograd (the forward and
+    backward under one ``autograd.grad``, less the forward alone with
+    inputs that require grad)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = q.shape[1]
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(backward)
+                  for a in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    kws = {"band": {"attn_mask": band}}
+    if win >= s:                 # the band is plain causal attention
+        kws["causal"] = {"is_causal": True}
+    out = {}
+    for key, kw in kws.items():
+        def fwd(kw=kw):
+            return sdpa(qt, kt, vt, enable_gqa=True, **kw)
+        t_fwd = event_ms(fwd, reps=5, inner=3, warm=2)
+        if backward:
+            go = torch.randn_like(qt)
+            t_both = event_ms(lambda: torch.autograd.grad(
+                fwd(), (qt, kt, vt), go), reps=5, inner=3, warm=2)
+            out[key] = t_both - t_fwd
+        else:
+            out[key] = t_fwd
+    return out
+
+
+def time_swa_bwd(b, hh, kh, hd, win, launches, err, dev) -> dict:
+    """The K6 backward's three kernels at ``[b, LM_S, hh, kh, hd]`` in bf16,
+    each alone (``swa_attention._bwd_delta`` / ``_bwd_dkdv`` /
+    ``_bwd_dq``), with its bound; the dK/dV record also carries the whole
+    backward call (``call``: device and call time, the plain backward, the
+    5-product bound and SDPA's backward).  The dK/dV and dQ records' plain
+    time is the whole plain backward's."""
+    s = LM_S
+    q, k, v = swa_inputs(b, s, hh, kh, hd, torch.bfloat16, 9, dev)
+    g = swa_inputs(b, s, hh, kh, hd, torch.bfloat16, 10, dev)[0]
+    o, lse = swa.swa_attention_fwd(q, k, v, win)
+    delta = swa._bwd_delta(o, g)
+    pairs = sum(min(i + 1, win) for i in range(s))
+    mm = 2 * hd * hh * b * pairs              # flops of one product
+    eq, ek, rows = 2 * q.numel(), 2 * k.numel(), 4 * b * hh * s
+    work = {"swa_attention_bwd_delta": (2 * eq + rows, 2 * q.numel(),
+                                        FP32_OPS),
+            "swa_attention_bwd_dkdv": (2 * eq + 2 * ek + 2 * rows + 2 * ek,
+                                       4 * mm, BF16_OPS),
+            "swa_attention_bwd_dq": (2 * eq + 2 * ek + 2 * rows + eq,
+                                     3 * mm, BF16_OPS)}
+    run = {"swa_attention_bwd_delta": lambda: swa._bwd_delta(o, g),
+           "swa_attention_bwd_dkdv": lambda: swa._bwd_dkdv(q, k, v, g, lse,
+                                                           delta, win),
+           "swa_attention_bwd_dq": lambda: swa._bwd_dq(q, k, v, g, lse,
+                                                       delta, win)}
+    call = lambda: swa.swa_attention_bwd(q, k, v, o, lse, g, win)  # noqa
+    plain_ms = event_ms(lambda: ref.swa_attention_bwd(q, k, v, g, win),
+                        reps=3, inner=1, warm=1)
+    torch.cuda.empty_cache()
+    lib = sdpa_ms(q, k, v, win, dev, backward=True)
+    torch.cuda.empty_cache()
+    shape = [b, s, hh, kh, hd, win]
+    out = {}
+    for name, fn in run.items():
+        io, ops, peak = work[name]
+        out[name] = record(
+            name, launches[name], err[name], graph_ms(fn, reps=5, inner=5),
+            event_ms(fn, reps=5, inner=5),
+            event_ms(lambda: ref.swa_attention_bwd_delta(o, g), reps=5,
+                     inner=5) if name == "swa_attention_bwd_delta"
+            else plain_ms, io, ops, peak, shape=shape)
+    call_io = 3 * eq + 2 * ek + rows + eq + 2 * ek
+    out["swa_attention_bwd_dkdv"]["call"] = {
+        "ms": graph_ms(call, reps=5, inner=5),
+        "eager_ms": event_ms(call, reps=5, inner=5), "plain_ms": plain_ms,
+        "bound_ms": max(call_io / HBM_BPS, 5 * mm / BF16_OPS) * 1e3,
+        "library_ms": min(lib.values()), "library_band_ms": lib["band"],
+        "library_causal_ms": lib.get("causal"),
+        "library": "SDPA backward: autograd.grad of forward + backward, "
+                   "less the forward"}
+    return out
+
+
 def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                    peak):
-    """Phase 10: K3/K4a/K4b/K6 and a main-path round, timed.  The bf16 K6
-    (the tensor-core kernel) at the server's and the 4 folded clients'
-    shapes, the CUDA-core K6 at the server's in fp32 (its launches are
-    phase 9's, ``fp32_launches``; its bound at the fp32 rate) and in bf16
-    at zamba2-7b's heads (32 of width 112; no path here runs zamba2,
-    so its record sits beside the fp32 one)."""
+    """Phase 10: K3/K4a/K4b/K6, K6's backward and a main-path round,
+    timed.  The bf16 K6 (the tensor-core kernel) at the server's and the 4
+    folded clients' shapes and at zamba2-7b's heads (32 of width 112; no
+    path here runs zamba2, so its record sits beside the server's), the
+    CUDA-core K6 at the server's in fp32 (its launches are phase 9's,
+    ``fp32_launches``; its bound at the fp32 rate); the backward's three
+    kernels and the whole backward call at the same bf16 shapes, beside
+    SDPA's backward."""
     t0 = phase("10 LM times (CUDA events, medians)")
     ce_times = time_ce({"server": (1, LM_S, 1024, 151936),
                         "aux": (LM_N, LM_S, 128, 151936)},
@@ -914,32 +1179,23 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
             "library_ms")}
         records.append(rec)
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     win = 4096
     # (tag, B, dtype, H, KH, hd): Qwen3's server and folded clients, the
-    # CUDA-core kernel in fp32 there, and at zamba2-7b's heads in bf16
+    # CUDA-core kernel in fp32 there, and zamba2-7b's heads in bf16
     cases = (("server", 1, torch.bfloat16, 16, 8, 128),
              ("client", LM_N, torch.bfloat16, 16, 8, 128),
              ("fp32", 1, torch.float32, 16, 8, 128),
              ("zamba2", 1, torch.bfloat16, 32, 32, 112))
+    by_name = {}
     for tag, b, dtype, hh, kh, hd in cases:
         s = LM_S
         name = swa.kernel_for(dtype, hd)
         q, k, v = swa_inputs(b, s, hh, kh, hd, dtype, 9, dev)
         pairs = sum(min(i + 1, win) for i in range(s))
         flops = 4 * hd * hh * b * pairs
-        io = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        pos = torch.arange(s, device=dev)
-        band = (pos[None, :] <= pos[:, None]) \
-            & (pos[None, :] > pos[:, None] - win)
-        lib = {"band": event_ms(lambda: sdpa(qt, kt, vt, attn_mask=band,
-                                             enable_gqa=True),
-                                reps=5, inner=3, warm=2)}
-        if win >= s:            # the band is plain causal attention
-            lib["causal"] = event_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True),
-                                     reps=5, inner=3, warm=2)
+        io = q.element_size() * (2 * q.numel() + 2 * k.numel()) \
+            + 4 * b * hh * s
+        lib = sdpa_ms(q, k, v, win, dev)
         fp32 = dtype == torch.float32
         cuda_core = name == "swa_attention"
         rec = record(name, fp32_launches[name] if cuda_core else
@@ -968,14 +1224,44 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                  else "n/a (W < S)")
               + f"; {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
               f"{rec['bound_ms'] / rec['ms']:.4f} of the bound")
-        if tag in ("client", "zamba2"):      # beside the kernel's record
-            records[-1][tag] = {k_: rec[k_] for k_ in (
+        if name in by_name:             # beside the kernel's record
+            by_name[name][tag] = {k_: rec[k_] for k_ in (
                 "shape", "dtype", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "library_ms", "library_band_ms", "library_causal_ms")}
         else:
+            by_name[name] = rec
             records.append(rec)
-        del q, k, v, qt, kt, vt, band
+        del q, k, v
         torch.cuda.empty_cache()
+
+    bwd = {}
+    for tag, b, hh, kh, hd in (("server", 1, 16, 8, 128),
+                               ("client", LM_N, 16, 8, 128),
+                               ("zamba2", 1, 32, 32, 112)):
+        for name, rec in time_swa_bwd(b, hh, kh, hd, win, launches, err,
+                                      dev).items():
+            print(f"  [{tag}]", end="")
+            print_record(rec)
+            if "call" in rec:
+                c = rec["call"]
+                print(f"    whole backward call: {c['ms'] * 1e3:.3f} us on "
+                      f"device, {c['eager_ms'] * 1e3:.3f} us a call, plain "
+                      f"{c['plain_ms'] * 1e3:.3f} us, bound "
+                      f"{c['bound_ms'] * 1e3:.3f} us (5 products), "
+                      f"{c['bound_ms'] / c['ms']:.4f} of it; SDPA backward "
+                      f"(autograd, its forward taken off) "
+                      f"{c['library_ms'] * 1e3:.3f} us (band "
+                      f"{c['library_band_ms'] * 1e3:.3f}, is_causal "
+                      + (f"{c['library_causal_ms'] * 1e3:.3f})"
+                         if c["library_causal_ms"] is not None else "n/a)"))
+            if name in bwd:
+                bwd[name][tag] = {k_: rec[k_] for k_ in (
+                    "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "call") if k_ in rec}
+            else:
+                bwd[name] = rec
+        torch.cuda.empty_cache()
+    records += list(bwd.values())
 
     batch = tr.to_device(LMBatcher(lm_cfg(), fed, LM_B, LM_H,
                                    seed=1).next_round())

@@ -39,10 +39,11 @@ SIGNATURES = {
                          _I, _L, _L, _I, _I, _P],
     },
     "swa_attention": {
-        "swa_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _P],
-        "swa_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _P],
+        "swa_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "swa_attention_tc": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "swa_bwd_delta": [_P] * 3 + [_I] * 4 + [_P],
+        "swa_bwd_dkdv": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "swa_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
     },
     "ssm_scan": {
         "ssm_scan_fwd": [_P] * 9 + [_I] * 6 + [_P],

@@ -3,9 +3,12 @@
   - ``fused_ce(x [T,d], w [d,V], labels [T])``: mean cross-entropy of
     ``x @ w``; kernels forward (K3) AND backward (K4a dx, K4b dw).
   - ``swa_attention(q, k, v, window)``: sliding-window causal attention;
-    kernel forward (K6); the backward recomputes in plain tensor ops from
-    q, k, v (``ref.swa_attention_bwd``), as the JAX package's backward
-    recomputes through its reference.
+    kernels forward (K6, which also saves each row's log-sum-exp) and, in
+    bf16, backward (``swa_attention.swa_attention_bwd``: delta, dK/dV and
+    dQ kernels recomputing P per tile from that lse), where the JAX
+    package's backward recomputes through its reference.  On the CPU, and
+    on the card for fp32 or hd 16/32, the backward is the plain
+    ``ref.swa_attention_bwd``.
   - ``ssm_scan(u, dt, a, b, c, d, chunk)``: the Mamba-1 selective scan;
     kernels forward (K5, which also saves the state every
     ``ssm_scan.CHUNK`` steps) and backward (``ssm_scan.ssm_scan_bwd``,
@@ -128,14 +131,15 @@ def fused_ce(x, w, labels):
 
 
 class SWAttentionBwd(torch.autograd.Function):
-    """``(dq, dk, dv)`` of the sliding-window attention, recomputed in
-    plain tensor ops.  A Function of its own so that ``torch.func.grad``
-    (which differentiates with ``create_graph=True``) records none of its
-    ``[B,H,S,S]`` temporaries."""
+    """``(dq, dk, dv)`` of the sliding-window attention from q, k, v, the
+    forward's output and lse.  A Function of its own so that
+    ``torch.func.grad`` (which differentiates with ``create_graph=True``)
+    records none of it (the plain backward's ``[B,H,S,S]`` temporaries
+    included)."""
 
     @staticmethod
-    def forward(q, k, v, g, window):
-        return ref.swa_attention_bwd(q, k, v, g, window)
+    def forward(q, k, v, o, lse, g, window):
+        return _swa.swa_attention_bwd(q, k, v, o, lse, g, window)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -146,14 +150,18 @@ class SWAttentionBwd(torch.autograd.Function):
         raise RuntimeError("swa_attention has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, g, window):
+    def vmap(info, in_dims, q, k, v, o, lse, g, window):
         n = info.batch_size
         out = SWAttentionBwd.apply(*(_fold(t, d, n) for t, d in
-                                     zip((q, k, v, g), in_dims[:4])), window)
+                                     zip((q, k, v, o, lse, g), in_dims[:6])),
+                                   window)
         return tuple(_unfold(t, n) for t in out), (0, 0, 0)
 
 
 class SWAttention(torch.autograd.Function):
+    """q [B,S,H,hd], k, v [B,S,KH,hd] -> ``(o [B,S,H,hd], lse [B,H,S])``;
+    ``lse`` (fp32, base 2) is the saved residual."""
+
     @staticmethod
     def forward(q, k, v, window):
         return _swa.swa_attention_fwd(q.contiguous(), k.contiguous(),
@@ -162,25 +170,26 @@ class SWAttention(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, window = inputs
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, *output)
+        ctx.mark_non_differentiable(output[1])
         ctx.window = window
 
     @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        return (*SWAttentionBwd.apply(q, k, v, g, ctx.window), None)
+    def backward(ctx, g, glse):
+        return (*SWAttentionBwd.apply(*ctx.saved_tensors, g, ctx.window),
+                None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, window):
         n = info.batch_size
-        out = SWAttention.apply(*(_fold(t, d, n) for t, d in
-                                  zip((q, k, v), in_dims[:3])), window)
-        return _unfold(out, n), 0
+        o, lse = SWAttention.apply(*(_fold(t, d, n) for t, d in
+                                     zip((q, k, v), in_dims[:3])), window)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
 
 
 def swa_attention(q, k, v, window: int):
     """Sliding-window causal attention.  q: [B,S,H,hd]; k,v: [B,S,KH,hd]."""
-    return SWAttention.apply(q, k, v, window)
+    return SWAttention.apply(q, k, v, window)[0]
 
 
 # ---------------------------------------------------------------------------

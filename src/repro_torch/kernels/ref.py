@@ -3,8 +3,10 @@
 ``fused_ce*`` (the LM-head cross-entropy, K3/K4a/K4b) and
 ``swa_attention`` (K6) compute with materialized fp32 logits and scores, as
 ``repro.kernels.ref`` does; ``fused_ce_fwd``/``fused_ce_bwd`` have the CUDA
-kernels' grouped signatures and ``swa_attention_bwd`` is the backward every
-device runs (the JAX package has no backward kernel for K6 either).
+kernels' grouped signatures, ``swa_attention_fwd`` also gives the rows'
+base-2 log-sum-exp the CUDA kernels save, and ``swa_attention_bwd`` is the
+plain backward (the JAX package has no backward kernel for K6; on the
+card bf16 runs kernels instead).
 ``ssm_scan`` (the Mamba-1 scan, K5) steps through time as
 ``repro.kernels.ref.ssm_scan`` does, with K5's grouped ``a``/``d``;
 ``ssm_scan_bwd`` is its backward on every device, chunk by chunk.
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 BT, BC = 8, 128                  # wire tile; one fp32 scale per tile
 INT8_MAX = 127.0
 FP8_MAX = 448.0                  # float8_e4m3fn largest finite value
+LOG2E = 1.4426950408889634       # log2(e): the attention kernels' lse base
 _MANTISSA_DROP = 20              # fp32 (23) -> e4m3 (3) mantissa bits
 _SCALE_FLOOR = 1e-12             # all-zero tiles: keep scale finite
 _M32 = 0xFFFFFFFF
@@ -245,9 +248,9 @@ def fused_ce_bwd(x, w, labels, lse, g):
 # ---------------------------------------------------------------------------
 
 
-def _swa_probs(q, k, window: int):
-    """Softmax weights ``[B,H,S,S]`` fp32 of causal attention restricted to
-    the trailing ``window`` positions (0 = no window)."""
+def _swa_scores(q, k, window: int):
+    """Scaled scores ``[B,H,S,S]`` fp32 of causal attention restricted to
+    the trailing ``window`` positions (0 = no window), -inf where masked."""
     b, s, h, hd = q.shape
     rep = h // k.shape[2]
     k = k.repeat_interleave(rep, dim=2) if rep > 1 else k
@@ -258,7 +261,12 @@ def _swa_probs(q, k, window: int):
     mask = kp <= qp
     if window:
         mask &= kp > qp - window
-    return torch.softmax(scores.masked_fill_(~mask, float("-inf")), dim=-1)
+    return scores.masked_fill_(~mask, float("-inf"))
+
+
+def _swa_probs(q, k, window: int):
+    """Softmax weights ``[B,H,S,S]`` fp32 of :func:`_swa_scores`."""
+    return torch.softmax(_swa_scores(q, k, window), dim=-1)
 
 
 def swa_attention(q, k, v, window: int):
@@ -268,6 +276,25 @@ def swa_attention(q, k, v, window: int):
     v = v.repeat_interleave(rep, dim=2) if rep > 1 else v
     wts = _swa_probs(q, k, window)
     return torch.einsum("bhqk,bkhd->bqhd", wts, v.float()).to(q.dtype)
+
+
+def swa_attention_fwd(q, k, v, window: int):
+    """``(o, lse)``: :func:`swa_attention` and each row's log-sum-exp
+    ``[B,H,S]`` fp32 in base 2 of the scaled scores, ``log2 sum_k
+    2^(s_k log2(e) / sqrt(hd))``, the residual the backward kernels
+    recompute P from."""
+    rep = q.shape[2] // k.shape[2]
+    v = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    scores = _swa_scores(q, k, window)
+    lse = torch.logsumexp(scores, dim=-1).mul_(LOG2E)
+    wts = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", wts, v.float()).to(q.dtype), lse
+
+
+def swa_attention_bwd_delta(o, g):
+    """``rowsum(g o)`` ``[B,H,S]`` fp32 of output ``o`` and cotangent
+    ``g`` ``[B,S,H,hd]``: the backward kernels' first step."""
+    return (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def swa_attention_bwd(q, k, v, g, window: int):
