@@ -68,7 +68,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused CE kernels beside their bounds, plain versions and library
    yardsticks, at the server's and the folded clients' shapes, and a
    main-path round with its device time, idle share, top kernels and peak
-   memory.
+   memory;
+15. CNN baselines: FSL_MC, FSL_OC and FSL_AN on the full-width CIFAR-10
+   CNN through ``Trainer.run`` (int8 up, and down for the blocking two),
+   with K2 launched once per coded channel a unit and no other kernel, the
+   meter (downlink included) equal to CommProfile and the unit counter;
+   FSL_AN again with the ``topk`` uplink (no kernel);
+16. CNN baselines CPU vs card: the first 2 rounds of each, unit by unit
+   from the CPU's states with the same Philox bits on both wires: the
+   card's losses and updates agree with the CPU's, and so do, hook by hook
+   from the CPU's inputs, its coding (bitwise), smashed data, replies and
+   updates;
+17. Qwen3 baselines: FSL_OC on full-width Qwen3-0.6B and FSL_MC on it cut
+   to 20 layers (bf16, the kernels on, int8 up and down) through
+   ``Trainer.run``, with per-round launch counts derived from the hooks
+   (the server's input gradient and the clients' vjp through K3, K4 and
+   K6's backward; the plain attention backward never called), the meter
+   and the peak device memory;
+18. baseline times: a round of each baseline path with its device time
+   and idle share, and K2 at the Qwen3 wire shape beside its bound.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -95,11 +113,13 @@ import torch  # noqa: E402
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.common import bytes_of, tree_leaves  # noqa: E402
+from repro_torch.common import bytes_of, tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.base import FSLConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.accounting import CommMeter, CostModel  # noqa: E402
 from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
+from repro_torch.core.methods import get_method  # noqa: E402
+from repro_torch.core.methods.base import stacked_keys  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
                               synthetic_classification)
@@ -110,7 +130,8 @@ from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
 from repro_torch.launch.train import LMBatcher, build_data  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
-from repro_torch.transport import Int8Codec, Transport  # noqa: E402
+from repro_torch.transport import (Int8Codec, Transport,  # noqa: E402
+                                   make_transport)
 
 # CNN main path (benchmarks/fig9_codec_tradeoff.py): CIFAR-10 CNN, 4
 # clients, h=5, B=24, lr=0.15, sgd, int8 uplink -> smashed [24, 6, 6, 64].
@@ -127,6 +148,20 @@ LM_N, LM_H, LM_B, LM_S, LM_LR, LM_ROUNDS, LM_SAMPLES = 4, 2, 1, 4096, 0.1, 3, 8
 # no remat, and torch.func.grad's create_graph=True keeping every
 # backward temporary until the backward ends) does not fit in 80 GB.
 MB_LAYERS, MB_S = 16, 2048
+# The baselines (FSL_MC, FSL_OC, FSL_AN): the CNN path's setup and data for
+# 3 rounds each, int8 on the uplink and, for the blocking methods, on the
+# gradient downlink; the Qwen3 paths take the LM path's setup for 2 rounds,
+# FSL_OC at full depth and FSL_MC cut to 20 layers (4 client, 16 server):
+# its 4 server replicas' saved activations (no remat) run out of the card's
+# 79.18 GiB at 28 and at 24 layers; 20 peak at 68.0 GiB.
+BASELINES, BL_ROUNDS, BL_LM_ROUNDS = ("fsl_mc", "fsl_oc", "fsl_an"), 3, 2
+BL_LM_PATHS = (("fsl_oc", None), ("fsl_mc", 20))     # (method, layers)
+# Phase 16's bounds on the card against the CPU, relative in 2-norm: a
+# unit's update (each state key's params) and, hook by hook from the same
+# inputs, the smashed data, the replies and each update.  On an H100 the
+# sound runs read up to 0.0558 and 7.0e-4; a skipped, zeroed or misrouted
+# update reads about 1.
+UNIT_RTOL, HOOK_RTOL = 0.2, 3e-3
 # H100 SXM published peaks (NVIDIA data sheet): HBM 3.35 TB/s, bf16 tensor
 # cores 989 TFLOP/s, fp32 outside the tensor cores 67 TFLOP/s; int32 at
 # half that (64 INT32 lanes per SM beside 128 FP32, Hopper white paper);
@@ -162,15 +197,17 @@ SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
           "swa_attention_bwd_dq": "swa_attention.cu",
           "ssm_scan": "ssm_scan.cu", "ssm_scan_bwd": "ssm_scan.cu",
           "ssm_scan_bwd_sum": "ssm_scan.cu"}
-# K3/K4 cases (G, T, d, V): the aux head's and the server head's, then
-# ragged ones in both dtypes (bf16 and fp32 take different kernels; bf16 at
-# d = 100 runs zero-padded to 104); K6 cases (B, S, H, KH, hd, W): the main
+# K3/K4 cases (G, T, d, V): the aux head's, the server head's and FSL_MC's
+# four server replicas' heads folded into one call, then ragged ones in
+# both dtypes (bf16 and fp32 take different kernels; bf16 at d = 100 runs
+# zero-padded to 104); K6 cases (B, S, H, KH, hd, W): the main
 # path's and a longer one the window cuts, ragged ones for the tensor-core
 # kernel (S not a multiple of 128, windows that cut the kv tiles, hd = 64),
 # zamba2-7b's attention (hd = 112, on the tensor cores), then
 # tests/test_kernels.py's four in fp32.
 CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((1, 4096, 1024, 151936), torch.bfloat16),
+            ((4, 4096, 1024, 151936), torch.bfloat16),
             ((2, 100, 72, 1000), torch.bfloat16),
             ((3, 37, 16, 130), torch.bfloat16),
             ((2, 100, 100, 1000), torch.bfloat16),
@@ -423,6 +460,12 @@ def phase_kernels(dev: torch.device):
     return err
 
 
+def metric_keys(row) -> list:
+    """The method's metric names in a history row (CSE-FSL and FSL_AN:
+    client_loss, server_loss; FSL_MC and FSL_OC: loss)."""
+    return [k for k in row if k not in ("round", "aggregated", "comm_bytes")]
+
+
 def drive(tr, make_batcher, cm, tag, rounds, batch_size):
     """``Trainer.run`` for ``rounds`` rounds with the launch counts set to 0
     just before and read just after (and after every round); checks losses,
@@ -447,20 +490,20 @@ def drive(tr, make_batcher, cm, tag, rounds, batch_size):
     print(f"  [{tag}] {rounds} rounds in {dt:.3f} s; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     for row in hist:
-        print(f"    round {row['round']:2d} client_loss "
-              f"{row['client_loss']:.6f} server_loss "
-              f"{row['server_loss']:.6f} aggregated {row['aggregated']}")
+        print(f"    round {row['round']:2d} " + " ".join(
+            f"{k} {row[k]:.6f}" for k in metric_keys(row))
+            + f" aggregated {row['aggregated']}")
     check(all(math.isfinite(row[k]) for row in hist
-              for k in ("client_loss", "server_loss")),
+              for k in metric_keys(row)),
           f"[{tag}] losses finite")
     check(all(t.device.type == torch.device(dev).type
-              for t in tree_leaves(state["server"]["params"])
-              + tree_leaves(state["clients"]["params"])),
+              for k in sorted(state) if k != "round"
+              for t in tree_leaves(state[k]["params"])),
           f"[{tag}] state stayed on {dev}")
     prof = tr.comm_profile(cm, batch_size, batch=batcher.next_round())
     want = {"uplink_smashed": rounds * prof.wire_uplink_smashed,
             "uplink_labels": rounds * prof.uplink_labels,
-            "downlink_grads": 0,
+            "downlink_grads": rounds * prof.wire_downlink_grads,
             "model_sync": sum(r["aggregated"] for r in hist)
             * prof.wire_model_sync}
     want["total"] = sum(want.values())
@@ -515,7 +558,7 @@ def phase_main(dev: torch.device):
 
 def compare_rounds(hists, dev, rtol):
     for rc, rg in zip(hists["cpu"], hists[str(dev)]):
-        for k in ("client_loss", "server_loss"):
+        for k in metric_keys(rc):
             print(f"    round {rc['round']} {k}: cpu {rc[k]:.7f} "
                   f"{dev} {rg[k]:.7f}")
             check(math.isclose(rc[k], rg[k], rel_tol=rtol),
@@ -1732,6 +1775,390 @@ def phase_mamba_times(dev, err, launches, lm_records, tr, state, fed, peak):
                                  "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# The baselines: FSL_MC, FSL_OC, FSL_AN
+# ---------------------------------------------------------------------------
+
+
+def baseline_transport(method: str, uplink: str = "int8") -> Transport:
+    """``uplink`` up; int8 down for the blocking methods (gradient
+    download), nothing down for FSL_AN."""
+    return make_transport(uplink, "int8" if get_method(method)
+                          .downloads_gradients else "none")
+
+
+def baseline_fsl(method: str, lm: bool = False) -> FSLConfig:
+    if lm:
+        return FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, method=method)
+    return FSLConfig(num_clients=N, h=H, lr=LR, method=method)
+
+
+def phase_baselines(dev, fed):
+    """Phase 15: FSL_MC, FSL_OC and FSL_AN on the full-width CIFAR-10 CNN
+    through Trainer.run, int8 up (and down for the blocking two): K2 once
+    per coded channel a unit, the meter, the unit counter; then FSL_AN with
+    the topk uplink (no kernel).  Returns each path's trainer, state and
+    launch counts."""
+    t0 = phase("15 CNN baselines: FSL_MC, FSL_OC, FSL_AN, CIFAR-10 CNN full "
+               "width, Trainer.run")
+    bundle = cnn_bundle(CIFAR10, device=dev)
+    cm = cost_model(bundle, N, SAMPLES // N)
+    wire = 55_728                       # int8 [24, 6, 6, 64] per client unit
+    out = {}
+    for method in BASELINES:
+        blocking = get_method(method).downloads_gradients
+        tr = Trainer(bundle, baseline_fsl(method),
+                     transport=baseline_transport(method))
+        state, hist, meter, launches, per_round = drive(
+            tr, lambda: FederatedBatcher(fed, B, H, seed=0), cm,
+            f"{method} int8", BL_ROUNDS, B)
+        k2 = (2 if blocking else 1) * H
+        for i, c in enumerate(per_round):
+            check(c == only(quantize_philox=k2),
+                  f"{method} round {i + 1}: quantize_philox {k2} times "
+                  f"(h = {H} units x {2 if blocking else 1} coded "
+                  f"channel(s)), no other kernel")
+        up = BL_ROUNDS * N * H * wire
+        check(meter.counts["uplink_smashed"] == up
+              and meter.counts["downlink_grads"] == (up if blocking else 0),
+              f"{method} int8 uplink = {BL_ROUNDS} rounds x {N} clients x "
+              f"{H} units x 55,728 B, downlink "
+              + ("the same" if blocking else "0"))
+        check(state["round"] == BL_ROUNDS * H,
+              f"{method} state['round'] = {BL_ROUNDS} rounds x h = "
+              f"{BL_ROUNDS * H} units")
+        out[method] = {"trainer": tr, "state": state, "launches": launches}
+    tr = Trainer(bundle, baseline_fsl("fsl_an"),
+                 transport=baseline_transport("fsl_an", "topk"))
+    _, _, meter, launches, _ = drive(
+        tr, lambda: FederatedBatcher(fed, B, H, seed=0), cm, "fsl_an topk",
+        2, B)
+    check(launches == only(), "fsl_an topk: no kernel launched")
+    check(meter.counts["uplink_smashed"] == 2 * N * H * 41_472,
+          f"fsl_an topk uplink = 2 rounds x {N} clients x {H} units x 864 "
+          f"rows x 6 of 64 kept x 8 B = 41,472 B a client unit")
+    done(t0)
+    return out
+
+
+def rel_error(got, want, before=None) -> float:
+    """``|got - want| / |want - before|`` (``before`` None: ``/ |want|``),
+    2-norms over all the tensors of the trees ``got`` (any device) and
+    ``want``, ``before`` (the CPU).  With ``before`` (an update read back
+    as new params less old) each element's difference first drops one ulp
+    of ``want``: the rounding of the new params, which differs between the
+    two sides wherever their updates differ at all."""
+    num = den = 0.0
+    olds = tree_leaves(before) if before is not None else None
+    for j, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        d = (g.cpu() - w).abs()
+        if olds is not None:
+            a = w.abs()
+            d = (d - (torch.nextafter(a, torch.full_like(a, math.inf)) - a)
+                 ).clamp_(min=0)
+        num += float(d.double().square().sum())
+        w = w.double()
+        den += float((w if olds is None else w - olds[j].double())
+                     .square().sum())
+    return (num / den) ** 0.5
+
+
+def update_error(before, want, got) -> float:
+    """Largest over the state's keys of the card's unit update against the
+    CPU's (:func:`rel_error` of each key's params)."""
+    return max(rel_error(got[k]["params"], want[k]["params"],
+                         before[k]["params"])
+               for k in want if k != "round")
+
+
+def hook_errors(hooks, tps, state, unit, dev):
+    """One unit of a baseline, hook by hook, the card fed the CPU's inputs
+    at every hook: the CPU's state, batch and coded payloads.  Returns
+    whether the card's coding of the CPU's uploads and replies is bitwise
+    the CPU's (the unit's seeds, salt 0 up and 1 down), and the largest
+    :func:`rel_error` of the card's smashed data, replies and updates."""
+    def put(tree):
+        return tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t,
+                        tree)
+
+    h, hc = hooks["cpu"], hooks[dev]
+    rnd, shared, stacked = state["round"], h.server_shared, stacked_keys(h)
+    worst, coded_same = 0.0, True
+
+    def code(channel, payload):
+        nonlocal coded_same
+        want = getattr(tps["cpu"], channel)(payload, rnd)
+        got = getattr(tps[dev], channel)(put(payload), rnd)
+        coded_same &= all(same(g, w) for g, w in zip(tree_leaves(got),
+                                                     tree_leaves(want)))
+        return want
+
+    slices, uploads, pendings = [], [], []
+    for i in range(N):
+        cs = {k: tree_map(lambda t: t[i], state[k]) for k in stacked}
+        cb = (torch.as_tensor(unit[0][i, 0]), torch.as_tensor(unit[1][i, 0]))
+        want = h.client_compute(cs, cb, LR)
+        got = hc.client_compute(put(cs), put(cb), LR)
+        worst = max(worst, rel_error(got[1][0], want[1][0]),
+                    rel_error(got[0]["clients"]["params"],
+                              want[0]["clients"]["params"],
+                              cs["clients"]["params"])
+                    if h.client_receive is None else 0.0)
+        slices.append(want[0])
+        uploads.append(want[1])
+        pendings.append(want[2])
+    coded = code("code_uplink", tuple(torch.stack(u) for u in
+                                      zip(*uploads)))
+    sstate, replies = state[h.server_key] if shared else None, []
+    for i in range(N):
+        up = tuple(t[i] for t in coded)
+        before = sstate if shared else slices[i][h.server_key]
+        want = h.server_consume(before, up, LR)
+        got = hc.server_consume(put(before), put(up), LR)
+        worst = max(worst, rel_error(got[0]["params"], want[0]["params"],
+                                     before["params"]))
+        if h.client_receive is not None:
+            worst = max(worst, rel_error(got[1], want[1]))
+            replies.append(want[1])
+        if shared:
+            sstate = want[0]
+    if h.client_receive is not None:
+        coded = code("code_downlink", torch.stack(replies))
+        for i in range(N):
+            args = (slices[i], pendings[i], coded[i])
+            want = h.client_receive(*args, LR)
+            got = hc.client_receive(*put(args), LR)
+            worst = max(worst, rel_error(got["clients"]["params"],
+                                         want["clients"]["params"],
+                                         slices[i]["clients"]["params"]))
+    return coded_same, worst
+
+
+def phase_baselines_cpu_vs(dev, fed):
+    """Phase 16: each baseline's first 2 rounds (10 units), one unit at a
+    time along the CPU's trajectory, with the same Philox bits on every
+    coded channel.  Free-running runs are no test here: at lr 0.15 this
+    CNN's per-batch methods amplify an fp32 difference by a large factor
+    each unit, on the identity wire too and between the JAX package and
+    the port on the CPU alike.  So each unit is checked from one state, at
+    two depths:
+    * the unit step (``Trainer.step``, the main path): the card's losses
+      within phase 5's rtol 1e-3 of the CPU's, and its update (new params
+      less old, each state key) within UNIT_RTOL of the CPU's in 2-norm.
+      That bound is coarse: a stochastic-rounding step that one side takes
+      and the other does not moves an element by a whole quantum, and
+      FSL_OC's four server steps a unit build on each other; a skipped,
+      zeroed or misrouted update reads about 1;
+    * hook by hook (:func:`hook_errors`), the card fed the CPU's inputs:
+      the coded uploads and replies bitwise the CPU's, and the smashed
+      data, the replies (the server's input gradient) and every update
+      within HOOK_RTOL of the CPU's."""
+    t0 = phase("16 CNN baselines CPU vs card: 2 rounds, unit by unit from "
+               "the CPU's states, the same Philox bits")
+    for method in BASELINES:
+        fsl = FSLConfig(num_clients=N, h=1, agg_every=H, lr=LR, method=method)
+        trs = {d: Trainer(cnn_bundle(CIFAR10, device=d), fsl,
+                          transport=baseline_transport(method))
+               for d in ("cpu", dev)}
+        hooks = {d: tr.method.make_async_hooks(tr.bundle, fsl)
+                 for d, tr in trs.items()}
+        tps = {d: tr.transport for d, tr in trs.items()}
+        state = trs["cpu"].init(0)
+        batcher = FederatedBatcher(fed, B, H, seed=0)
+        worst_loss = worst_upd = worst_hook = 0.0
+        rounds_agree = coded_same = True
+        for _ in range(2):
+            x, y = batcher.next_round()
+            for k in range(H):
+                unit = (x[:, k:k + 1], y[:, k:k + 1])
+                want, wm = trs["cpu"].step(state, unit, LR)
+                got, gm = trs[dev].step(tree_map(
+                    lambda t: t.to(dev) if torch.is_tensor(t) else t, state),
+                    unit, LR)
+                worst_loss = max(worst_loss, *(
+                    abs(float(gm[m]) - float(wm[m])) / abs(float(wm[m]))
+                    for m in wm))
+                worst_upd = max(worst_upd, update_error(state, want, got))
+                same_k, hook_k = hook_errors(hooks, tps, state, unit, dev)
+                coded_same &= same_k
+                worst_hook = max(worst_hook, hook_k)
+                rounds_agree &= got["round"] == want["round"]
+                state = want
+            state = trs["cpu"].aggregate(state)
+        check(rounds_agree and state["round"] == 2 * H,
+              f"{method}: the same unit counter on both, {2 * H} units")
+        check(worst_loss <= 1e-3, f"{method}: every unit's losses agree at "
+              f"rtol 1e-3 (worst {worst_loss:.3g})")
+        check(worst_upd <= UNIT_RTOL, f"{method}: every unit's update within "
+              f"{UNIT_RTOL:g} of the CPU's in 2-norm (worst {worst_upd:.3g})")
+        check(coded_same, f"{method}: the card codes the CPU's uploads"
+              + (" and replies" if get_method(method).downloads_gradients
+                 else "") + " bitwise as the CPU does, every unit")
+        check(worst_hook <= HOOK_RTOL, f"{method}: hook by hook from the "
+              f"CPU's inputs, smashed data, replies and updates within "
+              f"{HOOK_RTOL:g} of the CPU's in 2-norm (worst "
+              f"{worst_hook:.3g})")
+    done(t0)
+
+
+def phase_lm_baselines(dev):
+    """Phase 17: FSL_OC on full-width Qwen3-0.6B (28 layers) and FSL_MC on
+    it cut to 20 layers, bf16, the kernels on, int8 up and down, through
+    Trainer.run, with per-round launch counts derived from the hooks, the
+    plain attention backward never called, the meter and the peak device
+    memory.  Returns each path's trainer, data, launches and peak."""
+    t0 = phase("17 Qwen3 baselines: FSL_OC (28 layers) and FSL_MC (20 "
+               "layers), full width, bf16, kernels on, int8 up and down")
+    out = {}
+    for method, layers in BL_LM_PATHS:
+        cfg = lm_cfg() if layers is None else lm_cfg().with_(
+            num_layers=layers)
+        bundle = transformer_bundle(cfg, device=dev)
+        fsl = baseline_fsl(method, lm=True)
+        fed = build_data(cfg, fsl, LM_S, LM_SAMPLES, non_iid=False, seed=0)
+        cm = cost_model(bundle, LM_N, LM_SAMPLES)
+        tr = Trainer(bundle, fsl, transport=baseline_transport(method))
+        tag = f"qwen3-0.6b {cfg.num_layers} layers {method} int8"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        plain_bwd, plain_calls = ref.swa_attention_bwd, []
+
+        def counted(*a, **kw):
+            plain_calls.append(1)
+            return plain_bwd(*a, **kw)
+
+        ref.swa_attention_bwd = counted
+        try:
+            state, hist, meter, launches, per_round = drive(
+                tr, lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0), cm, tag,
+                BL_LM_ROUNDS, LM_B)
+        finally:
+            ref.swa_attention_bwd = plain_bwd
+        peak = torch.cuda.max_memory_allocated(dev)
+        cut = cfg.resolved_cut
+        srv = cfg.num_layers - cut
+        # a unit (h a round): the clients' forward (vmapped: one K6 a client
+        # layer), the server's update(s) with the gradient to its input (one
+        # K3 and one K4 pass a head; K6 and its backward a server layer),
+        # n of them one after another with the shared server (FSL_OC), one
+        # vmapped over the replicas (FSL_MC), then the clients' vjp
+        # (recomputing the forward: K6 and its backward a client layer);
+        # K2 once on the uplink and once on the downlink
+        passes = 1 if get_method(method).server_replicated else LM_N
+        heads = LM_H * passes
+        bwd = LM_H * (cut + passes * srv)
+        want = only(quantize_philox=2 * LM_H, fused_ce_fwd=heads,
+                    fused_ce_dx=heads, fused_ce_dw=heads, fused_ce_p=heads,
+                    swa_attention_tc=LM_H * (2 * cut + passes * srv),
+                    **{n: bwd for n in swa.BWD_KERNELS})
+        for i, c in enumerate(per_round):
+            check(c == want, f"{method} round {i + 1} launches {c} == {want}")
+        check(not plain_calls, f"{method}: the plain attention backward "
+              "(ref.swa_attention_bwd) ran no time")
+        wire = LM_S * cfg.d_model + (LM_S // 8) * (cfg.d_model // 128) * 4
+        per = BL_LM_ROUNDS * LM_N * LM_H * wire
+        check(wire == 4_210_688 and meter.counts["uplink_smashed"] == per
+              and meter.counts["downlink_grads"] == per,
+              f"{method} int8 uplink = downlink = {BL_LM_ROUNDS} rounds x "
+              f"{LM_N} clients x {LM_H} units x 4,210,688 B")
+        check(state["round"] == BL_LM_ROUNDS * LM_H,
+              f"{method} state['round'] = {BL_LM_ROUNDS * LM_H} units")
+        print(f"  [{method}] peak device memory over the run: "
+              f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+        out[f"qwen3-{cfg.num_layers}L-{method}"] = {
+            "trainer": tr, "fed": fed, "cfg": cfg, "launches": launches,
+            "per_round": want, "peak_bytes": peak}
+        del state, hist, meter
+        torch.cuda.empty_cache()
+    done(t0)
+    return out
+
+
+def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
+    """Phase 18: a round of each baseline path on the host clock (median,
+    ending in synchronize) with its device time and idle share, and K2 at
+    the Qwen3 uplink/downlink shape [4, 4096, 1024] beside its bound, its
+    plain version and the CNN shape's record.  Returns each path's
+    numbers."""
+    t0 = phase("18 baseline times (host clock medians, profiler device time)")
+    out = {}
+
+    def timed(tag, tr, state, batch, lr, n_time, n_prof, warm):
+        box = {"state": state}
+
+        def step():
+            st, m = tr.step(box["state"], batch, lr)
+            box["state"] = tr.aggregate(st)
+            for v in m.values():
+                float(v)
+
+        for _ in range(warm):
+            step()
+        round_ms, per = time_rounds(step, n_time)
+        print(f"  [{tag}] round (step + FedAvg, host clock after "
+              f"synchronize): median {round_ms:.3f} ms of "
+              f"{[round(p, 3) for p in per]}")
+        busy, idle = profile_round(step, n_prof, round_ms)
+        del box
+        return {"round_ms": round_ms, "rounds_ms": per, "device_ms": busy,
+                "idle_share": idle}
+
+    for method, p in cnn_paths.items():
+        tr = p["trainer"]
+        batch = tr.to_device(FederatedBatcher(fed, B, H, seed=1).next_round())
+        out[f"cnn-{method}"] = {**timed(f"cnn {method}", tr, p["state"],
+                                        batch, LR, 7, 3, 2),
+                                "launches": {k: v for k, v in
+                                             p["launches"].items() if v}}
+    for tag, p in lm_paths.items():
+        tr = p["trainer"]
+        batch = tr.to_device(LMBatcher(p["cfg"], p["fed"], LM_B, LM_H,
+                                       seed=1).next_round())
+        torch.cuda.empty_cache()
+        out[tag] = {**timed(tag, tr, tr.init(0), batch, LM_LR, 3, 1, 1),
+                    "peak_bytes": p["peak_bytes"],
+                    "launches_per_round": {k: v for k, v in
+                                           p["per_round"].items() if v}}
+        torch.cuda.empty_cache()
+
+    # K2 at the Qwen3 wire shape: the bf16 smashed data and its gradient,
+    # cast to fp32, 4 clients a launch
+    n, r, c = LM_N, LM_S, 1024
+    x, _ = payload(n, r, c, seed=8)
+    xd = x.to(dev)
+    seeds = torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+    elems, tiles = n * r * c, n * -(-r // ref.BT) * -(-c // ref.BC)
+    io = elems * (4 + 1) + tiles * 4 + n * 8
+    ops = 8 * elems + (2 * elems + (elems // 4) * 10 * 10) \
+        * FP32_OPS / INT32_OPS
+    q, s = qk.quantize_2d(xd, seeds=seeds)
+    pbits = ref.philox_bits(seeds.cpu(), r, c)
+    pq, ps = ref.quantize_2d(x, pbits)
+    sync(dev)
+    check(same(q, pq) and same(s, ps), f"quantize_philox [{n}, {r}, {c}] == "
+          "plain on the CPU fed the CPU's philox_bits")
+    err = max_abs(q, s, pq, ps)
+    del q, s, pq, ps, pbits
+    run = lambda: qk.quantize_2d(xd, seeds=seeds)       # noqa: E731
+    rec = record("quantize_philox", lm_paths["qwen3-28L-fsl_oc"]["launches"]
+                 ["quantize_philox"], err, graph_ms(run), event_ms(run),
+                 event_ms(lambda: ref.quantize_2d(xd, ref.philox_bits(
+                     seeds.cpu(), r, c).to(dev)), reps=2, inner=1, warm=0),
+                 io, ops, FP32_OPS, shape=[n, r, c],
+                 launches_path="qwen3-0.6b fsl_oc int8 up and down "
+                               "(phase 17)")
+    print("  [qwen3 wire]", end="")
+    print_record(rec)
+    for r_ in records:
+        if r_["name"] == "quantize_philox":
+            r_["qwen3_wire"] = {k: rec[k] for k in (
+                "shape", "launches", "launches_path", "max_abs_err", "ms",
+                "eager_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                "library_ms")}
+    done(t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
@@ -1758,11 +2185,17 @@ def main() -> int:
     phase_mamba_cpu_vs(dev)
     ssm_records, mb = phase_mamba_times(dev, mb_err, mlaunches, lm_records,
                                         mtr, mstate, mfed, mpeak)
+    del mtr, mstate
+    torch.cuda.empty_cache()
+    cnn_paths = phase_baselines(dev, fed)
+    phase_baselines_cpu_vs(dev, fed)
+    lm_paths = phase_lm_baselines(dev)
+    baselines = phase_baseline_times(dev, fed, records, cnn_paths, lm_paths)
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
                       "round_ms": round_ms, "lm": lm, "mamba": mb,
-                      "card": card}))
+                      "baselines": baselines, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

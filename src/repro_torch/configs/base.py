@@ -6,9 +6,9 @@ dense and Mamba-1 (``ssm``) families' fields; MoE, hybrid and modality
 fields come with the slices that port those families.  ``remat`` is left
 out: activation checkpointing (``torch.utils.checkpoint``) does not
 compose with the ``torch.func.grad`` of the client phase, so the port runs
-without it.  ``unroll`` and ``dryrun_unroll`` (JAX scan knobs),
-``grad_clip`` (read only by FSL_OC) and ``model_codec`` (the model-sync
-wire) come with the parts of the port that use them.
+without it.  ``unroll`` and ``dryrun_unroll`` (JAX scan knobs) and
+``model_codec`` (the model-sync wire) come with the parts of the port that
+use them.
 """
 from __future__ import annotations
 
@@ -108,9 +108,10 @@ class FSLConfig:
     num_clients: int = 4
     h: int = 1                  # smashed-data upload period (batches)
     agg_every: int = 0          # C, in batches; 0 -> once per round (C=h)
-    method: str = "cse_fsl"
+    method: str = "cse_fsl"     # cse_fsl | fsl_mc | fsl_oc | fsl_an
     server_update: str = "sequential"   # sequential (faithful) | batched
-    codec: str = "none"         # uplink wire codec: none|int8|fp8
+    codec: str = "none"         # uplink wire codec: none|int8|fp8|topk
+    grad_clip: float = 0.0      # used by FSL_OC (0 -> a limit of 1.0)
     lr: float = 0.05
     lr_decay_every: int = 10    # rounds (paper: decay every 10 rounds)
     lr_decay: float = 0.99

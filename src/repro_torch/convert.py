@@ -12,13 +12,18 @@ the dtype moves (numpy has no bf16: ``ml_dtypes`` bf16 arrays cross as
 their uint16 bit patterns).  A leading stacked-client dim, where present,
 is carried through.
 
-Reference state (``repro`` ``Trainer.init``) -> port state::
+Reference state (``repro`` ``Trainer.init``) -> port state, CSE-FSL::
 
   {"clients": {"params": {"params": C, "aux": A}, "opt": O(C, A)},
    "server": {"params": S, "opt": O(S)}, "round": r}
   ->
   {"clients": {"params": {"client": C', "aux": A'}, "opt": O(C', A')},
    "server": {"params": S', "opt": O(S')}, "round": int(r)}
+
+The baselines keep the reference's client keys: FSL_MC and FSL_OC a bare
+client tree ``C``, FSL_AN ``{"params": C, "aux": A}``; FSL_MC and FSL_AN
+hold stacked server replicas under ``servers`` instead of ``server``.  Each
+method names its layout (``FSLMethod.client_keys`` and ``server_key``).
 
 with optimizer states ``()`` (sgd), ``{"m"}`` (momentum) or
 ``{"m", "v", "t"}`` (adam) converted leafwise like the params they shadow.
@@ -31,8 +36,6 @@ import numpy as np
 import torch
 
 from repro_torch.common import tree_map
-
-_CLIENT_KEYS = (("params", "client"), ("aux", "aux"))   # reference, port
 
 
 def _weight_axes(ndim: int, conv: bool, to_port: bool):
@@ -129,36 +132,53 @@ def _opt_to_numpy(opt, convert_params):
     return out
 
 
-def state_from_numpy(tree, device="cuda") -> Dict[str, Any]:
-    """The reference ``Trainer.init`` state (as numpy arrays) -> the port's
-    state on ``device``."""
+def _layout(method):
+    """``method``'s (client keys, server key): the client params'
+    (reference key, port key) pairs, or None for a bare client tree, and
+    the state key of its server ("server" or the stacked "servers")."""
+    from repro_torch.core.methods import get_method
+    m = get_method(method) if isinstance(method, str) else method
+    return m.client_keys, m.server_key
+
+
+def state_from_numpy(tree, device="cuda", method="cse_fsl") -> Dict[str, Any]:
+    """A reference ``Trainer.init`` state (as numpy arrays) of ``method``
+    (a name or an ``FSLMethod``) -> the port's state on ``device``."""
+    keys, skey = _layout(method)
+
     def client(p):
-        return {pk: _from_numpy(p[rk], device) for rk, pk in _CLIENT_KEYS}
+        if keys is None:
+            return _from_numpy(p, device)
+        return {pk: _from_numpy(p[rk], device) for rk, pk in keys}
 
     def server(p):
         return _from_numpy(p, device)
 
-    cl, sv = tree["clients"], tree["server"]
+    cl, sv = tree["clients"], tree[skey]
     return {
         "clients": {"params": client(cl["params"]),
                     "opt": _opt_from_numpy(cl["opt"], client, device)},
-        "server": {"params": server(sv["params"]),
-                   "opt": _opt_from_numpy(sv["opt"], server, device)},
+        skey: {"params": server(sv["params"]),
+               "opt": _opt_from_numpy(sv["opt"], server, device)},
         "round": int(np.asarray(tree["round"])),
     }
 
 
-def state_to_numpy(state) -> Dict[str, Any]:
+def state_to_numpy(state, method="cse_fsl") -> Dict[str, Any]:
     """Inverse of :func:`state_from_numpy`, in the reference's layout."""
-    def client(p):
-        return {rk: _to_numpy(p[pk]) for rk, pk in _CLIENT_KEYS}
+    keys, skey = _layout(method)
 
-    cl, sv = state["clients"], state["server"]
+    def client(p):
+        if keys is None:
+            return _to_numpy(p)
+        return {rk: _to_numpy(p[pk]) for rk, pk in keys}
+
+    cl, sv = state["clients"], state[skey]
     return {
         "clients": {"params": client(cl["params"]),
                     "opt": _opt_to_numpy(cl["opt"], client)},
-        "server": {"params": _to_numpy(sv["params"]),
-                   "opt": _opt_to_numpy(sv["opt"], _to_numpy)},
+        skey: {"params": _to_numpy(sv["params"]),
+               "opt": _opt_to_numpy(sv["opt"], _to_numpy)},
         "round": np.int32(state["round"]),
     }
 

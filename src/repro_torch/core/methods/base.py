@@ -1,10 +1,10 @@
 """The `FSLMethod` interface (``repro.core.methods.base``): one API for
-CSE-FSL and, in later slices of the port, the baselines.
+CSE-FSL and the three baselines.
 
 A *method* is a stateless strategy object:
 
-  - ``init_state(bundle, fsl, generator)`` -> state (clients stacked on
-    dim 0 of every client tensor)
+  - ``init_state(bundle, fsl, generator)`` -> state (clients, and server
+    replicas where a method has them, stacked on dim 0)
   - ``make_round_step(bundle, fsl, transport=None)``
         -> ``round_step(state, batch, lr) -> (state, metrics)``
   - ``make_aggregate()``                  -> ``aggregate(state)``
@@ -27,7 +27,6 @@ from repro_torch.common import tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CostModel
 from repro_torch.core.bundle import SplitModelBundle
-from repro_torch.optim import make_optimizer
 
 # ---------------------------------------------------------------------------
 # Declarative communication / storage profile (paper Table II per method)
@@ -94,53 +93,109 @@ class AsyncHooks:
     unit_has_h_axis: bool = False
 
 
+def stacked_keys(hooks: AsyncHooks) -> tuple:
+    """The state keys stacked on the client dim: the clients, and the
+    server replicas where each client has its own."""
+    return ("clients",) if hooks.server_shared \
+        else ("clients", hooks.server_key)
+
+
+def _mean_metrics(rows):
+    """``{name: mean}`` over a list of metric dicts of scalars."""
+    return {k: torch.stack([m[k] for m in rows]).mean() for k in rows[0]}
+
+
 def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
-    """Build the synchronous ``round_step`` from a method's AsyncHooks, for
-    a shared server and an uplink-only wire (the CSE-FSL case):
+    """Build the synchronous ``round_step`` from a method's AsyncHooks.
+    Per upload unit:
 
       1. ``vmap(client_compute)`` over the stacked client axis;
       2. the transport codes all clients' uploads (one launch per float
          leaf; labels pass through);
-      3. the server consumes the uploads one by one in client-index order
-         (the zero-latency arrival order, Eq. 11-13).
+      3. the server consumes: one by one in client-index order when it is
+         shared (the zero-latency arrival order, Eq. 11-13), or
+         ``vmap(server_consume)`` over the stacked per-client replicas;
+      4. blocking methods code the gradient replies on the downlink (the
+         unit's seeds, salt 1) and run ``vmap(client_receive)`` over the
+         clients and their pending inputs.
 
-    With the identity transport no codec op runs at all.
+    Hooks whose unit has the ``h`` axis run one unit a round; per-mini-batch
+    hooks run one unit per mini-batch (``state["round"]`` advances each
+    unit), and their metrics are the mean over clients within a unit, then
+    over the ``h`` units.  With the identity transport no codec op runs.
     """
     from repro_torch.transport import resolve_transport
     tp = resolve_transport(transport, fsl)
-    if hooks.uploads_per_round * hooks.batches_per_upload != fsl.h:
-        raise ValueError(f"hooks decompose {hooks.uploads_per_round}x"
-                         f"{hooks.batches_per_upload} batches per round, "
-                         f"but fsl.h={fsl.h}")
-    if not (hooks.unit_has_h_axis and hooks.uploads_per_round == 1
-            and hooks.server_shared and hooks.client_receive is None):
-        raise NotImplementedError(
-            "this port assembles only one-upload-per-round, shared-server, "
-            "non-blocking hooks (CSE-FSL); the per-batch and blocking "
-            "decompositions come with the baselines")
-    skey = hooks.server_key
+    k_units, bpu = hooks.uploads_per_round, hooks.batches_per_upload
+    if k_units * bpu != fsl.h:
+        raise ValueError(f"hooks decompose {k_units}x{bpu} batches per "
+                         f"round, but fsl.h={fsl.h}")
+    if hooks.unit_has_h_axis:
+        if k_units != 1:
+            raise ValueError("unit_has_h_axis hooks must use a single "
+                             "upload unit per round")
+    elif bpu != 1:
+        raise ValueError("unsupported decomposition: per-mini-batch hooks "
+                         "require batches_per_upload == 1")
+    blocking = hooks.client_receive is not None
+    skey, shared = hooks.server_key, hooks.server_shared
+    stacked = stacked_keys(hooks)
     n = fsl.num_clients
+    code_up = not tp.uplink.is_identity
+    code_down = blocking and not tp.downlink.is_identity
+
+    def unit_step(state, ubatch, lr):
+        def client(cs, b):
+            cs, upload, pending, m = hooks.client_compute(cs, b, lr)
+            return (cs, upload, m, pending) if blocking else (cs, upload, m)
+
+        cstack, uploads, cmetrics, *pendings = vmap(client)(
+            {k: state[k] for k in stacked}, ubatch)
+        if code_up:
+            uploads = tp.code_uplink(uploads, state["round"])
+        if shared:
+            sstate, replies, smetrics = state[skey], [], []
+            for i in range(n):
+                sstate, reply, m = hooks.server_consume(
+                    sstate, tree_map(lambda u: u[i], uploads), lr)
+                replies.append(reply)
+                smetrics.append(m)
+            smetrics = _mean_metrics(smetrics)
+            if blocking:
+                replies = torch.stack(replies)
+        else:
+            def server(s, up):
+                s, reply, m = hooks.server_consume(s, up, lr)
+                return (s, m, reply) if blocking else (s, m)
+
+            sstates, smetrics, *replies = vmap(server)(cstack[skey], uploads)
+            cstack = {**cstack, skey: sstates}
+            smetrics = {k: v.mean() for k, v in smetrics.items()}
+            replies = replies[0] if blocking else None
+        if blocking:
+            if code_down:
+                replies = tp.code_downlink(replies, state["round"])
+            cstack = vmap(lambda cs, p, r: hooks.client_receive(cs, p, r, lr))(
+                cstack, pendings[0], replies)
+        new_state = {**state, **cstack, "round": state["round"] + 1}
+        if shared:
+            new_state[skey] = sstate
+        metrics = {k: v.mean() for k, v in cmetrics.items()}
+        metrics.update(smetrics)
+        return new_state, metrics
 
     def round_step(state, batch, lr):
-        def client(cs, b):
-            cs, upload, _, m = hooks.client_compute(cs, b, lr)
-            return cs, upload, m
-
-        cstack, uploads, cmetrics = vmap(client)(
-            {"clients": state["clients"]}, tuple(batch))
-        if not tp.is_identity:
-            uploads = tp.code_uplink(uploads, state["round"])
-        sstate, smetrics = state[skey], []
-        for i in range(n):
-            sstate, _, m = hooks.server_consume(
-                sstate, tuple(u[i] for u in uploads), lr)
-            smetrics.append(m)
-        metrics = {k: v.mean() for k, v in cmetrics.items()}
-        metrics.update({k: torch.stack([m[k] for m in smetrics]).mean()
-                        for k in smetrics[0]})
-        new_state = {**state, **cstack, skey: sstate,
-                     "round": state["round"] + 1}
-        return new_state, metrics
+        batch = tuple(batch)
+        if hooks.unit_has_h_axis:
+            # one unit covering the whole [n, h, B, ...] round (CSE-style)
+            return unit_step(state, batch, lr)
+        # per-mini-batch hooks: one unit per mini-batch of the h axis
+        rows = []
+        for k in range(fsl.h):
+            state, m = unit_step(state, tree_map(lambda x: x[:, k], batch),
+                                 lr)
+            rows.append(m)
+        return state, _mean_metrics(rows)
 
     return round_step
 
@@ -177,8 +232,25 @@ class FSLMethod:
         return assemble_round_step(self.make_async_hooks(bundle, fsl), fsl,
                                    transport=transport)
 
+    # The client params' (reference key, port key) pairs where the client
+    # tree holds its stage beside the aux head; None: a bare client tree.
+    client_keys: Optional[tuple] = None
+
+    @property
+    def server_key(self) -> str:
+        """The state key of the server: stacked replicas or one model."""
+        return "servers" if self.server_replicated else "server"
+
     def make_aggregate(self):
-        raise NotImplementedError
+        """FedAvg over the stacked client dim (Eq. 14), opt state included:
+        the clients and, where each client has its own, the server
+        replicas."""
+        keys = ("clients", self.server_key) if self.server_replicated \
+            else ("clients",)
+
+        def aggregate(state):
+            return {**state, **{k: fedavg(state[k]) for k in keys}}
+        return aggregate
 
     def merged_params(self, state) -> Dict[str, Any]:
         raise NotImplementedError
@@ -194,27 +266,43 @@ class FSLMethod:
         schedules."""
         return int(state["round"]) * self.unit_batches(fsl)
 
-    def payload_specs(self, bundle: SplitModelBundle, fsl: FSLConfig,
-                      batch):
-        """``(upload_spec, reply_spec)`` of ONE client's ONE upload unit,
-        as ``meta`` tensors: the hooks run on shape-only tensors, so the
-        specs are the exact shapes the codecs see.  The client slice is
-        the stacked-client layout of this slice's methods: ``{client, aux}``
-        params and their optimizer state.  ``reply_spec`` is None for
-        non-blocking methods."""
+    def hook_arg_specs(self, bundle: SplitModelBundle, fsl: FSLConfig,
+                       batch):
+        """Shape-only arguments for running the hooks on their own:
+        ``(hooks, state, cslice, unit, lr)`` -- the hooks, the method's own
+        ``init_state`` on ``meta`` tensors (drawn from ``bundle.specs``, so
+        any state layout works), ONE client's slice of its stacked
+        subtrees, ONE upload unit of ``batch`` (``[n,(h,)B, ...]`` with the
+        leading dims dropped per ``unit_has_h_axis``) and the lr."""
         hooks = self.make_async_hooks(bundle, fsl)
-        if hooks.client_receive is not None:
-            raise NotImplementedError("reply specs come with the blocking "
-                                      "baselines")
-        params = {"client": bundle.specs["client"], "aux": bundle.specs["aux"]}
-        opt_init, _ = make_optimizer(fsl.optimizer)
-        cslice = {"clients": {"params": params, "opt": opt_init(params)}}
+        specs = bundle.specs
+        meta = dataclasses.replace(
+            bundle, init=lambda gen: tree_map(lambda x: x, specs))
+        state = self.init_state(meta, fsl, None)
+        cslice = {k: tree_map(lambda x: torch.empty(
+            tuple(x.shape[1:]), dtype=x.dtype, device="meta"), state[k])
+            for k in stacked_keys(hooks)}
         drop = 1 if hooks.unit_has_h_axis else 2            # [n,(h,)B,...]
         unit = tree_map(lambda x: torch.empty(
             tuple(x.shape[drop:]), dtype=torch.as_tensor(x).dtype,
             device="meta"), tuple(batch))
-        _, upload, _, _ = hooks.client_compute(cslice, unit, 0.0)
-        return upload, None
+        return hooks, state, cslice, unit, 0.0
+
+    def payload_specs(self, bundle: SplitModelBundle, fsl: FSLConfig,
+                      batch):
+        """``(upload_spec, reply_spec)`` of ONE client's ONE upload unit,
+        as ``meta`` tensors: the hooks run on shape-only tensors, so the
+        specs are the exact shapes the codecs see.  ``reply_spec`` is None
+        for non-blocking methods."""
+        hooks, state, cslice, unit, lr = self.hook_arg_specs(bundle, fsl,
+                                                             batch)
+        _, upload, _, _ = hooks.client_compute(cslice, unit, lr)
+        reply = None
+        if hooks.client_receive is not None:
+            sstate = state[hooks.server_key] if hooks.server_shared \
+                else cslice[hooks.server_key]
+            _, reply, _ = hooks.server_consume(sstate, upload, lr)
+        return upload, reply
 
     def comm_profile(self, cm: CostModel, fsl: FSLConfig, batch_size: int,
                      transport=None, payload_specs=None) -> CommProfile:
@@ -227,15 +315,19 @@ class FSLMethod:
         sync = 2 * n * (cm.w_client + aux)
         server = (n if self.server_replicated else 1) * (cm.w_server + aux)
         total = n * (cm.w_client + aux) + server
-        wire_up = -1
+        wire_up = wire_down = -1
         if (transport is not None and payload_specs is not None
                 and not transport.is_identity):
-            up_spec, _ = payload_specs
+            up_spec, reply_spec = payload_specs
             wire_up = n * uploads * transport.uplink_wire_bytes(up_spec)
+            if self.downloads_gradients and reply_spec is not None:
+                wire_down = n * uploads * transport.downlink_wire_bytes(
+                    reply_spec)
         return CommProfile(uplink_smashed=smashed, uplink_labels=labels,
                            downlink_grads=grads, model_sync=sync,
                            server_storage=server, total_storage=total,
-                           uplink_smashed_wire=wire_up)
+                           uplink_smashed_wire=wire_up,
+                           downlink_grads_wire=wire_down)
 
     def __repr__(self):
         return f"<FSLMethod {self.name}>"

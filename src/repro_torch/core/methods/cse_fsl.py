@@ -28,7 +28,7 @@ from repro_torch.configs.base import FSLConfig
 from repro_torch.core.bundle import SplitModelBundle
 from repro_torch.core.methods.base import (AsyncHooks, FSLMethod,
                                            assemble_round_step, client_mean,
-                                           fedavg, register, stack_clients)
+                                           register, stack_clients)
 from repro_torch.optim import make_optimizer
 
 # ---------------------------------------------------------------------------
@@ -160,13 +160,6 @@ def make_round_step(bundle: SplitModelBundle, fsl: FSLConfig,
                                transport=transport)
 
 
-def make_aggregate():
-    """FedAvg over the stacked client dim (Eq. 14), opt state included."""
-    def aggregate(state):
-        return {**state, "clients": fedavg(state["clients"])}
-    return aggregate
-
-
 def merged_params(state) -> Dict[str, Any]:
     """Final model = aggregated client stage + server stage (paper Step 4)."""
     cp = client_mean(state["clients"]["params"])
@@ -182,15 +175,13 @@ class CSEFSL(FSLMethod):
     downloads_gradients = False
     server_replicated = False
     has_aux = True
+    client_keys = (("params", "client"), ("aux", "aux"))
 
     def init_state(self, bundle, fsl, gen):
         return init_state(bundle, fsl, gen)
 
     def make_round_step(self, bundle, fsl, transport=None):
         return make_round_step(bundle, fsl, transport=transport)
-
-    def make_aggregate(self):
-        return make_aggregate()
 
     def merged_params(self, state):
         return merged_params(state)

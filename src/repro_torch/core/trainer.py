@@ -101,14 +101,15 @@ class Trainer:
         return self.agg_fn(state)
 
     def merged_params(self, state):
-        """Deployable {"client", "aux", "server"} params for evaluation."""
+        """Deployable ``{"client", "server"}`` params (with ``"aux"`` for
+        the methods that train one) for evaluation."""
         return self.method.merged_params(state)
 
     def comm_profile(self, cost_model: CostModel, batch_size: int,
                      batch=None) -> CommProfile:
-        """With a ``batch``, the profile's uplink wire bytes are exact for
-        this trainer's transport (payload specs from the method's hooks run
-        on ``meta`` tensors)."""
+        """With a ``batch``, the profile's uplink and downlink wire bytes
+        are exact for this trainer's transport (payload and reply specs
+        from the method's hooks run on ``meta`` tensors)."""
         specs = None
         if batch is not None and not self.transport.is_identity:
             specs = self.method.payload_specs(self.bundle, self.fsl, batch)

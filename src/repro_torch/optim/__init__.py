@@ -12,6 +12,19 @@ import torch
 from repro_torch.common import tree_leaves, tree_map
 
 
+def global_norm(tree) -> torch.Tensor:
+    """The fp32 l2 norm over every leaf of ``tree``."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads * min(1, max_norm / (norm + 1e-12)), norm)``; the scale is
+    fp32, so the clipped grads are too (as in the JAX package)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
 def sgd():
     def init(params):
         return ()

@@ -1,23 +1,27 @@
-"""Wire-level transport: what crosses the client->server uplink
+"""Wire-level transport: what crosses the client<->server link
 (``repro.transport``).
 
-Every upload (smashed activations + labels) passes through a
-:class:`Transport` whose :class:`Codec` compresses the float leaves;
+Every upload (smashed activations + labels) and every reply of a blocking
+method (the cut-layer gradient) passes through a :class:`Transport` whose
+:class:`Codec` objects compress the float leaves, one for each direction;
 ``Codec.wire_bytes`` is what ``CommMeter`` bills, so compressed runs report
 the bytes a real wire would carry.
 
-Codecs here (``FSLConfig.codec``): ``none`` (identity) and the per-tile
-stochastic quantizers ``int8`` / ``fp8`` (``repro_torch.kernels.quantize``).
-Payloads are coded client-stacked: ``encode``/``decode``/``roundtrip`` take
-``[n, ...]`` with one client per row of dim 0, so one kernel launch codes a
-whole round's uploads; ``wire_bytes`` counts ONE client's payload, given as
-a tensor or a ``meta`` tensor spec.
+Codecs here (``FSLConfig.codec`` names the uplink's): ``none`` (identity),
+the per-tile stochastic quantizers ``int8`` / ``fp8``
+(``repro_torch.kernels.quantize``) and ``topk`` (magnitude top-k per row,
+value + index pairs on the wire).  Payloads are coded client-stacked:
+``encode``/``decode``/``roundtrip`` take ``[n, ...]`` with one client per
+row of dim 0, so one kernel launch codes all clients' payloads of a unit;
+``wire_bytes`` counts ONE client's payload, given as a tensor or a
+``meta`` tensor spec.
 
 Random bits: each client's float leaf gets a 64-bit seed from
-:meth:`Transport.unit_seed`, and the quantizer draws Philox bits from it —
-inside the kernel on a card, with ``kernels.ref.philox_bits`` on the CPU,
-the same bits either way.  (The JAX package draws ``jax.random`` bits
-instead; the two streams differ by design.)
+:meth:`Transport.unit_seed` (salted per channel: uplink 0, downlink 1), and
+the quantizer draws Philox bits from it -- inside the kernel on a card,
+with ``kernels.ref.philox_bits`` on the CPU, the same bits either way.
+(The JAX package draws ``jax.random`` bits instead; the two streams differ
+by design.)
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch
 from repro_torch.kernels import quantize as qk
 
 # The salt of each wire channel in the seed derivation (as in the JAX
-# package; this slice codes the uplink only).
+# package; the model-sync channels are not coded yet).
 CHANNEL_SALTS = {"uplink": 0, "downlink": 1, "model_up": 2, "model_down": 3}
 
 _M64 = (1 << 64) - 1
@@ -138,6 +142,41 @@ class Fp8Codec(_QuantCodec):
     fmt = "fp8"
 
 
+@dataclasses.dataclass(frozen=True)
+class TopKCodec(Codec):
+    """Magnitude top-k per row of the 2D wire view: ``k = max(1, min(c,
+    round(ratio c)))`` fp32 values with their int32 indices cross the wire,
+    and the receiver scatters them into a dense zero payload.  Where the
+    k-th largest |x| ties, the kept indices may differ from the JAX
+    package's; the decoded payload differs only if the tied values do."""
+
+    ratio: float = 0.1           # kept fraction of the last axis
+    name = "topk"
+
+    def _k(self, c: int) -> int:
+        return max(1, min(c, int(round(self.ratio * c))))
+
+    def encode(self, payload, *, seeds=None, bits=None):
+        n = payload.shape[0]
+        r, c = _rows_cols(tuple(payload.shape[1:]))
+        x = payload.reshape(n, r, c).float()
+        idx = torch.topk(x.abs(), self._k(c), dim=-1).indices
+        return {"values": torch.gather(x, -1, idx),
+                "indices": idx.to(torch.int32)}
+
+    def decode(self, wire, spec):
+        n = spec.shape[0]
+        r, c = _rows_cols(tuple(spec.shape[1:]))
+        dense = torch.zeros((n, r, c), dtype=torch.float32,
+                            device=wire["values"].device)
+        dense.scatter_(-1, wire["indices"].long(), wire["values"])
+        return dense.reshape(spec.shape).to(spec.dtype)
+
+    def wire_bytes(self, spec) -> int:
+        r, c = _rows_cols(tuple(spec.shape))
+        return r * self._k(c) * (4 + 4)      # fp32 value + int32 index
+
+
 _CODECS: Dict[str, Codec] = {}
 
 
@@ -152,7 +191,7 @@ def register_codec(cls):
     return cls
 
 
-for _cls in (IdentityCodec, Int8Codec, Fp8Codec):
+for _cls in (IdentityCodec, Int8Codec, Fp8Codec, TopKCodec):
     register_codec(_cls)
 
 
@@ -179,9 +218,11 @@ def _splitmix64(z: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Transport:
-    """The client->server wire: an uplink codec for the smashed-data
-    payloads.  Integer leaves (labels) pass through uncoded; every float
-    leaf is coded with its own seed per (seed, unit, channel, client, leaf).
+    """The wires between clients and server: an uplink codec for the
+    smashed-data payloads and a downlink codec for the gradient replies of
+    blocking methods.  Integer leaves (labels) pass through uncoded; every
+    float leaf is coded with its own seed per (seed, unit, channel, client,
+    leaf).
 
     ``bits_fn(unit, client, leaf, salt, shape) -> uint32 [R, C]`` replaces
     the Philox bits with caller bits; it exists so tests can feed the JAX
@@ -189,12 +230,13 @@ class Transport:
     """
 
     uplink: Codec = _CODECS["none"]
+    downlink: Codec = _CODECS["none"]
     seed: int = 0
     bits_fn: Optional[Callable] = None
 
     @property
     def is_identity(self) -> bool:
-        return self.uplink.is_identity
+        return self.uplink.is_identity and self.downlink.is_identity
 
     def unit_seed(self, unit: int, client: int, salt: int, leaf: int) -> int:
         """64-bit seed (as a signed int64 value) of one client's float leaf
@@ -235,6 +277,12 @@ class Transport:
         each ``[n, ...]``) of upload unit ``unit``."""
         return self._code(self.uplink, payload, unit, CHANNEL_SALTS["uplink"])
 
+    def code_downlink(self, payload, unit: int):
+        """Code a client-stacked reply of upload unit ``unit`` (the same
+        ``unit`` as that unit's upload; salt 1)."""
+        return self._code(self.downlink, payload, unit,
+                          CHANNEL_SALTS["downlink"])
+
     def _payload_bytes(self, codec: Codec, spec_tree, ints: bool) -> int:
         leaves = [spec_tree] if isinstance(spec_tree, torch.Tensor) \
             else list(spec_tree)
@@ -256,16 +304,26 @@ class Transport:
         raw integer side channels (labels)."""
         return self._payload_bytes(self.uplink, spec_tree, ints=True)
 
+    def downlink_wire_bytes(self, spec_tree) -> int:
+        """Exact wire bytes of the float leaves of one client's reply."""
+        return self._payload_bytes(self.downlink, spec_tree, ints=False)
+
+    def downlink_payload_bytes(self, spec_tree) -> int:
+        """All wire bytes of one client's reply, integer leaves included."""
+        return self._payload_bytes(self.downlink, spec_tree, ints=True)
+
 
 def make_transport(uplink: Union[str, Codec] = "none",
+                   downlink: Union[str, Codec] = "none",
                    seed: int = 0) -> Transport:
-    return Transport(uplink=get_codec(uplink), seed=seed)
+    return Transport(uplink=get_codec(uplink), downlink=get_codec(downlink),
+                     seed=seed)
 
 
 def resolve_transport(transport, fsl=None) -> Transport:
     """Normalize a Trainer/method ``transport=`` argument: ``None`` reads
     ``fsl.codec``, a string names the uplink codec, a Transport passes
-    through."""
+    through.  The downlink is coded only through an explicit Transport."""
     if isinstance(transport, Transport):
         return transport
     if transport is None:
