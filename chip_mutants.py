@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11) can
-fail.  Run from the repo root on a machine with one NVIDIA GPU and nvcc:
+"""Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11) and
+the compiled runner's (phase 19) can fail.  Run from the repo root on a
+machine with one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
-The tree itself runs phases 1, 2, 7 and 11 of ``chip_smoke.py`` in a
-fresh process, with every check reported instead of raised; each mutant
-below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward)
-and 11 (K5) that holds its kernel.  A mutant is one deliberate fault in a
-kernel source, made in a copy of the checkout under a temporary
+The tree itself runs phases 1, 2, 7, 11 and 19 (its CNN CSE-FSL path) of
+``chip_smoke.py`` in a fresh process, with every check reported instead
+of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
+K6 and its backward), 11 (K5) and 19 (the captured round) that holds its
+fault.  A mutant is one deliberate fault in a kernel source or in the
+compiled runner, made in a copy of the checkout under a temporary
 directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
@@ -27,6 +29,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CE = "src/repro_torch/kernels/csrc/fused_ce.cu"
 SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
+BASE = "src/repro_torch/core/methods/base.py"
+GRAPHS = "src/repro_torch/core/graphs.py"
+COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
 # name -> (edits (file, old, new), a check that must fail).  A mutant
 # never desynchronises a kernel's producer and consumers (that would hang
 # the card): it changes what both see, or only what a consumer adds up.
@@ -102,6 +107,17 @@ MUTANTS = {
           "for (int k = 0; k < nslab; ++k) s += k == 1 ? 0.f "
           ": p[k * bsn + f];")],
         "ssm_scan_bwd [4, 2048, 8192, 16] G=4 bfloat16 db per element"),
+    "captured round: seeds frozen at the capture's step": (
+        [(BASE, "sd = {k: v.index_select(0, step)[0] for k, v in "
+          "seeds.items()}", "sd = {k: v[0] for k, v in seeds.items()}")],
+        COMPILED),
+    "captured round: lr frozen at the capture's step": (
+        [(BASE, "lr = lrs.index_select(0, step)[0]", "lr = lrs[0]")],
+        COMPILED),
+    "captured round: the aggregating variant skips the aggregation": (
+        [(GRAPHS, "                self._round(aggregated)",
+          "                self._round(False)")],
+        COMPILED),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -114,15 +130,19 @@ cs.phase_device()
 cs.phase_build()
 """
 PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
-          "11": 'cs.phase_mamba_kernels(torch.device("cuda"))\n'}
+          "11": 'cs.phase_mamba_kernels(torch.device("cuda"))\n',
+          "19": 'cs.phase_compiled(torch.device("cuda"), '
+                'paths=("cnn-cse_fsl",))\n'}
 
 
 def phase_of(path: str) -> str:
-    """The chip_smoke.py phase that holds the kernels of ``path``."""
+    """The chip_smoke.py phase that holds the code of ``path``."""
+    if path.endswith(".py"):
+        return "19"
     return "11" if path == SSM else "7"
 
 
-def run(where: str, phases=("7", "11")) -> list:
+def run(where: str, phases=("7", "11", "19")) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)
@@ -149,8 +169,10 @@ def main() -> int:
         for i, (name, (edits, must_fail)) in enumerate(MUTANTS.items()):
             print(f"\n== mutant: {name}", flush=True)
             copy = os.path.join(tmp, f"m{i}")
+            # a mutant of Python code keeps the built kernels
+            python_only = all(p.endswith(".py") for p, _, _ in edits)
             shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
-                ".git", "build", "chiprun_out"))
+                ".git", "chiprun_out", *(() if python_only else ("build",))))
             for path, old, new in edits:
                 p = os.path.join(copy, path)
                 with open(p) as f:

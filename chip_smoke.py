@@ -86,7 +86,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    K6's backward; the plain attention backward never called), the meter
    and the peak device memory;
 18. baseline times: a round of each baseline path with its device time
-   and idle share, and K2 at the Qwen3 wire shape beside its bound.
+   and idle share, and K2 at the Qwen3 wire shape beside its bound;
+19. compiled runner: ``Trainer.run_compiled`` (each round a replay of a
+   captured CUDA graph) against ``Trainer.run`` from the same state, under
+   deterministic algorithms, on the CNN (CSE-FSL and the three
+   baselines), Qwen3 (CSE-FSL, FSL_OC) and falcon-mamba (CSE-FSL, phase
+   12's cut), int8 on every wire channel including the model-sync wire:
+   the states bitwise, the history rows and meters equal, the meter
+   equal to CommProfile (model-sync bytes included), a profiled replay
+   launching every kernel of the loop's round as often (K2 on the uplink,
+   the downlink and the model-sync channels) with no wrapper called; then
+   a kernel wrapper made to synchronize makes the capture raise;
+20. loop vs compiled: each path's round in both engines (CUDA-event
+   medians, deterministic algorithms on in both), device time from the
+   profiled rounds, idle share and peak memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
@@ -94,9 +107,11 @@ JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +121,9 @@ import time
 # round leaves 30 GB reserved but unallocated in fragments when its update
 # needs one 8 GiB block, so let segments grow instead.
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# Before the first cuBLAS call: deterministic algorithms (phase 19's run
+# against run_compiled) need a fixed cuBLAS workspace.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -118,6 +136,7 @@ from repro_torch.configs.base import FSLConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.accounting import CommMeter, CostModel  # noqa: E402
 from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
+from repro_torch.core.graphs import state_leaves  # noqa: E402
 from repro_torch.core.methods import get_method  # noqa: E402
 from repro_torch.core.methods.base import stacked_keys  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
@@ -2159,6 +2178,313 @@ def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The compiled chunk runner: Trainer.run_compiled as CUDA-graph replay
+# ---------------------------------------------------------------------------
+
+# The kernels' symbols as the profiler names them (K1 .. K6 and the K5/K6
+# backwards; fused_ce's bf16 kernels are one templated GEMM and a combine).
+PROFILED = ("quantize_bits_kernel", "quantize_philox_kernel",
+            "ce_gemm_kernel", "ce_combine_kernel", "ce_fwd_kernel",
+            "ce_dx_kernel", "ce_dw_kernel", "swa_fwd_kernel", "swa_tc_kernel",
+            "swa_bwd_delta_kernel", "swa_bwd_dkdv_kernel",
+            "swa_bwd_dq_kernel", "ssm_fwd_kernel", "ssm_bwd_kernel",
+            "ssm_bwd_sum_kernel")
+# Phase 19's paths: (tag, model, method, rounds, chunk).  Every path codes
+# the uplink, the blocking methods' downlink and the model-sync wire with
+# int8; the lr decays every round, so a round that read another round's lr
+# shows.  The Mamba path is the phase-12 cut (16 layers, S = 2048).
+# The Mamba path goes first: its loop rounds peak within half a GiB of the
+# card's memory, so it runs before the other paths leave anything behind.
+COMPILED_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", 2, 2),
+                  ("qwen3-cse_fsl", "qwen3", "cse_fsl", 2, 2),
+                  ("qwen3-fsl_oc", "qwen3", "fsl_oc", 2, 2),
+                  ("cnn-cse_fsl", "cnn", "cse_fsl", 4, 3),
+                  ("cnn-fsl_mc", "cnn", "fsl_mc", 3, 2),
+                  ("cnn-fsl_oc", "cnn", "fsl_oc", 3, 2),
+                  ("cnn-fsl_an", "cnn", "fsl_an", 3, 2))
+
+
+def kernel_counts(prof) -> dict:
+    """Launches of each of the port's kernels in a profile, by symbol."""
+    out = {k: 0 for k in PROFILED}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in PROFILED:
+            if re.search(rf"\b{k}\b", e.key):
+                out[k] += e.count
+    return out
+
+
+def device_ms(prof, tag="", per: int = 1, top: int = 0) -> float:
+    """Kernel time in a profile (ms, divided by ``per``); prints the
+    ``top`` kernels."""
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {tag} {e.self_device_time_total / per / 1e3:9.3f} ms "
+              f"{e.count / per:7.1f}x  {e.key[:70]}")
+    return sum(e.self_device_time_total for e in ev) / 1e3 / per
+
+
+def cuda_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
+def compiled_trainer(model, method, dev):
+    """``(trainer, make_batcher, cost model, batch size)`` of a phase-19
+    path."""
+    down = "int8" if get_method(method).downloads_gradients else "none"
+    tp = make_transport("int8", down, model_sync="int8")
+    if model == "cnn":
+        bundle = cnn_bundle(CIFAR10, device=dev)
+        fsl = FSLConfig(num_clients=N, h=H, lr=LR, lr_decay_every=1,
+                        method=method)
+        fed = make_data()
+        return (Trainer(bundle, fsl, transport=tp),
+                lambda: FederatedBatcher(fed, B, H, seed=0),
+                cost_model(bundle, N, SAMPLES // N), B)
+    cfg = lm_cfg() if model == "qwen3" else mb_cfg()
+    s = LM_S if model == "qwen3" else MB_S
+    bundle = transformer_bundle(cfg, device=dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
+                    method=method)
+    fed = build_data(cfg, fsl, s, LM_SAMPLES, non_iid=False, seed=0)
+    return (Trainer(bundle, fsl, transport=tp),
+            lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0),
+            cost_model(bundle, LM_N, LM_SAMPLES), LM_B)
+
+
+def events_ms(fn, reps: int, per: int) -> list:
+    """CUDA-event times of ``reps`` calls of ``fn``, divided by ``per``."""
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / per)
+    return out
+
+
+def state_on_cpu(state) -> list:
+    return [t.cpu() for t in state_leaves(state)]
+
+
+def check_compiled_path(tag, model, method, rounds, chunk, dev):
+    """Phase 19 for one path, with the measurements phase 20 prints.
+
+    ``run`` for ``rounds`` rounds from ``init(0)``, profiled, then timed on
+    for a few more; ``run_compiled`` for the same rounds from ``init(0)``
+    (warm-up, the two captures, the replays), both under deterministic
+    algorithms: the states bitwise, the history rows and the meters equal,
+    the meters equal to CommProfile; then one more chunk of replays,
+    profiled: the same kernels as often as a loop round, and no wrapper
+    call; then a few chunks timed."""
+    print(f"  [{tag}] at the start: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated")
+    tr, make_batcher, cm, bsz = compiled_trainer(model, method, dev)
+    # deterministic algorithms for the whole path: the graphs captured here
+    # keep their kernels, so the loop is timed under the same setting
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    meters = [CommMeter(), CommMeter()]
+    reps = 5 if model == "cnn" else 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    batcher, state = make_batcher(), tr.init(0)
+    t = time.perf_counter()
+    with cuda_profile() as prof:
+        state, lhist = tr.run(state, batcher, rounds, log_every=1,
+                              meter=meters[0], cost_model=cm)
+        sync(dev)
+    loop_s = time.perf_counter() - t
+    loop_counts = kernel_counts(prof)
+    loop_dev = device_ms(prof, "loop", rounds, top=5)
+    del prof
+    want = [t_.cpu() for t_ in state_leaves(state)]
+    box = {"state": state}
+
+    def loop_round():
+        box["state"], _ = tr.run(box["state"], batcher, 1)
+
+    loop_ms = events_ms(loop_round, reps, 1)
+    loop_peak = torch.cuda.max_memory_allocated(dev)
+    del state, box
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    batcher, state = make_batcher(), tr.init(0)
+    t = time.perf_counter()
+    state, chist = tr.run_compiled(state, batcher, rounds, chunk=chunk,
+                                   log_every=1, meter=meters[1],
+                                   cost_model=cm)
+    sync(dev)
+    first_s = time.perf_counter() - t
+    at_capture = {k: v for k, v in counts().items() if v}
+    got = state_leaves(state)
+    bitwise = len(got) == len(want) and all(
+        same(g, w) for g, w in zip(got, want))
+    worst = 0.0 if bitwise else max(diff(g.cpu(), w)
+                                    for g, w in zip(got, want))
+    del want
+    print(f"  [{tag}] run: {rounds} rounds in {loop_s:.3f} s (profiled); "
+          f"run_compiled (warm-up, two captures, {rounds} replays at chunk "
+          f"{chunk}): {first_s:.3f} s; wrapper launches at warm-up and "
+          f"capture {at_capture}")
+    check(bitwise, f"[{tag}] run_compiled's state == run's, bitwise, under "
+          f"deterministic algorithms (worst |diff| {worst:.3g})")
+    check(chist == lhist, f"[{tag}] history rows (losses, aggregated, "
+          "comm_bytes) == run's, bitwise")
+    prof_ = tr.comm_profile(cm, bsz, batch=make_batcher().next_round())
+    aggs = sum(r["aggregated"] for r in chist)
+    wire = {"uplink_smashed": rounds * prof_.wire_uplink_smashed,
+            "uplink_labels": rounds * prof_.uplink_labels,
+            "downlink_grads": rounds * prof_.wire_downlink_grads,
+            "model_sync": aggs * prof_.wire_model_sync}
+    check(meters[1].counts == meters[0].counts == wire
+          and 0 < prof_.wire_model_sync < prof_.model_sync,
+          f"[{tag}] meter {meters[1].counts} == run's == CommProfile "
+          f"(model sync {prof_.wire_model_sync:,} B int8 of "
+          f"{prof_.model_sync:,} B raw, {aggs} aggregations)")
+
+    reset_counts()
+    with cuda_profile() as prof:
+        state, rhist = tr.run_compiled(state, batcher, chunk, chunk=chunk,
+                                       log_every=1)
+        sync(dev)
+    replay_counts = kernel_counts(prof)
+    replay_dev = device_ms(prof, "replay", chunk, top=5)
+    del prof
+    wrapper_calls = sum(counts().values())
+    nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
+    k2 = tr.units_per_round * (
+        2 if get_method(method).downloads_gradients else 1) + 2 * nm
+    per_loop = {k: v / rounds for k, v in loop_counts.items() if v}
+    per_replay = {k: v / chunk for k, v in replay_counts.items() if v}
+    print(f"  [{tag}] kernels a round, profiled: loop {per_loop}; replayed "
+          f"{per_replay}")
+    check(per_replay == per_loop and all(r["aggregated"] for r in rhist),
+          f"[{tag}] a replayed round launches every kernel a loop round "
+          f"does, as often ({len(per_replay)} kernels; every round "
+          "aggregates)")
+    check(per_replay.get("quantize_philox_kernel") == k2,
+          f"[{tag}] K2 {k2} times a replayed round: {tr.units_per_round} "
+          f"unit(s) x the coded wire channel(s), {nm} model leaves up, "
+          f"{nm} down")
+    check(wrapper_calls == 0, f"[{tag}] the replays called no kernel "
+          "wrapper: the graphs launch the kernels")
+
+    box = {"state": state}
+
+    def compiled_chunk():
+        box["state"], _ = tr.run_compiled(box["state"], batcher, chunk,
+                                          chunk=chunk)
+
+    compiled_ms = events_ms(compiled_chunk, reps, chunk)
+    cap = tr._captured
+
+    def replay_round():             # one aggregating round, device only
+        cap.step.zero_()
+        cap.graphs[True].replay()
+
+    graph_ms_ = events_ms(replay_round, reps, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"rounds": rounds, "chunk": chunk,
+           "loop_ms": statistics.median(loop_ms), "loop_rounds_ms": loop_ms,
+           "compiled_ms": statistics.median(compiled_ms),
+           "compiled_rounds_ms": compiled_ms, "loop_device_ms": loop_dev,
+           "compiled_device_ms": replay_dev,
+           "replay_ms": statistics.median(graph_ms_),
+           "loop_peak_bytes": loop_peak, "compiled_peak_bytes": peak,
+           "kernels_per_round": per_replay, "model_leaves": nm,
+           "run_compiled_first_s": first_s}
+    # idle: the loop's from its kernel time; the compiled round's from one
+    # replayed round alone (inside a graph the profiler's kernel times can
+    # add up to more than the replay: short kernels read long there)
+    out["loop_idle"] = 1 - loop_dev / out["loop_ms"]
+    out["compiled_idle"] = 1 - out["replay_ms"] / out["compiled_ms"]
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    del box, state, tr, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_capture_raises(dev):
+    """A wrapper made to synchronize the card: the capture raises, and
+    run_compiled does not fall back to eager rounds."""
+    tr, make_batcher, _, _ = compiled_trainer("cnn", "cse_fsl", dev)
+    launch = qk._launch
+
+    def syncing(*a, **kw):
+        torch.cuda.synchronize()
+        return launch(*a, **kw)
+
+    qk._launch = syncing
+    raised = None
+    try:
+        tr.run_compiled(tr.init(0), make_batcher(), 2, chunk=2)
+    except Exception as e:      # noqa: BLE001 -- any error of the capture
+        raised = e
+    finally:
+        qk._launch = launch
+    check(raised is not None and tr._captured is None,
+          f"a syncing kernel wrapper makes the capture raise "
+          f"({type(raised).__name__}: {str(raised).splitlines()[0][:90]}), "
+          "no eager fallback")
+    x = torch.ones(64, 64, device=dev)
+    check(float((x @ x).sum()) == 64.0 ** 3, "the card computes after the "
+          "failed capture")
+
+
+def phase_compiled(dev, paths=None):
+    """Phases 19 and 20: each path of COMPILED_PATHS (or of ``paths``, tags)
+    through check_compiled_path, then the capture that must raise; phase
+    20 prints the loop and compiled rounds measured on the way."""
+    t0 = phase("19 compiled runner: Trainer.run_compiled as CUDA-graph "
+               "replay against Trainer.run")
+    env = os.environ.get
+    print(f"  PYTORCH_CUDA_ALLOC_CONF={env('PYTORCH_CUDA_ALLOC_CONF')} (the "
+          f"graphs' private pool takes it), CUBLAS_WORKSPACE_CONFIG="
+          f"{env('CUBLAS_WORKSPACE_CONFIG')}")
+    held = torch.cuda.memory_allocated(dev)
+    # the earlier phases' timing streams each keep a cuBLAS workspace
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  held at the start: {held / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB after "
+          f"clearing cuBLAS workspaces")
+    out = {}
+    for tag, model, method, rounds, chunk in COMPILED_PATHS:
+        if paths is None or tag in paths:
+            out[tag] = check_compiled_path(tag, model, method, rounds, chunk,
+                                           dev)
+    check_capture_raises(dev)
+    done(t0)
+    t0 = phase("20 loop vs compiled rounds (CUDA-event medians; device time "
+               "from the profiled rounds)")
+    for tag, r in out.items():
+        print(f"  [{tag}] loop {r['loop_ms']:.3f} ms of "
+              f"{[round(x, 3) for x in r['loop_rounds_ms']]}, device "
+              f"{r['loop_device_ms']:.3f} ms, idle {r['loop_idle']:.4f}, "
+              f"peak {r['loop_peak_bytes'] / 2**30:.3f} GiB | compiled "
+              f"{r['compiled_ms']:.3f} ms of "
+              f"{[round(x, 3) for x in r['compiled_rounds_ms']]}, one "
+              f"replayed round alone {r['replay_ms']:.3f} ms, idle "
+              f"{r['compiled_idle']:.4f} (kernel time "
+              f"{r['compiled_device_ms']:.3f} ms), peak "
+              f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB; "
+              f"{r['loop_ms'] / r['compiled_ms']:.2f}x")
+    done(t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
@@ -2191,11 +2517,20 @@ def main() -> int:
     phase_baselines_cpu_vs(dev, fed)
     lm_paths = phase_lm_baselines(dev)
     baselines = phase_baseline_times(dev, fed, records, cnn_paths, lm_paths)
+    del cnn_paths, lm_paths
+    torch.cuda.empty_cache()
+    compiled = phase_compiled(dev)
+    for r_ in records:              # K2 a replayed round, model sync in
+        if r_["name"] == "quantize_philox":
+            r_["compiled_launches_per_round"] = {
+                tag: c["kernels_per_round"]["quantize_philox_kernel"]
+                for tag, c in compiled.items()}
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
                       "round_ms": round_ms, "lm": lm, "mamba": mb,
-                      "baselines": baselines, "card": card}))
+                      "baselines": baselines, "compiled": compiled,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 storage (``benchmarks/table5_tradeoff.py``).
 
 Runs every method for a fixed round budget on the paper's CIFAR-10 CNN
-through ``Trainer.run`` (the JAX script's ``run_compiled`` is proved
-bitwise equal to ``run`` there), meters the communication from each
+through ``Trainer.run_compiled``, as the JAX script does (the compiled
+runner is bitwise equal to ``Trainer.run`` on the CPU; on the card each
+round is a CUDA-graph replay), meters the communication from each
 method's CommProfile and reports its Table II storage, then asserts the
 paper's claims: CSE-FSL stores less than FSL_AN and FSL_MC, and per
 trained batch communicates less than half of FSL_AN's load, less again at
@@ -60,8 +61,9 @@ def main(device="cuda", rounds: int = ROUNDS):
                         grad_clip=1.0 if method == "fsl_oc" else 0.0)
         trainer = Trainer(bundle, fsl)
         meter = CommMeter()
-        state, _ = trainer.run(trainer.init(), FederatedBatcher(
-            fed, BS, h, seed=0), rounds, meter=meter, cost_model=cm)
+        state, _ = trainer.run_compiled(trainer.init(), FederatedBatcher(
+            fed, BS, h, seed=0), rounds, chunk=rounds, meter=meter,
+            cost_model=cm)
         acc = accuracy(bundle, trainer.merged_params(state), xt, yt)
         profile = trainer.comm_profile(cm, BS)
         label = f"cse_fsl_h{h}" if method == "cse_fsl" else method

@@ -6,9 +6,8 @@ dense and Mamba-1 (``ssm``) families' fields; MoE, hybrid and modality
 fields come with the slices that port those families.  ``remat`` is left
 out: activation checkpointing (``torch.utils.checkpoint``) does not
 compose with the ``torch.func.grad`` of the client phase, so the port runs
-without it.  ``unroll`` and ``dryrun_unroll`` (JAX scan knobs) and
-``model_codec`` (the model-sync wire) come with the parts of the port that
-use them.
+without it.  ``unroll`` and ``dryrun_unroll`` are JAX scan hints with no
+PyTorch meaning and stay out.
 """
 from __future__ import annotations
 
@@ -111,6 +110,7 @@ class FSLConfig:
     method: str = "cse_fsl"     # cse_fsl | fsl_mc | fsl_oc | fsl_an
     server_update: str = "sequential"   # sequential (faithful) | batched
     codec: str = "none"         # uplink wire codec: none|int8|fp8|topk
+    model_codec: str = "none"   # model-sync (FedAvg) wire codec, both ways
     grad_clip: float = 0.0      # used by FSL_OC (0 -> a limit of 1.0)
     lr: float = 0.05
     lr_decay_every: int = 10    # rounds (paper: decay every 10 rounds)

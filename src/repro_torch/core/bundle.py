@@ -9,12 +9,45 @@ from typing import Any, Callable, Dict
 import torch
 from torch.func import functional_call
 
-from repro_torch.common import dtype_of, resolve_device
+from repro_torch.common import dtype_of, resolve_device, tree_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import model as tf_mod
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.layers import cross_entropy
+
+
+def _named_leaves(tree, name: str = ""):
+    """``(key, leaf)`` pairs in ``tree_leaves`` order, each leaf with the
+    dict key it sits under."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def same_axes(tree) -> list:
+    """A parameter tree already laid out as the JAX package keeps it: no
+    leaf moves (the transformers)."""
+    return [None] * len(tree_leaves(tree))
+
+
+def cnn_wire_axes(tree) -> list:
+    """Per leaf of a client's CNN parameter tree (``tree_leaves`` order),
+    the axes that lay it out as the JAX package's checkpoint does: conv
+    weights OIHW -> HWIO, ``nn.Linear`` weights ``[dout, din]`` -> ``[din,
+    dout]``; None where nothing moves (biases)."""
+    out = []
+    for name, t in _named_leaves(tree):
+        if name.endswith(".weight") and t.dim() in (2, 4):
+            out.append((2, 3, 1, 0) if t.dim() == 4 else (1, 0))
+        else:
+            out.append(None)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +58,11 @@ class SplitModelBundle:
     tree of tensors; ``init(generator)`` draws them on ``device``.
     ``specs`` holds the same layout as ``meta`` tensors (shapes only).
     ``inputs`` is a tree (``{"tokens": ...}`` for transformers, a tensor
-    for CNNs); ``labels`` an int tensor.
+    for CNNs); ``labels`` an int tensor.  ``wire_axes(tree)`` gives, per
+    leaf of a client's parameter tree, the axes permutation that lays it
+    out as the JAX package's checkpoint (None: as it is): the model-sync
+    wire codes each leaf in that layout, so its 8x128 tiles and its wire
+    bytes are the JAX package's.
     """
     name: str
     device: torch.device
@@ -37,6 +74,7 @@ class SplitModelBundle:
     e2e_loss: Callable[..., Any]          # (cp, sp, inputs, labels) -> loss
     smashed_bytes_per_sample: int = 0     # q in Table II (at model dtype)
     label_bytes_per_sample: int = 4
+    wire_axes: Callable[[Any], list] = same_axes
 
 
 def transformer_bundle(cfg: ModelConfig, device="cuda") -> SplitModelBundle:
@@ -107,4 +145,5 @@ def cnn_bundle(cfg: cnn_mod.CNNConfig, device="cuda") -> SplitModelBundle:
         client_smashed=client_smashed,
         e2e_loss=e2e_loss,
         smashed_bytes_per_sample=cfg.smashed_size * 4,
+        wire_axes=cnn_wire_axes,
     )

@@ -1,0 +1,162 @@
+"""CUDA-graph replay of the chunk program: the port's counterpart of
+``jax.jit`` over the JAX package's ``lax.scan`` of rounds.
+
+:class:`CapturedChunk` captures ONE round of a chunk program's ``body``
+(:func:`repro_torch.core.methods.base.make_chunk_step`) twice on the card,
+without and with the aggregation, and replays one of the two per round;
+the host picks it from the aggregation cadence, which it knows without
+reading the card.  Everything a round reads that changes from round to
+round lies in static device buffers the body indexes with a device step
+counter:
+
+- the chunk's batches (``[R, n, h, B, ...]``) or, on the pooled data path,
+  its ``[R, n, h, B]`` index plan into the batcher's device pool;
+- the lrs (fp32 ``[R]``) and the wire seeds (channel -> ``[R, ...]``);
+- the step counter itself (int64 ``[1]``), which the captured round adds
+  one to at its end, so R replays run back to back with no host work
+  between them;
+- the stacked metrics, written per round into a float64 ``[R, K]`` buffer
+  (exact for fp32 and bf16 values) that the host fetches once a chunk.
+
+The state's tensors are static buffers too: the captured round runs the
+functional round step and copies its result back into them.  The state
+passed in is adopted as those buffers (donated: keep no reference to it).
+
+Warm-up runs one round and its aggregation eagerly on a side stream
+before the captures, as PyTorch's graph rules require (lazy cuBLAS and
+cuDNN set-up, the kernels' one-time attributes); its result is dropped.
+Both captures share one private memory pool, so the two graphs hold the
+memory of one round; the Trainer keeps the pool and the side stream for
+all its captures (each new stream would hold a cuBLAS workspace of its
+own for good).  A capture that fails raises; nothing falls back to eager
+rounds on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common import tree_leaves, tree_map
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def state_leaves(state) -> list:
+    """The state's tensors (every key but the host counter ``round``)."""
+    return tree_leaves({k: v for k, v in state.items() if k != "round"})
+
+
+class CapturedChunk:
+    """One round of ``body`` captured on the card, with and without the
+    aggregation, for chunks of up to ``rows`` rounds.
+
+    ``state`` is adopted as the static state; ``data`` (numpy ``[r, ...]``
+    batches as ``(inputs, labels)``, or, with ``pool``, the int64 ``[r, n,
+    h, B]`` index plan), ``lrs`` (fp32 ``[r]``) and ``seeds`` (channel ->
+    int64 ``[r, ...]``) are the first chunk, which sizes the static
+    buffers and feeds the warm-up.  ``mempool`` (the graphs' private
+    memory pool) and ``stream`` (the side stream) are the Trainer's."""
+
+    def __init__(self, body, state, rows: int, data, lrs: np.ndarray,
+                 seeds: Dict[str, np.ndarray], pool, mempool, stream):
+        self.body, self.rows, self.pooled = body, rows, pool is not None
+        self.state = state
+        dev = state_leaves(state)[0].device
+
+        def buf(a):
+            return torch.zeros((rows,) + a.shape[1:], dtype=_torch_dtype(a),
+                               device=dev)
+
+        self.staged = tree_map(buf, data)       # the batches or index plan
+        self.data = (pool, self.staged) if self.pooled else self.staged
+        self.lrs = buf(lrs)
+        self.seeds = {k: buf(v) for k, v in seeds.items()}
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.stage(data, lrs, seeds)
+        self.stream = stream
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            self.names = list(body(state, self.data, self.lrs, self.seeds,
+                                   self.step, True)[1])
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self.metrics = torch.zeros((rows, len(self.names)),
+                                   dtype=torch.float64, device=dev)
+        self.mempool = mempool
+        self.graphs = {}
+        for aggregated in (True, False):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=self.mempool, stream=self.stream):
+                self._round(aggregated)
+            self.graphs[aggregated] = g
+
+    def _round(self, aggregated: bool):
+        """The captured round: the body at ``step``, its metrics into row
+        ``step``, its state into the static state, ``step + 1``."""
+        new, m = self.body(self.state, self.data, self.lrs, self.seeds,
+                           self.step, aggregated)
+        if list(m) != self.names:
+            raise RuntimeError(f"round metrics {list(m)} != {self.names}")
+        row = torch.stack([m[k].to(torch.float64) for k in self.names])
+        self.metrics.index_copy_(0, self.step, row[None])
+        static, fresh = state_leaves(self.state), state_leaves(new)
+        if len(static) != len(fresh) or any(
+                s.shape != x.shape or s.dtype != x.dtype
+                for s, x in zip(static, fresh)):
+            raise RuntimeError("the round step changed the state's layout")
+        held = {s.untyped_storage().data_ptr() for s in static}
+        pairs = []
+        for s, x in zip(static, fresh):
+            if x is s:
+                continue
+            if x.untyped_storage().data_ptr() in held:   # a view of a buffer
+                x = x.clone()
+            pairs.append((s, x))
+        for s, x in pairs:
+            s.copy_(x)
+        self.step.add_(1)
+
+    def load_state(self, state):
+        """Copy ``state``'s tensors into the static state (those that are
+        not the static buffers already)."""
+        for s, x in zip(state_leaves(self.state), state_leaves(state)):
+            if x is not s:
+                s.copy_(x)
+
+    def stage(self, data, lrs: np.ndarray, seeds: Dict[str, np.ndarray]):
+        """Copy one chunk's host arrays into the first rows of the static
+        buffers (once a chunk, before its replays)."""
+        def put(b, a):
+            b[:a.shape[0]].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        tree_map(put, self.staged, data)
+        put(self.lrs, lrs)
+        for k, v in seeds.items():
+            put(self.seeds[k], v)
+
+    def replay(self, flags) -> np.ndarray:
+        """Replay one round per entry of ``flags`` (True: the aggregating
+        variant) from step 0, then fetch the ``[len(flags), K]`` metrics
+        once."""
+        self.step.zero_()
+        for aggregated in flags:
+            self.graphs[bool(aggregated)].replay()
+        return self.metrics[:len(flags)].cpu().numpy()
+
+
+def matches(cap: Optional[CapturedChunk], rows: int, pool, data) -> bool:
+    """``cap`` can run a chunk of ``rows`` rounds of this data (the same
+    device pool, or staged batches of the same shapes)."""
+    if cap is None or cap.rows < rows or cap.pooled != (pool is not None):
+        return False
+    if pool is not None and cap.data[0] is not pool:
+        return False
+    same = []
+    tree_map(lambda b, a: same.append(tuple(b.shape[1:]) == a.shape[1:]
+                                      and b.dtype == _torch_dtype(a)),
+             cap.staged, data)
+    return all(same)

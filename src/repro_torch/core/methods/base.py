@@ -6,14 +6,24 @@ A *method* is a stateless strategy object:
   - ``init_state(bundle, fsl, generator)`` -> state (clients, and server
     replicas where a method has them, stacked on dim 0)
   - ``make_round_step(bundle, fsl, transport=None)``
-        -> ``round_step(state, batch, lr) -> (state, metrics)``
-  - ``make_aggregate()``                  -> ``aggregate(state)``
+        -> ``round_step(state, batch, lr, seeds) -> (state, metrics)``
+  - ``make_aggregate()``                  -> ``aggregate(state, seeds=None)``
+  - ``make_wire_aggregate(bundle, fsl, transport=None)``
+        -> the aggregate behind the model-sync wire
+  - ``make_chunk_step(bundle, fsl, transport=None, gather=False)``
+        -> ``chunk_step`` over a chunk of rounds
   - ``merged_params(state)``              -> deployable params
   - ``comm_profile(cm, fsl, batch_size)`` -> declarative :class:`CommProfile`
 
 All methods share one batch contract: ``batch = (inputs, labels)`` tensors
-with leading dims ``[n_clients, h, B, ...]``.  ``state["round"]`` is a
-Python int (the upload-unit counter); tensors live on the bundle's device.
+with leading dims ``[n_clients, h, B, ...]``.  Tensors live on the bundle's
+device, and so do the round step's per-round inputs: ``lr`` is a 0-d fp32
+tensor and ``seeds`` the round's wire seeds (``Transport.stage_seeds``, as
+device int64 tables), so nothing in a round reads a host value that
+changes from round to round.  ``state["round"]`` is a Python int, the
+upload-unit counter: the round step advances it as host bookkeeping (the
+codecs read it only through the tests' ``bits_fn``), and the compiled
+runner sets it on the host after each chunk.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.func import vmap
 
-from repro_torch.common import tree_map
+from repro_torch.common import tree_leaves, tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CostModel
 from repro_torch.core.bundle import SplitModelBundle
@@ -100,6 +110,12 @@ def stacked_keys(hooks: AsyncHooks) -> tuple:
         else ("clients", hooks.server_key)
 
 
+def _one_client(tree):
+    """ONE client's slice of a stacked ``meta`` tree."""
+    return tree_map(lambda x: torch.empty(tuple(x.shape[1:]), dtype=x.dtype,
+                                          device="meta"), tree)
+
+
 def _mean_metrics(rows):
     """``{name: mean}`` over a list of metric dicts of scalars."""
     return {k: torch.stack([m[k] for m in rows]).mean() for k in rows[0]}
@@ -122,7 +138,9 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
     Hooks whose unit has the ``h`` axis run one unit a round; per-mini-batch
     hooks run one unit per mini-batch (``state["round"]`` advances each
     unit), and their metrics are the mean over clients within a unit, then
-    over the ``h`` units.  With the identity transport no codec op runs.
+    over the ``h`` units.  Unit ``k`` of the round codes with
+    ``seeds["uplink"][k]`` and ``seeds["downlink"][k]``.  With the identity
+    transport no codec op runs.
     """
     from repro_torch.transport import resolve_transport
     tp = resolve_transport(transport, fsl)
@@ -144,7 +162,7 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
     code_up = not tp.uplink.is_identity
     code_down = blocking and not tp.downlink.is_identity
 
-    def unit_step(state, ubatch, lr):
+    def unit_step(state, ubatch, lr, useeds):
         def client(cs, b):
             cs, upload, pending, m = hooks.client_compute(cs, b, lr)
             return (cs, upload, m, pending) if blocking else (cs, upload, m)
@@ -152,7 +170,8 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
         cstack, uploads, cmetrics, *pendings = vmap(client)(
             {k: state[k] for k in stacked}, ubatch)
         if code_up:
-            uploads = tp.code_uplink(uploads, state["round"])
+            uploads = tp.code_uplink(uploads, state["round"],
+                                     seeds=useeds.get("uplink"))
         if shared:
             sstate, replies, smetrics = state[skey], [], []
             for i in range(n):
@@ -174,7 +193,8 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
             replies = replies[0] if blocking else None
         if blocking:
             if code_down:
-                replies = tp.code_downlink(replies, state["round"])
+                replies = tp.code_downlink(replies, state["round"],
+                                           seeds=useeds.get("downlink"))
             cstack = vmap(lambda cs, p, r: hooks.client_receive(cs, p, r, lr))(
                 cstack, pendings[0], replies)
         new_state = {**state, **cstack, "round": state["round"] + 1}
@@ -184,20 +204,101 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
         metrics.update(smetrics)
         return new_state, metrics
 
-    def round_step(state, batch, lr):
+    def round_step(state, batch, lr, seeds=None):
         batch = tuple(batch)
+        seeds = seeds or {}
+
+        def unit_seeds(k):
+            return {ch: seeds[ch][k] for ch in ("uplink", "downlink")
+                    if ch in seeds}
+
         if hooks.unit_has_h_axis:
             # one unit covering the whole [n, h, B, ...] round (CSE-style)
-            return unit_step(state, batch, lr)
+            return unit_step(state, batch, lr, unit_seeds(0))
         # per-mini-batch hooks: one unit per mini-batch of the h axis
         rows = []
         for k in range(fsl.h):
             state, m = unit_step(state, tree_map(lambda x: x[:, k], batch),
-                                 lr)
+                                 lr, unit_seeds(k))
             rows.append(m)
         return state, _mean_metrics(rows)
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# A chunk of rounds as one program
+# ---------------------------------------------------------------------------
+
+
+def make_chunk_step(round_step, aggregate, fsl: FSLConfig,
+                    unit_batches: int, gather: bool = False):
+    """A chunk of global rounds as one program: the port's counterpart of
+    the JAX package's ``lax.scan`` over ``[R, n, h, B, ...]``.
+
+    Each round is ``body(state, data, lrs, seeds, step, aggregated)``: it
+    reads round ``step`` (an int64 ``[1]`` tensor on the device) of the
+    staged chunk -- the batch (``data`` is ``[R, n, h, B, ...]`` batches, or
+    with ``gather`` a ``(pool, idx)`` pair: every pool leaf ``[S, ...]``
+    and an int64 ``[R, n, h, B]`` index plan, the batch gathered on the
+    device), the lr (``lrs`` fp32 ``[R]``) and the wire seeds (``seeds``,
+    channel -> ``[R, ...]`` tables of ``Transport.stage_seeds``) -- then
+    runs the round step and, where ``aggregated``, the aggregate.  Only
+    tensor indexing touches ``step``, so the body can be captured once and
+    replayed for every round (``repro_torch.core.graphs``).
+
+    The aggregation cadence is host arithmetic on the unit counter: a
+    round covers ``fsl.h // unit_batches`` units, and aggregates where the
+    per-client batch count ``state["round"] * unit_batches`` crosses a
+    multiple of C (``AggregationCadence``), exactly as the JAX chunk's
+    ``advance`` computes it in its carry.
+
+    Returns ``chunk_step(state, batches, lrs, seeds)`` (with ``gather``:
+    ``chunk_step(state, pool, idx, lrs, seeds)``) ``-> (state, metrics,
+    agg_mask)``: it runs the chunk's rounds eagerly on the state's device,
+    with the metrics stacked per round (``{name: [R]}``) and the bool
+    ``[R]`` mask of the rounds that aggregated.  ``chunk_step.body`` and
+    ``chunk_step.cadence(unit0, r)`` (the flags of ``r`` rounds from
+    counter ``unit0``) are what the captured runner uses.
+    """
+    agg_every = fsl.resolved_agg_every
+    per_round = fsl.h // unit_batches
+
+    def cadence(unit0: int, r: int) -> list:
+        flags = []
+        for i in range(r):
+            prev = (unit0 + i * per_round) * unit_batches
+            done = prev + per_round * unit_batches
+            flags.append(done // agg_every > prev // agg_every)
+        return flags
+
+    def body(state, data, lrs, seeds, step, aggregated: bool):
+        if gather:
+            pool, idx = data
+            ix = idx.index_select(0, step)[0]
+            batch = tree_map(lambda p: p[ix], pool)
+        else:
+            batch = tree_map(lambda b: b.index_select(0, step)[0], data)
+        lr = lrs.index_select(0, step)[0]
+        sd = {k: v.index_select(0, step)[0] for k, v in seeds.items()}
+        state, metrics = round_step(state, tuple(batch), lr, sd)
+        if aggregated:
+            state = aggregate(state, sd)
+        return state, metrics
+
+    def chunk_step(state, *args):
+        data, (lrs, seeds) = (args[:2] if gather else args[0]), args[-2:]
+        flags = cadence(state["round"], lrs.shape[0])
+        rows = []
+        for i, aggregated in enumerate(flags):
+            step = torch.full((1,), i, dtype=torch.int64, device=lrs.device)
+            state, m = body(state, data, lrs, seeds, step, aggregated)
+            rows.append(m)
+        metrics = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+        return state, metrics, torch.tensor(flags)
+
+    chunk_step.body, chunk_step.cadence = body, cadence
+    return chunk_step
 
 
 # ---------------------------------------------------------------------------
@@ -248,9 +349,75 @@ class FSLMethod:
         keys = ("clients", self.server_key) if self.server_replicated \
             else ("clients",)
 
-        def aggregate(state):
+        def aggregate(state, seeds=None):
             return {**state, **{k: fedavg(state[k]) for k in keys}}
         return aggregate
+
+    def make_wire_aggregate(self, bundle: SplitModelBundle, fsl: FSLConfig,
+                            transport=None):
+        """Aggregation behind the model-sync wire: before FedAvg each
+        client's model (``state["clients"]["params"]``, what Table II's
+        ``2 n alpha |w|`` counts; the opt state stays local) crosses the
+        transport's ``model_up`` codec; after FedAvg the average is coded
+        ONCE through ``model_down`` and broadcast to every client.  Server
+        replicas never cross the client link, so they aggregate uncoded.
+        Each leaf is coded in the JAX package's checkpoint layout
+        (``bundle.wire_axes``), with the seeds ``seeds["model_up"]`` and
+        ``seeds["model_down"]`` of ``aggregate(state, seeds)``.  With the
+        identity model codecs this is :meth:`make_aggregate` unchanged."""
+        from repro_torch.transport import resolve_transport
+        tp = resolve_transport(transport, fsl)
+        agg = self.make_aggregate()
+        if tp.model_identity:
+            return agg
+        axes = bundle.wire_axes(self.client_param_specs(bundle, fsl))
+
+        def lead(a):
+            return (0,) + tuple(1 + i for i in a)
+
+        def to_wire(params):
+            return [x if a is None else x.permute(lead(a))
+                    for x, a in zip(tree_leaves(params), axes)]
+
+        def from_wire(leaves, like):
+            it = iter(zip(leaves, axes))
+
+            def back(_):
+                x, a = next(it)
+                if a is None:
+                    return x
+                inv = tuple(sorted(range(len(a)), key=a.__getitem__))
+                return x.permute(lead(inv)).contiguous()
+            return tree_map(back, like)
+
+        def aggregate(state, seeds=None):
+            seeds, rnd = seeds or {}, state["round"]
+            params = state["clients"]["params"]
+            coded = tp.code_model_up(to_wire(params), rnd,
+                                     seeds=seeds.get("model_up"))
+            state = agg({**state, "clients": {
+                **state["clients"], "params": from_wire(coded, params)}})
+            # post-FedAvg the stacked clients are identical: code the
+            # average once and broadcast the same coded copy to all n
+            params = state["clients"]["params"]
+            avg = tp.code_model_down([x[:1] for x in to_wire(params)], rnd,
+                                     seeds=seeds.get("model_down"))
+            avg = from_wire(avg, params)
+            params = tree_map(
+                lambda d, x: d.expand(x.shape).to(x.dtype).contiguous(),
+                avg, params)
+            return {**state, "clients": {**state["clients"],
+                                         "params": params}}
+        return aggregate
+
+    def make_chunk_step(self, bundle: SplitModelBundle, fsl: FSLConfig,
+                        transport=None, gather: bool = False):
+        """``chunk_step`` over a chunk of rounds of this method's round
+        step and wire aggregate (:func:`make_chunk_step`)."""
+        return make_chunk_step(
+            self.make_round_step(bundle, fsl, transport=transport),
+            self.make_wire_aggregate(bundle, fsl, transport=transport),
+            fsl, self.unit_batches(fsl), gather=gather)
 
     def merged_params(self, state) -> Dict[str, Any]:
         raise NotImplementedError
@@ -269,19 +436,13 @@ class FSLMethod:
     def hook_arg_specs(self, bundle: SplitModelBundle, fsl: FSLConfig,
                        batch):
         """Shape-only arguments for running the hooks on their own:
-        ``(hooks, state, cslice, unit, lr)`` -- the hooks, the method's own
-        ``init_state`` on ``meta`` tensors (drawn from ``bundle.specs``, so
-        any state layout works), ONE client's slice of its stacked
-        subtrees, ONE upload unit of ``batch`` (``[n,(h,)B, ...]`` with the
-        leading dims dropped per ``unit_has_h_axis``) and the lr."""
+        ``(hooks, state, cslice, unit, lr)`` -- the hooks,
+        :meth:`meta_state`, ONE client's slice of its stacked subtrees,
+        ONE upload unit of ``batch`` (``[n,(h,)B, ...]`` with the leading
+        dims dropped per ``unit_has_h_axis``) and the lr."""
         hooks = self.make_async_hooks(bundle, fsl)
-        specs = bundle.specs
-        meta = dataclasses.replace(
-            bundle, init=lambda gen: tree_map(lambda x: x, specs))
-        state = self.init_state(meta, fsl, None)
-        cslice = {k: tree_map(lambda x: torch.empty(
-            tuple(x.shape[1:]), dtype=x.dtype, device="meta"), state[k])
-            for k in stacked_keys(hooks)}
+        state = self.meta_state(bundle, fsl)
+        cslice = {k: _one_client(state[k]) for k in stacked_keys(hooks)}
         drop = 1 if hooks.unit_has_h_axis else 2            # [n,(h,)B,...]
         unit = tree_map(lambda x: torch.empty(
             tuple(x.shape[drop:]), dtype=torch.as_tensor(x).dtype,
@@ -304,8 +465,30 @@ class FSLMethod:
             _, reply, _ = hooks.server_consume(sstate, upload, lr)
         return upload, reply
 
+    def meta_state(self, bundle: SplitModelBundle, fsl: FSLConfig):
+        """The method's own ``init_state`` on ``meta`` tensors (drawn from
+        ``bundle.specs``, so any state layout works)."""
+        specs = bundle.specs
+        meta = dataclasses.replace(
+            bundle, init=lambda gen: tree_map(lambda x: x, specs))
+        return self.init_state(meta, fsl, None)
+
+    def client_param_specs(self, bundle: SplitModelBundle, fsl: FSLConfig):
+        """ONE client's ``state["clients"]["params"]`` as ``meta``
+        tensors."""
+        return _one_client(self.meta_state(bundle, fsl)["clients"]["params"])
+
+    def model_sync_specs(self, bundle: SplitModelBundle, fsl: FSLConfig):
+        """ONE client's model-sync payload as ``meta`` tensors, in the
+        layout the wire codes it in (``bundle.wire_axes``): a list, one
+        entry per leaf of the client's params."""
+        tree = self.client_param_specs(bundle, fsl)
+        return [x if a is None else x.permute(a)
+                for x, a in zip(tree_leaves(tree), bundle.wire_axes(tree))]
+
     def comm_profile(self, cm: CostModel, fsl: FSLConfig, batch_size: int,
-                     transport=None, payload_specs=None) -> CommProfile:
+                     transport=None, payload_specs=None,
+                     model_specs=None) -> CommProfile:
         n, q, lb = cm.n, cm.q, cm.label_bytes
         uploads = fsl.h if self.uploads_every_batch else 1
         smashed = n * uploads * q * batch_size
@@ -315,7 +498,7 @@ class FSLMethod:
         sync = 2 * n * (cm.w_client + aux)
         server = (n if self.server_replicated else 1) * (cm.w_server + aux)
         total = n * (cm.w_client + aux) + server
-        wire_up = wire_down = -1
+        wire_up = wire_down = wire_sync = -1
         if (transport is not None and payload_specs is not None
                 and not transport.is_identity):
             up_spec, reply_spec = payload_specs
@@ -323,11 +506,16 @@ class FSLMethod:
             if self.downloads_gradients and reply_spec is not None:
                 wire_down = n * uploads * transport.downlink_wire_bytes(
                     reply_spec)
+        if (transport is not None and model_specs is not None
+                and not transport.model_identity):
+            wire_sync = n * (transport.model_up_wire_bytes(model_specs)
+                             + transport.model_down_wire_bytes(model_specs))
         return CommProfile(uplink_smashed=smashed, uplink_labels=labels,
                            downlink_grads=grads, model_sync=sync,
                            server_storage=server, total_storage=total,
                            uplink_smashed_wire=wire_up,
-                           downlink_grads_wire=wire_down)
+                           downlink_grads_wire=wire_down,
+                           model_sync_wire=wire_sync)
 
     def __repr__(self):
         return f"<FSLMethod {self.name}>"
@@ -373,14 +561,19 @@ def stack_clients(tree, n: int):
     return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).clone(), tree)
 
 
+def _mean0(x: torch.Tensor) -> torch.Tensor:
+    """fp32 mean over dim 0 as the JAX package's ``jnp.mean`` comes out of
+    XLA: the sum times the fp32 reciprocal of n (``Tensor.mean`` rounds
+    differently in the last bit)."""
+    return x.float().sum(dim=0, keepdim=True) * (1.0 / x.shape[0])
+
+
 def fedavg(tree):
     """Mean over the stacked client dim, broadcast back (Eq. 14)."""
-    def avg(x):
-        m = x.float().mean(dim=0, keepdim=True)
-        return m.expand(x.shape).to(x.dtype).contiguous()
-    return tree_map(avg, tree)
+    return tree_map(lambda x: _mean0(x).expand(x.shape).to(x.dtype)
+                    .contiguous(), tree)
 
 
 def client_mean(tree):
     """Mean over the stacked client dim without re-broadcasting."""
-    return tree_map(lambda x: x.float().mean(dim=0).to(x.dtype), tree)
+    return tree_map(lambda x: _mean0(x)[0].to(x.dtype), tree)

@@ -101,12 +101,15 @@ def _make_batched_round_step(bundle: SplitModelBundle, fsl: FSLConfig,
     client_round = make_client_round(bundle, fsl)
     n = fsl.num_clients
 
-    def round_step(state, batch, lr):
+    def round_step(state, batch, lr, seeds=None):
         cstates, smashed, slabels, closs = vmap(
             lambda cs, b: client_round(cs, b, lr))(state["clients"],
                                                    tuple(batch))
         if not tp.is_identity:
-            smashed = tp.code_uplink(smashed, state["round"])
+            up = (seeds or {}).get("uplink")
+            smashed = tp.code_uplink(
+                smashed, state["round"],
+                seeds=None if up is None else up[0])
         smashed = smashed.detach()
         merged_sm = smashed.reshape((-1,) + tuple(smashed.shape[2:]))
         merged_lb = slabels.reshape((-1,) + tuple(slabels.shape[2:]))
@@ -150,7 +153,7 @@ def make_async_hooks(bundle: SplitModelBundle, fsl: FSLConfig) -> AsyncHooks:
 
 def make_round_step(bundle: SplitModelBundle, fsl: FSLConfig,
                     transport=None):
-    """``round_step(state, batch, lr) -> (state, metrics)``; batch:
+    """``round_step(state, batch, lr, seeds) -> (state, metrics)``; batch:
     ``(inputs, labels)`` with leading dims ``[n_clients, h, B, ...]``."""
     if fsl.server_update == "batched":
         return _make_batched_round_step(bundle, fsl, transport=transport)

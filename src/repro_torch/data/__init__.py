@@ -4,7 +4,9 @@ federated partitioner.
 A numpy copy of ``repro.data`` (the reference package is not imported):
 for the same seeds it yields the same samples and the same per-round
 batches, bit for bit.  Batches stay numpy arrays; the Trainer moves each
-round's batch to its device.
+round's batch to its device, or, through the device-pool protocol
+(:meth:`FederatedBatcher.device_pool` + ``next_round_indices``), uploads
+the whole sample pool once and gathers each round on the device.
 """
 from __future__ import annotations
 
@@ -116,6 +118,8 @@ class FederatedBatcher:
         self._orders = [self.rng.permutation(len(d)) for d in data.inputs]
         sizes = [len(d) for d in data.inputs]
         self._offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        self._pool = None
+        self._device_pools = {}
 
     def _client_indices(self, i: int) -> np.ndarray:
         """One batch of LOCAL sample indices for client i."""
@@ -144,6 +148,25 @@ class FederatedBatcher:
             xs.append(np.stack(bx))
             ys.append(np.stack(by))
         return np.stack(xs), np.stack(ys)     # [n, h, B, ...]
+
+    # -- device-resident pool protocol --------------------------------------
+    def pool(self):
+        """Host-side sample pool: the per-client datasets concatenated in
+        client order, so global index ``offsets[i] + local`` addresses
+        client i's sample ``local``."""
+        if self._pool is None:
+            self._pool = (np.concatenate(self.data.inputs),
+                          np.concatenate(self.data.labels))
+        return self._pool
+
+    def device_pool(self, device):
+        """The pool as tensors on ``device``: uploaded once, cached."""
+        import torch
+        key = str(torch.device(device))
+        if key not in self._device_pools:
+            self._device_pools[key] = tuple(
+                torch.from_numpy(a).to(device) for a in self.pool())
+        return self._device_pools[key]
 
     def next_round_indices(self,
                            client_ids: Optional[List[int]] = None):

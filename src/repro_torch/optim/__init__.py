@@ -3,7 +3,9 @@
 ``make_optimizer(name)`` returns ``(init_fn, update_fn)`` where
 ``update_fn(grads, opt_state, params, lr) -> (new_params, new_opt_state)``.
 Updates are out of place, so they compose with ``torch.func.vmap`` over
-stacked clients.
+stacked clients.  The round steps pass ``lr`` as a 0-d fp32 tensor on the
+params' device, so a captured round reads each round's lr (a Python
+float works too: the same fp32 products).
 """
 from __future__ import annotations
 
