@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11) and
-the compiled runner's (phase 19) can fail.  Run from the repo root on a
-machine with one NVIDIA GPU and nvcc:
+"""Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11), the
+compiled runner's (phase 19) and the masked runner's (phase 21) can fail.
+Run from the repo root on a machine with one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
-The tree itself runs phases 1, 2, 7, 11 and 19 (its CNN CSE-FSL path) of
-``chip_smoke.py`` in a fresh process, with every check reported instead
-of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
-K6 and its backward), 11 (K5) and 19 (the captured round) that holds its
-fault.  A mutant is one deliberate fault in a kernel source or in the
-compiled runner, made in a copy of the checkout under a temporary
-directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
+The tree itself runs phases 1, 2, 7, 11, 19 (its CNN CSE-FSL path) and 21
+(its cnn-cse-deadline and cnn-cse-bwh paths) of ``chip_smoke.py`` in a
+fresh process, with every check reported instead of raised; each mutant
+below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward),
+11 (K5), 19 (the captured round) and 21 (the masked round) that holds its
+fault.  A mutant is one deliberate fault in a kernel source, in the
+compiled runner or in the masked aggregate, made in a copy of the
+checkout under a temporary directory; the checkout itself is never
+changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
 failed.
@@ -32,7 +34,8 @@ SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 BASE = "src/repro_torch/core/methods/base.py"
 GRAPHS = "src/repro_torch/core/graphs.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
-# name -> (edits (file, old, new), a check that must fail).  A mutant
+# name -> (edits (file, old, new), a check that must fail[, the phase to
+# run, where the file's own phase (phase_of) is not it]).  A mutant
 # never desynchronises a kernel's producer and consumers (that would hang
 # the card): it changes what both see, or only what a consumer adds up.
 MUTANTS = {
@@ -118,6 +121,16 @@ MUTANTS = {
         [(GRAPHS, "                self._round(aggregated)",
           "                self._round(False)")],
         COMPILED),
+    "masked round: the aggregating graph reads the cohort of row 0": (
+        [(BASE, "state, windows.index_select(0, step)[0], sd)",
+          "state, windows[0], sd)")],
+        "[cnn-cse-deadline] run_compiled's state == run's, bitwise", "21"),
+    "masked aggregate: refresh=False broadcasts to every client": (
+        [(BASE, "                    if refresh:\n"
+          "                        return b.contiguous()",
+          "                    if True:\n"
+          "                        return b.contiguous()")],
+        "[cnn-cse-bwh] on the card the cohort's rows are equal", "21"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -132,7 +145,9 @@ cs.phase_build()
 PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "11": 'cs.phase_mamba_kernels(torch.device("cuda"))\n',
           "19": 'cs.phase_compiled(torch.device("cuda"), '
-                'paths=("cnn-cse_fsl",))\n'}
+                'paths=("cnn-cse_fsl",))\n',
+          "21": 'cs.phase_sched(torch.device("cuda"), '
+                'paths=("cnn-cse-deadline", "cnn-cse-bwh"))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -142,7 +157,7 @@ def phase_of(path: str) -> str:
     return "11" if path == SSM else "7"
 
 
-def run(where: str, phases=("7", "11", "19")) -> list:
+def run(where: str, phases=("7", "11", "19", "21")) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)
@@ -158,7 +173,7 @@ def run(where: str, phases=("7", "11", "19")) -> list:
 
 
 def main() -> int:
-    for name, (edits, _) in MUTANTS.items():    # every edit applies once
+    for name, (edits, *_) in MUTANTS.items():   # every edit applies once
         for path, old, _ in edits:
             with open(os.path.join(ROOT, path)) as f:
                 assert f.read().count(old) == 1, (name, old)
@@ -166,7 +181,8 @@ def main() -> int:
     failed = {"tree": run(ROOT)}
     ok = not failed["tree"]
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, (edits, must_fail)) in enumerate(MUTANTS.items()):
+        for i, (name, (edits, must_fail, *where)) in enumerate(
+                MUTANTS.items()):
             print(f"\n== mutant: {name}", flush=True)
             copy = os.path.join(tmp, f"m{i}")
             # a mutant of Python code keeps the built kernels
@@ -180,8 +196,8 @@ def main() -> int:
                 assert src.count(old) == 1, (name, old)
                 with open(p, "w") as f:
                     f.write(src.replace(old, new))
-            failed[name] = run(copy, sorted({phase_of(p)
-                                             for p, _, _ in edits}))
+            failed[name] = run(copy, where or sorted({phase_of(p)
+                                                      for p, _, _ in edits}))
             caught = any(c.startswith(must_fail) for c in failed[name])
             print(f"  {'caught' if caught else 'MISSED'}: {must_fail}")
             ok = ok and caught

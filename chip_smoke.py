@@ -95,14 +95,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    the states bitwise, the history rows and meters equal, the meter
    equal to CommProfile (model-sync bytes included), a profiled replay
    launching every kernel of the loop's round as often (K2 on the uplink,
-   the downlink and the model-sync channels) with no wrapper called; then
-   a kernel wrapper made to synchronize makes the capture raise;
+   the downlink and the model-sync channels) with no wrapper called; and
+   (run after phase 21) a kernel wrapper made to synchronize makes the
+   capture raise;
 20. loop vs compiled: each path's round in both engines (CUDA-event
    medians, deterministic algorithms on in both), device time from the
-   profiled rounds, idle share and peak memory.
+   profiled rounds, idle share and peak memory;
+21. scheduling and faults: ``Trainer.run`` against ``run_compiled`` under
+   a scheduler, the tiered network and fault injection, masked FedAvg
+   behind the int8 model-sync wire, on six paths (SCHED_PATHS: CSE-FSL on
+   the CNN under a deadline with faults, under bandwidth_h with
+   refresh=False and under a policy that admits nobody in one round;
+   FSL_OC under the lossy preset; FSL_MC stratified; CSE-FSL on
+   full-width Qwen3 under a deadline with faults): the states bitwise,
+   rows, meters and participation summaries equal, the participants the
+   plan AND the trace's survival, the meter the trace's exact bytes plus
+   the cohorts' model sync, the CPU's aggregates fed to the card's
+   (coding bitwise, params within HOOK_RTOL, dropped clients refreshed or
+   kept bit for bit), K2 in each captured graph as in phase 19, an empty
+   window replaying the graph without FedAvg (no model-sync K2), and
+   (last of all, with phase 19's) a syncing wrapper making the masked
+   capture raise; two paths' rounds timed as in phase 20 beside the
+   unmasked path's.
 
-The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
-``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
+The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
+``"sched"``: phase 21's numbers), the last ``{"ok": true, "device":
+{...}}``.  The script imports neither JAX nor the
 JAX package.
 """
 from __future__ import annotations
@@ -116,6 +134,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # Before torch starts the card's caching allocator: the Mamba main path's
 # round leaves 30 GB reserved but unallocated in fragments when its update
@@ -142,6 +161,8 @@ from repro_torch.core.methods.base import stacked_keys  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
                               synthetic_classification)
+from repro_torch.faults import (FRAME_BYTES, FaultModel,  # noqa: E402
+                                LossyWire, round_wire_bytes)
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
@@ -149,6 +170,11 @@ from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
 from repro_torch.launch.train import LMBatcher, build_data  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
+from repro_torch.network import TieredNetwork  # noqa: E402
+from repro_torch.sched import (BandwidthHPolicy, DeadlinePolicy,  # noqa: E402
+                               SchedContext, SchedulerPolicy,
+                               StratifiedPolicy, available_policies,
+                               register_policy)
 from repro_torch.transport import (Int8Codec, Transport,  # noqa: E402
                                    make_transport)
 
@@ -482,7 +508,9 @@ def phase_kernels(dev: torch.device):
 def metric_keys(row) -> list:
     """The method's metric names in a history row (CSE-FSL and FSL_AN:
     client_loss, server_loss; FSL_MC and FSL_OC: loss)."""
-    return [k for k in row if k not in ("round", "aggregated", "comm_bytes")]
+    return [k for k in row if k not in (
+        "round", "aggregated", "comm_bytes", "participants",
+        "dropped_updates", "fault_retries", "fault_drops")]
 
 
 def drive(tr, make_batcher, cm, tag, rounds, batch_size):
@@ -2415,10 +2443,15 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev):
     return out
 
 
-def check_capture_raises(dev):
-    """A wrapper made to synchronize the card: the capture raises, and
-    run_compiled does not fall back to eager rounds."""
-    tr, make_batcher, _, _ = compiled_trainer("cnn", "cse_fsl", dev)
+def check_capture_raises(dev, masked=False):
+    """A wrapper made to synchronize the card: the capture (of the masked
+    graphs with ``masked``) raises, and run_compiled does not fall back to
+    eager rounds."""
+    if masked:
+        tr, _, make_batcher, _, _ = sched_trainer(
+            "cnn-cse-deadline", "cnn", "cse_fsl", dev)
+    else:
+        tr, make_batcher, _, _ = compiled_trainer("cnn", "cse_fsl", dev)
     launch = qk._launch
 
     def syncing(*a, **kw):
@@ -2434,7 +2467,8 @@ def check_capture_raises(dev):
     finally:
         qk._launch = launch
     check(raised is not None and tr._captured is None,
-          f"a syncing kernel wrapper makes the capture raise "
+          f"a syncing kernel wrapper makes the "
+          f"{'masked ' if masked else ''}capture raise "
           f"({type(raised).__name__}: {str(raised).splitlines()[0][:90]}), "
           "no eager fallback")
     x = torch.ones(64, 64, device=dev)
@@ -2444,8 +2478,8 @@ def check_capture_raises(dev):
 
 def phase_compiled(dev, paths=None):
     """Phases 19 and 20: each path of COMPILED_PATHS (or of ``paths``, tags)
-    through check_compiled_path, then the capture that must raise; phase
-    20 prints the loop and compiled rounds measured on the way."""
+    through check_compiled_path; phase 20 prints the loop and compiled
+    rounds measured on the way."""
     t0 = phase("19 compiled runner: Trainer.run_compiled as CUDA-graph "
                "replay against Trainer.run")
     env = os.environ.get
@@ -2465,7 +2499,6 @@ def phase_compiled(dev, paths=None):
         if paths is None or tag in paths:
             out[tag] = check_compiled_path(tag, model, method, rounds, chunk,
                                            dev)
-    check_capture_raises(dev)
     done(t0)
     t0 = phase("20 loop vs compiled rounds (CUDA-event medians; device time "
                "from the profiled rounds)")
@@ -2483,6 +2516,484 @@ def phase_compiled(dev, paths=None):
               f"{r['loop_ms'] / r['compiled_ms']:.2f}x")
     done(t0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Partial participation: scheduling and faults on the sync path
+# ---------------------------------------------------------------------------
+
+# Phase 21's paths: (tag, model, method, rounds, chunk).  Each runs int8 on
+# every channel, the model sync included, with phase 19's trainer (its lr
+# decaying every round) and one of these participation settings:
+# - cnn-cse-deadline, qwen3-cse-deadline: a deadline between the two
+#   slowest clients' analytic round times on the tiered network (n = 4:
+#   3g, 4g, 4g, wifi; it drops the 3g client) and SCHED_FAULTS, whose seed
+#   gives both paths' rounds retries, crashes and wire drops, a cohort
+#   that changes from round to round within a chunk, and (the CNN path's
+#   round 4) an empty one;
+# - cnn-cse-bwh: bandwidth_h on the tiered network capped at stride 2
+#   (strides 2, 2, 2, 1: rounds 1 and 3 only the wifi client, rounds 2 and
+#   4 all), refresh=False; the default cap's strides (8, 5, 5, 1) would
+#   leave three clients out of all 4 rounds;
+# - cnn-fsl_oc-lossy: wait_all with the lossy preset (seed 0: a gradient
+#   reply lost for good in round 1, so a blocking client drops out);
+# - cnn-fsl_mc-strat: stratified (seed 2: one of the two 4g clients a
+#   round, not the same one in rounds 1 and 2), FSL_MC's server replicas
+#   masked with the clients;
+# - cnn-empty: a registered policy admitting nobody in round 3.
+SCHED_PATHS = (("cnn-cse-deadline", "cnn", "cse_fsl", 4, 3),
+               ("cnn-cse-bwh", "cnn", "cse_fsl", 4, 3),
+               ("cnn-fsl_oc-lossy", "cnn", "fsl_oc", 3, 2),
+               ("cnn-fsl_mc-strat", "cnn", "fsl_mc", 3, 2),
+               ("cnn-empty", "cnn", "cse_fsl", 3, 2),
+               ("qwen3-cse-deadline", "qwen3", "cse_fsl", 3, 2))
+SCHED_FAULTS = dict(loss_rate=0.3, crash_rate=0.15, max_retries=1, seed=2,
+                    name="chip-mix")
+SCHED_TIMED = ("cnn-cse-deadline", "qwen3-cse-deadline")
+
+
+class NobodyInRound3(SchedulerPolicy):
+    """Admits every client but in round 3, where it admits nobody."""
+    name = "chip_nobody_round3"
+
+    def plan(self, ctx, num_rounds):
+        masks = np.ones((num_rounds, ctx.fsl.num_clients), bool)
+        masks[2:3] = False
+        return masks
+
+
+def sched_context(tr, batch, net) -> SchedContext:
+    """The SchedContext ``tr`` plans against (``Trainer._plan_schedule``'s)."""
+    up, reply = tr.method.payload_specs(tr.bundle, tr.fsl, batch)
+    return SchedContext(
+        fsl=tr.fsl, network=net,
+        up_bytes=tr.transport.uplink_payload_bytes(up),
+        down_bytes=tr.transport.downlink_payload_bytes(reply)
+        if reply is not None else 0, blocking=tr.method.downloads_gradients,
+        uploads_per_round=tr._uploads_per_round())
+
+
+def sched_trainer(tag, model, method, dev):
+    """``(masked trainer, unmasked trainer, make_batcher, cost model, batch
+    size)`` of a phase-21 path on ``dev``; prints what the settings
+    produce."""
+    base, make_batcher, cm, bsz = compiled_trainer(model, method, dev)
+    net, fm = TieredNetwork(), None
+    n = base.fsl.num_clients
+    if tag.endswith("deadline"):
+        ctx = sched_context(base, make_batcher().next_round(), net)
+        secs = np.sort(DeadlinePolicy().client_seconds(ctx))
+        pol = DeadlinePolicy(deadline_s=float(0.5 * (secs[-2] + secs[-1])))
+        fm = FaultModel(**SCHED_FAULTS)
+        print(f"  [{tag}] analytic client round times "
+              f"{DeadlinePolicy().client_seconds(ctx).round(4).tolist()} s "
+              f"({ctx.up_bytes:,} B up a unit); deadline "
+              f"{pol.deadline_s:.4f} s")
+    elif tag.endswith("bwh"):
+        pol = BandwidthHPolicy(max_stride=2)
+        ctx = sched_context(base, make_batcher().next_round(), net)
+        print(f"  [{tag}] strides {pol.strides(ctx).tolist()}")
+    elif tag.endswith("lossy"):
+        pol, fm = "wait_all", LossyWire()
+    elif tag.endswith("strat"):
+        pol = StratifiedPolicy(seed=2)
+    else:
+        if NobodyInRound3.name not in available_policies():
+            register_policy(NobodyInRound3)
+        pol = NobodyInRound3.name
+    tr = Trainer(base.bundle, base.fsl, transport=base.transport,
+                 scheduler=pol, network=net, faults=fm)
+    if fm is not None:
+        blocking = tr.method.downloads_gradients
+        t = fm.trace(12, n, tr._uploads_per_round())
+        print(f"  [{tag}] faults {fm.name}: loss_rate {fm.loss_rate}, "
+              f"crash_rate {fm.crash_rate}, max_retries {fm.max_retries}, "
+              f"seed {fm.seed}; survival of rounds 1-4 "
+              f"{t.survives(blocking)[:4].astype(int).tolist()}")
+    return tr, base, make_batcher, cm, bsz
+
+
+def window_participants(masks, flags):
+    """Each aggregating round's cohort size: the AND of ``masks`` since the
+    last aggregation (all True at the start)."""
+    part, out = np.ones(masks.shape[1], bool), []
+    for m, f in zip(masks, flags):
+        part &= m
+        if f:
+            out.append(int(part.sum()))
+            part[:] = True
+    return out
+
+
+def expected_meter(tr, cm, bsz, sample, rounds, flags, parts) -> dict:
+    """The meter the trace and the cohorts imply: per round the fault
+    trace's ``round_wire_bytes`` (or the profile's round without faults),
+    per aggregation ``k up + recv down`` model-sync bytes (``recv = n``
+    where the scheduler refreshes the dropped clients, else ``k``)."""
+    n, K = tr.fsl.num_clients, tr._uploads_per_round()
+    prof = tr.comm_profile(cm, bsz, batch=sample)
+    out = {"uplink_smashed": 0, "uplink_labels": 0, "downlink_grads": 0,
+           "model_sync": 0}
+    trace = None if tr.faults.is_null else tr.faults.trace(rounds, n, K)
+    for r in range(rounds):
+        if trace is None:
+            out["uplink_smashed"] += prof.wire_uplink_smashed
+            out["uplink_labels"] += prof.uplink_labels
+            out["downlink_grads"] += prof.wire_downlink_grads
+        else:
+            for k, v in round_wire_bytes(
+                    trace, r, *prof.unit_wire_bytes(n, K),
+                    tr.method.downloads_gradients, FRAME_BYTES).items():
+                out[k] = out.get(k, 0) + v
+    up, down = tr._model_sync_wire_pair()
+    recv = (lambda k: n) if tr.scheduler.refresh_dropped else (lambda k: k)
+    out["model_sync"] = sum(0 if k == 0 else k * up + recv(k) * down
+                            for k in parts)
+    return out
+
+
+def rel_change_error(got, want, before) -> float:
+    """:func:`rel_error` of an update, 0 where neither side moved."""
+    moved = sum(float((w.double() - b.double()).square().sum())
+                for w, b in zip(tree_leaves(want), tree_leaves(before)))
+    if moved == 0.0:
+        return 0.0 if all(same(g, w) for g, w in zip(tree_leaves(got),
+                                                      tree_leaves(want))) \
+            else math.inf
+    return rel_error(got, want, before)
+
+
+def check_aggregates_cpu_vs(tag, tr, make_batcher, rounds, dev):
+    """The CPU's run of the path, its state at each aggregation fed to the
+    card's masked aggregate: the model upload's coding bitwise, the
+    aggregate's params (each averaged subtree) within HOOK_RTOL of the
+    CPU's, and on the card the participants' rows equal, the others the
+    cohort average (refresh) or their own params bit for bit."""
+    cpu = Trainer(cnn_bundle(CIFAR10, device="cpu"), tr.fsl,
+                  transport=tr.transport, scheduler=tr.scheduler,
+                  network=tr.network, faults=tr.faults)
+    records, agg = [], cpu.masked_agg_fn
+
+    def recording(state, mask, seeds=None):
+        out = agg(state, mask, seeds)
+        records.append((state, mask, seeds, out))
+        return out
+
+    cpu.masked_agg_fn = recording
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cpu.run(cpu.init(0), make_batcher(), rounds)
+    axes = tr.bundle.wire_axes(tr.method.client_param_specs(tr.bundle,
+                                                            tr.fsl))
+    keys = tr.method.agg_keys
+    worst, coded_same, rows_ok, bitwise = 0.0, True, True, True
+
+    def put(t):
+        return t.to(dev) if torch.is_tensor(t) else t
+
+    for state, mask, seeds, want in records:
+        leaves = [x if a is None else x.permute((0,) + tuple(1 + i for i in a))
+                  for x, a in zip(tree_leaves(state["clients"]["params"]),
+                                  axes)]
+        cw = cpu.transport.code_model_up(leaves, state["round"],
+                                         seeds=seeds["model_up"])
+        cd = tr.transport.code_model_up([put(x) for x in leaves],
+                                        state["round"],
+                                        seeds=put(seeds["model_up"]))
+        coded_same &= all(same(g, w) for g, w in zip(cd, cw))
+        got = tr.masked_agg_fn(tree_map(put, state), put(mask),
+                               {k: put(v) for k, v in seeds.items()})
+        for k in keys:
+            worst = max(worst, rel_change_error(got[k]["params"],
+                                                want[k]["params"],
+                                                state[k]["params"]))
+            bitwise &= all(same(g, w) for g, w in zip(
+                tree_leaves(got[k]), tree_leaves(want[k])))
+        sel = mask.bool()
+        p0 = int(sel.nonzero()[0, 0])
+        for g, x in zip(tree_leaves(got["clients"]["params"]),
+                        tree_leaves(state["clients"]["params"])):
+            g = g.cpu()
+            for c in range(sel.numel()):
+                if sel[c] or tr.scheduler.refresh_dropped:
+                    rows_ok &= same(g[c], g[p0])
+                else:
+                    rows_ok &= same(g[c], x[c])
+    check(len(records) > 0, f"[{tag}] the CPU's run aggregated "
+          f"{len(records)} time(s); each state fed to the card's aggregate")
+    check(coded_same, f"[{tag}] the card codes the CPU's model uploads "
+          "bitwise as the CPU does, at every aggregation")
+    check(worst <= HOOK_RTOL, f"[{tag}] the card's masked aggregate within "
+          f"{HOOK_RTOL:g} of the CPU's in 2-norm, every averaged subtree "
+          f"{keys} (worst {worst:.3g}; bitwise: {bitwise})")
+    check(rows_ok, f"[{tag}] on the card the cohort's rows are equal and "
+          + ("every other client takes the average (refresh)"
+             if tr.scheduler.refresh_dropped else
+             "every other client keeps its own params bit for bit "
+             "(refresh=False)"))
+
+
+def check_sched_path(tag, model, method, rounds, chunk, dev):
+    """Phase 21 for one path: ``run`` against ``run_compiled`` under the
+    path's scheduler and faults, the meter against the trace, the
+    participants against the plan and survival, the CPU's aggregates
+    against the card's (CNN), K2 in the replayed graphs, and, for
+    SCHED_TIMED, the rounds' times beside the unmasked path's."""
+    print(f"  [{tag}] at the start: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated")
+    tr, base, make_batcher, cm, bsz = sched_trainer(tag, model, method, dev)
+    del base
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    meters = [CommMeter(), CommMeter()]
+    warned = [[], []]
+    sample = make_batcher().next_round()
+    batcher = make_batcher()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        state, lhist = tr.run(tr.init(0), batcher, rounds, log_every=1,
+                              meter=meters[0], cost_model=cm)
+        sync(dev)
+        warned[0] = [str(x.message) for x in w]
+    loop_summary = tr.participation_summary()
+    want = [t_.cpu() for t_ in state_leaves(state)]
+    out = {"rounds": rounds, "chunk": chunk}
+    reps = 5 if model == "cnn" else 2
+    if tag in SCHED_TIMED:          # phase 20's cadence
+        box = {"state": state}
+
+        def loop_round():
+            box["state"], _ = tr.run(box["state"], batcher, 1)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out["loop_rounds_ms"] = events_ms(loop_round, reps, 1)
+        out["loop_ms"] = statistics.median(out["loop_rounds_ms"])
+        del box
+    del state
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    batcher = make_batcher()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        state, chist = tr.run_compiled(tr.init(0), batcher, rounds,
+                                       chunk=chunk, log_every=1,
+                                       meter=meters[1], cost_model=cm)
+        sync(dev)
+        warned[1] = [str(x.message) for x in w]
+    at_capture = {k: v for k, v in counts().items() if v}
+    got = state_leaves(state)
+    bitwise = len(got) == len(want) and all(same(g, w_)
+                                            for g, w_ in zip(got, want))
+    worst = 0.0 if bitwise else max(diff(g.cpu(), w_)
+                                    for g, w_ in zip(got, want))
+    del want
+    flags = [r["aggregated"] for r in lhist]
+    parts = [r["participants"] for r in lhist if r["aggregated"]]
+    print(f"  [{tag}] rows: " + "; ".join(
+        f"r{r['round']} " + " ".join(f"{k} {r[k]:.5f}" for k in
+                                     metric_keys(r))
+        + f" agg {int(r['aggregated'])}"
+        + (f" k {r['participants']} dropped {r['dropped_updates']}"
+           if r["aggregated"] else "")
+        + (f" retries {r['fault_retries']} drops {r['fault_drops']}"
+           if "fault_retries" in r else "") for r in lhist))
+    print(f"  [{tag}] wrapper launches at warm-up and capture {at_capture}; "
+          f"empty-cohort warnings: loop {len(warned[0])}, compiled "
+          f"{len(warned[1])}")
+    check(bitwise, f"[{tag}] run_compiled's state == run's, bitwise, under "
+          f"deterministic algorithms (worst |diff| {worst:.3g})")
+    check(chist == lhist, f"[{tag}] history rows (losses, aggregated, "
+          "participants, dropped updates, fault retries and drops, "
+          "comm_bytes) == run's")
+    check(meters[1].counts == meters[0].counts,
+          f"[{tag}] meter {meters[1].counts} == run's")
+    summary = tr.participation_summary()
+    check(summary == loop_summary, f"[{tag}] participation_summary() == "
+          f"run's: {json.dumps(summary)}")
+    check(warned[0] == warned[1], f"[{tag}] the same {len(warned[0])} "
+          "empty-cohort warning(s) in both engines")
+    K = tr._uploads_per_round()
+    trace = None if tr.faults.is_null else tr.faults.trace(
+        rounds, tr.fsl.num_clients, K)
+    masks = tr._effective_masks(sample, rounds, trace)
+    want_parts = window_participants(masks, flags)
+    check(parts == want_parts, f"[{tag}] participants {parts} == the plan "
+          f"AND survival over each window ({want_parts})")
+    exp = expected_meter(tr, cm, bsz, sample, rounds, flags, parts)
+    check(meters[0].counts == exp, f"[{tag}] meter == the trace's "
+          "round_wire_bytes + the cohorts' model-sync bytes "
+          f"({exp['model_sync']:,} B model sync)")
+    if trace is not None:
+        f = summary["faults"]
+        check(f["retries"] > 0 and f["crash_drops"] + f["wire_drops"] > 0,
+              f"[{tag}] the faults bit: {f['retries']} retries, "
+              f"{f['crash_drops']} crashes, {f['wire_drops']} wire drops, "
+              f"{f['retransmit_bytes']:,} B retransmitted")
+    if model == "cnn":
+        check_aggregates_cpu_vs(tag, tr, make_batcher, rounds, dev)
+
+    if tag in SCHED_TIMED:
+        box = {"state": state}
+
+        def compiled_chunk():
+            box["state"], _ = tr.run_compiled(box["state"], batcher, chunk,
+                                              chunk=chunk)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out["compiled_rounds_ms"] = events_ms(compiled_chunk, reps,
+                                                  chunk)
+        out["compiled_ms"] = statistics.median(out["compiled_rounds_ms"])
+        state = box["state"]
+        del box
+    out["compiled_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # K2 in each captured graph, one replay of it alone (the staged chunk's
+    # row 0), then the replays of a chunk holding an empty window
+    cap = tr._captured
+    blocking = tr.method.downloads_gradients
+    nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
+    k2_plain = tr.units_per_round * (2 if blocking else 1)
+    k2 = {}
+    for aggregated in (True, False):
+        reset_counts()
+        with cuda_profile() as prof:
+            cap.step.zero_()
+            cap.graphs[aggregated].replay()
+            sync(dev)
+        k2[aggregated] = kernel_counts(prof)["quantize_philox_kernel"]
+        check(sum(counts().values()) == 0, f"[{tag}] the replay called no "
+              "kernel wrapper")
+        if aggregated:
+            out["replay_ms"] = statistics.median(events_ms(
+                lambda: (cap.step.zero_(), cap.graphs[True].replay()),
+                reps, 1))
+    check(k2[True] == k2_plain + 2 * nm and k2[False] == k2_plain,
+          f"[{tag}] K2 (profiled) {k2[True]} times in the aggregating graph, "
+          f"as phase 19's unmasked round of {method} ({k2_plain} on the "
+          f"wire + {nm} model leaves up + {nm} down), {k2[False]} in the "
+          "other")
+    out["k2_per_round"] = {"aggregating": k2[True], "other": k2[False]}
+    out["k2_at_capture"] = at_capture.get("quantize_philox", 0)
+    check(out["k2_at_capture"] == 2 * (k2_plain + 2 * nm) + k2_plain,
+          f"[{tag}] K2's launch counter at warm-up and capture "
+          f"{out['k2_at_capture']}: the warm-up's aggregating round, the "
+          "aggregating capture and the other")
+    del state, cap, got
+    if tag == "cnn-empty":
+        check_empty_window(tag, tr, make_batcher, dev, k2_plain)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def time_unmasked(model, method, chunk, dev) -> dict:
+    """A phase-21 path without scheduling or faults (phase 19's trainer),
+    ``run_compiled`` timed as check_sched_path times the masked one."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    base, make_batcher, _, _ = compiled_trainer(model, method, dev)
+    batcher = make_batcher()
+    box = {"state": base.run_compiled(base.init(0), batcher, chunk,
+                                      chunk=chunk)[0]}
+
+    def plain_chunk():
+        box["state"], _ = base.run_compiled(box["state"], batcher, chunk,
+                                            chunk=chunk)
+
+    ms = events_ms(plain_chunk, 5 if model == "cnn" else 2, chunk)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    return {"unmasked_rounds_ms": ms, "unmasked_ms": statistics.median(ms)}
+
+
+def release(dev):
+    """Free what the last path left: collect, empty the cache, drop the
+    cuBLAS workspaces each side stream kept; prints what is held."""
+    gc.collect()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+    torch.cuda.empty_cache()
+    print(f"  held: {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB "
+          "reserved")
+
+
+def check_empty_window(tag, tr, make_batcher, dev, k2_plain):
+    """Round 3 admits nobody: ``run_compiled`` for rounds 1-2 (from a new
+    batcher, whose device pool makes this trainer capture a second time),
+    then round 3 alone, profiled: only the wire's K2 (no model-sync
+    launch), and the state bitwise the loop's round 3 step without any
+    aggregation."""
+    batcher = make_batcher()
+    state, _ = tr.run_compiled(tr.init(0), batcher, 2, chunk=2)
+    with warnings.catch_warnings(record=True) as w, cuda_profile() as prof:
+        warnings.simplefilter("always")
+        state, hist = tr.run_compiled(state, batcher, 1, chunk=2,
+                                      log_every=1)
+        sync(dev)
+    n_k2 = kernel_counts(prof)["quantize_philox_kernel"]
+    lb = make_batcher()
+    ref_state, _ = tr.run(tr.init(0), lb, 2)
+    ref_state, _ = tr.step(ref_state, lb.next_round(), rnd=2)
+    sync(dev)
+    check(tr._captured.data[0] is batcher.device_pool(tr.device),
+          f"[{tag}] a second capture on this trainer (a new batcher's "
+          "device pool) ran")
+    check(hist[0]["aggregated"] and hist[0]["participants"] == 0
+          and len(w) == 1, f"[{tag}] round 3's cadence fires on an empty "
+          f"cohort: participants 0, one warning ({str(w[0].message)[:60]})")
+    check(n_k2 == k2_plain, f"[{tag}] the empty round replays the "
+          f"aggregation-free graph: K2 {n_k2} time(s) (the wire's), no "
+          "model-sync launch")
+    check(all(same(a, b) for a, b in zip(state_leaves(state),
+                                          state_leaves(ref_state))),
+          f"[{tag}] its state == round 3's step alone (Trainer.step after "
+          "2 loop rounds, no FedAvg), bitwise")
+
+
+def phase_sched(dev, paths=None):
+    """Phase 21: each path of SCHED_PATHS (or of ``paths``, tags) through
+    check_sched_path; prints the timed paths' rounds.  Returns each path's
+    numbers."""
+    t0 = phase("21 scheduling and faults: masked FedAvg behind the "
+               "model-sync wire, Trainer.run against run_compiled")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for tag, model, method, rounds, chunk in SCHED_PATHS:
+        if paths is None or tag in paths:
+            out[tag] = check_sched_path(tag, model, method, rounds, chunk,
+                                        dev)
+            release(dev)
+            if tag in SCHED_TIMED:
+                out[tag].update(time_unmasked(model, method, chunk, dev))
+                release(dev)
+    for tag, r in out.items():
+        if "loop_ms" in r:
+            print(f"  [{tag}] loop {r['loop_ms']:.3f} ms of "
+                  f"{[round(x, 3) for x in r['loop_rounds_ms']]} | compiled "
+                  f"{r['compiled_ms']:.3f} ms of "
+                  f"{[round(x, 3) for x in r['compiled_rounds_ms']]}, one "
+                  f"aggregating replay alone {r['replay_ms']:.3f} ms, peak "
+                  f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB | unmasked "
+                  f"compiled {r['unmasked_ms']:.3f} ms of "
+                  f"{[round(x, 3) for x in r['unmasked_rounds_ms']]}")
+    done(t0)
+    return out
+
+
+def phase_capture_raises(dev):
+    """Phases 19 and 21, run last: a kernel wrapper made to synchronize
+    makes the capture of the unmasked and of the masked graphs raise.
+    Last, because a failed capture leaves the caching allocator keeping
+    every freed block reserved for the rest of the process (torch 2.11):
+    run before phase 21, it left phase 21's Qwen3 capture out of memory."""
+    t0 = phase("19 and 21, last: a capture that must raise")
+    check_capture_raises(dev)
+    check_capture_raises(dev, masked=True)
+    done(t0)
 
 
 def main() -> int:
@@ -2520,17 +3031,21 @@ def main() -> int:
     del cnn_paths, lm_paths
     torch.cuda.empty_cache()
     compiled = phase_compiled(dev)
+    scheduled = phase_sched(dev)
+    phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
             r_["compiled_launches_per_round"] = {
                 tag: c["kernels_per_round"]["quantize_philox_kernel"]
                 for tag, c in compiled.items()}
+            r_["sched_launches_per_round"] = {
+                tag: c["k2_per_round"] for tag, c in scheduled.items()}
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
                       "round_ms": round_ms, "lm": lm, "mamba": mb,
                       "baselines": baselines, "compiled": compiled,
-                      "card": card}))
+                      "sched": scheduled, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

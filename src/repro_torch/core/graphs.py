@@ -12,6 +12,11 @@ counter:
 - the chunk's batches (``[R, n, h, B, ...]``) or, on the pooled data path,
   its ``[R, n, h, B]`` index plan into the batcher's device pool;
 - the lrs (fp32 ``[R]``) and the wire seeds (channel -> ``[R, ...]``);
+- under partial participation, each round's cohort (fp32 ``[R, n]``, the
+  windows of ``participation_windows``), which the aggregating round's
+  masked FedAvg reads; the host replays the aggregating graph only where
+  the cadence fires and the cohort is not empty (the JAX chunk's
+  ``lax.cond`` no-op), so an empty window launches no model-sync kernel;
 - the step counter itself (int64 ``[1]``), which the captured round adds
   one to at its end, so R replays run back to back with no host work
   between them;
@@ -26,10 +31,13 @@ Warm-up runs one round and its aggregation eagerly on a side stream
 before the captures, as PyTorch's graph rules require (lazy cuBLAS and
 cuDNN set-up, the kernels' one-time attributes); its result is dropped.
 Both captures share one private memory pool, so the two graphs hold the
-memory of one round; the Trainer keeps the pool and the side stream for
-all its captures (each new stream would hold a cuBLAS workspace of its
-own for good).  A capture that fails raises; nothing falls back to eager
-rounds on the card.
+memory of one round.  The Trainer keeps one side stream for all its
+captures (each new stream would hold a cuBLAS workspace of its own for
+good) and gives each capture a fresh pool: once a pool's graphs are
+freed, the caching allocator refuses to capture into it again.  A
+capture that fails raises; nothing falls back to eager rounds on the
+card.  (After a failed capture, torch 2.11's caching allocator keeps
+every block freed later reserved for the rest of the process.)
 """
 from __future__ import annotations
 
@@ -56,14 +64,17 @@ class CapturedChunk:
 
     ``state`` is adopted as the static state; ``data`` (numpy ``[r, ...]``
     batches as ``(inputs, labels)``, or, with ``pool``, the int64 ``[r, n,
-    h, B]`` index plan), ``lrs`` (fp32 ``[r]``) and ``seeds`` (channel ->
-    int64 ``[r, ...]``) are the first chunk, which sizes the static
-    buffers and feeds the warm-up.  ``mempool`` (the graphs' private
-    memory pool) and ``stream`` (the side stream) are the Trainer's."""
+    h, B]`` index plan), ``lrs`` (fp32 ``[r]``), ``seeds`` (channel ->
+    int64 ``[r, ...]``) and, for a masked body, ``windows`` (fp32 ``[r,
+    n]`` cohorts) are the first chunk, which sizes the static buffers and
+    feeds the warm-up.  ``mempool`` (the graphs' private memory pool) and
+    ``stream`` (the side stream) are the Trainer's."""
 
     def __init__(self, body, state, rows: int, data, lrs: np.ndarray,
-                 seeds: Dict[str, np.ndarray], pool, mempool, stream):
+                 seeds: Dict[str, np.ndarray], pool, mempool, stream,
+                 windows: Optional[np.ndarray] = None):
         self.body, self.rows, self.pooled = body, rows, pool is not None
+        self.masked = windows is not None
         self.state = state
         dev = state_leaves(state)[0].device
 
@@ -75,13 +86,14 @@ class CapturedChunk:
         self.data = (pool, self.staged) if self.pooled else self.staged
         self.lrs = buf(lrs)
         self.seeds = {k: buf(v) for k, v in seeds.items()}
+        self.windows = buf(windows) if self.masked else None
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.stage(data, lrs, seeds)
+        self.stage(data, lrs, seeds, windows)
         self.stream = stream
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
             self.names = list(body(state, self.data, self.lrs, self.seeds,
-                                   self.step, True)[1])
+                                   self.step, True, self.windows)[1])
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -99,7 +111,7 @@ class CapturedChunk:
         """The captured round: the body at ``step``, its metrics into row
         ``step``, its state into the static state, ``step + 1``."""
         new, m = self.body(self.state, self.data, self.lrs, self.seeds,
-                           self.step, aggregated)
+                           self.step, aggregated, self.windows)
         if list(m) != self.names:
             raise RuntimeError(f"round metrics {list(m)} != {self.names}")
         row = torch.stack([m[k].to(torch.float64) for k in self.names])
@@ -128,7 +140,8 @@ class CapturedChunk:
             if x is not s:
                 s.copy_(x)
 
-    def stage(self, data, lrs: np.ndarray, seeds: Dict[str, np.ndarray]):
+    def stage(self, data, lrs: np.ndarray, seeds: Dict[str, np.ndarray],
+              windows: Optional[np.ndarray] = None):
         """Copy one chunk's host arrays into the first rows of the static
         buffers (once a chunk, before its replays)."""
         def put(b, a):
@@ -137,10 +150,13 @@ class CapturedChunk:
         put(self.lrs, lrs)
         for k, v in seeds.items():
             put(self.seeds[k], v)
+        if self.masked:
+            put(self.windows, windows)
 
     def replay(self, flags) -> np.ndarray:
         """Replay one round per entry of ``flags`` (True: the aggregating
-        variant) from step 0, then fetch the ``[len(flags), K]`` metrics
+        variant; for a masked body, where the cadence fires on a non-empty
+        cohort) from step 0, then fetch the ``[len(flags), K]`` metrics
         once."""
         self.step.zero_()
         for aggregated in flags:
@@ -148,10 +164,13 @@ class CapturedChunk:
         return self.metrics[:len(flags)].cpu().numpy()
 
 
-def matches(cap: Optional[CapturedChunk], rows: int, pool, data) -> bool:
+def matches(cap: Optional[CapturedChunk], rows: int, pool, data,
+            masked: bool = False) -> bool:
     """``cap`` can run a chunk of ``rows`` rounds of this data (the same
-    device pool, or staged batches of the same shapes)."""
-    if cap is None or cap.rows < rows or cap.pooled != (pool is not None):
+    device pool, or staged batches of the same shapes) with the same
+    aggregate (masked or not)."""
+    if cap is None or cap.rows < rows or cap.pooled != (pool is not None) \
+            or cap.masked != masked:
         return False
     if pool is not None and cap.data[0] is not pool:
         return False

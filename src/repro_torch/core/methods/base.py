@@ -8,10 +8,12 @@ A *method* is a stateless strategy object:
   - ``make_round_step(bundle, fsl, transport=None)``
         -> ``round_step(state, batch, lr, seeds) -> (state, metrics)``
   - ``make_aggregate()``                  -> ``aggregate(state, seeds=None)``
-  - ``make_wire_aggregate(bundle, fsl, transport=None)``
-        -> the aggregate behind the model-sync wire
-  - ``make_chunk_step(bundle, fsl, transport=None, gather=False)``
-        -> ``chunk_step`` over a chunk of rounds
+  - ``make_masked_aggregate(refresh)``    -> ``aggregate(state, mask,
+    seeds=None)``
+  - ``make_wire_aggregate(bundle, fsl, transport=None, participation=False,
+    refresh=True)`` -> the aggregate behind the model-sync wire
+  - ``make_chunk_step(bundle, fsl, transport=None, participation=False,
+    refresh=True, gather=False)`` -> ``chunk_step`` over a chunk of rounds
   - ``merged_params(state)``              -> deployable params
   - ``comm_profile(cm, fsl, batch_size)`` -> declarative :class:`CommProfile`
 
@@ -28,8 +30,10 @@ runner sets it on the host after each chunk.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -76,6 +80,15 @@ class CommProfile:
     def wire_model_sync(self) -> int:
         w = self.model_sync_wire
         return w if w >= 0 else self.model_sync
+
+    def unit_wire_bytes(self, n: int, k: int):
+        """Per-upload-unit ``(smashed, labels, grads)`` wire bytes: the
+        per-round totals split over the ``n * k`` identical upload units of
+        a round (k uploads per client a round).  Fault billing charges each
+        transmission attempt of a unit these bytes again."""
+        per = n * k
+        return (self.wire_uplink_smashed // per, self.uplink_labels // per,
+                self.wire_downlink_grads // per)
 
 
 # ---------------------------------------------------------------------------
@@ -231,21 +244,48 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
 # ---------------------------------------------------------------------------
 
 
+def participation_windows(masks, part, flags):
+    """The masked chunk's per-round cohorts, on the host: the JAX package's
+    chunk carries the same AND in its scan.  ``masks`` is the chunk's
+    ``[R, n]`` 0/1 plan, ``part`` the carry (the AND of the plan since the
+    last aggregation, ``[n]``), ``flags`` the cadence.  A client is in
+    round i's window if the plan admitted it in every round since the last
+    aggregation; the carry resets to all ones after each aggregating round.
+    Returns ``(windows, fires, part)``: the fp32 ``[R, n]`` windows, the
+    rounds whose FedAvg runs (the cadence fires and the window is not
+    empty) and the carry after the chunk (fp32 ``[n]``)."""
+    acc = np.asarray(part, np.float32).copy()
+    windows = np.zeros(np.shape(masks), np.float32)
+    fires = []
+    for i, aggregated in enumerate(flags):
+        acc = acc * np.asarray(masks[i], np.float32)
+        windows[i] = acc
+        fires.append(bool(aggregated) and acc.sum() > 0)
+        if aggregated:
+            acc = np.ones_like(acc)
+    return windows, fires, acc
+
+
 def make_chunk_step(round_step, aggregate, fsl: FSLConfig,
-                    unit_batches: int, gather: bool = False):
+                    unit_batches: int, gather: bool = False,
+                    masked_aggregate=None):
     """A chunk of global rounds as one program: the port's counterpart of
     the JAX package's ``lax.scan`` over ``[R, n, h, B, ...]``.
 
-    Each round is ``body(state, data, lrs, seeds, step, aggregated)``: it
-    reads round ``step`` (an int64 ``[1]`` tensor on the device) of the
-    staged chunk -- the batch (``data`` is ``[R, n, h, B, ...]`` batches, or
-    with ``gather`` a ``(pool, idx)`` pair: every pool leaf ``[S, ...]``
-    and an int64 ``[R, n, h, B]`` index plan, the batch gathered on the
-    device), the lr (``lrs`` fp32 ``[R]``) and the wire seeds (``seeds``,
-    channel -> ``[R, ...]`` tables of ``Transport.stage_seeds``) -- then
-    runs the round step and, where ``aggregated``, the aggregate.  Only
-    tensor indexing touches ``step``, so the body can be captured once and
-    replayed for every round (``repro_torch.core.graphs``).
+    Each round is ``body(state, data, lrs, seeds, step, aggregated,
+    windows=None)``: it reads round ``step`` (an int64 ``[1]`` tensor on the
+    device) of the staged chunk -- the batch (``data`` is ``[R, n, h, B,
+    ...]`` batches, or with ``gather`` a ``(pool, idx)`` pair: every pool
+    leaf ``[S, ...]`` and an int64 ``[R, n, h, B]`` index plan, the batch
+    gathered on the device), the lr (``lrs`` fp32 ``[R]``) and the wire
+    seeds (``seeds``, channel -> ``[R, ...]`` tables of
+    ``Transport.stage_seeds``) -- then runs the round step and, where
+    ``aggregated``, the aggregate.  With ``masked_aggregate`` (a
+    participation-aware ``aggregate(state, mask, seeds)``) that aggregate
+    takes row ``step`` of ``windows``, the fp32 ``[R, n]`` cohorts of
+    :func:`participation_windows`.  Only tensor indexing touches ``step``,
+    so the body can be captured once and replayed for every round
+    (``repro_torch.core.graphs``).
 
     The aggregation cadence is host arithmetic on the unit counter: a
     round covers ``fsl.h // unit_batches`` units, and aggregates where the
@@ -257,7 +297,12 @@ def make_chunk_step(round_step, aggregate, fsl: FSLConfig,
     ``chunk_step(state, pool, idx, lrs, seeds)``) ``-> (state, metrics,
     agg_mask)``: it runs the chunk's rounds eagerly on the state's device,
     with the metrics stacked per round (``{name: [R]}``) and the bool
-    ``[R]`` mask of the rounds that aggregated.  ``chunk_step.body`` and
+    ``[R]`` mask of the rounds whose cadence fired.  With
+    ``masked_aggregate`` it takes the chunk's plan and the participation
+    carry too, ``chunk_step(..., seeds, masks, part) -> (state, metrics,
+    agg_mask, part)`` (``masks`` fp32 ``[R, n]``, ``part`` fp32 ``[n]``),
+    and a round whose window is empty aggregates nothing, while
+    ``agg_mask`` still reports the cadence.  ``chunk_step.body`` and
     ``chunk_step.cadence(unit0, r)`` (the flags of ``r`` rounds from
     counter ``unit0``) are what the captured runner uses.
     """
@@ -272,7 +317,7 @@ def make_chunk_step(round_step, aggregate, fsl: FSLConfig,
             flags.append(done // agg_every > prev // agg_every)
         return flags
 
-    def body(state, data, lrs, seeds, step, aggregated: bool):
+    def body(state, data, lrs, seeds, step, aggregated: bool, windows=None):
         if gather:
             pool, idx = data
             ix = idx.index_select(0, step)[0]
@@ -282,23 +327,41 @@ def make_chunk_step(round_step, aggregate, fsl: FSLConfig,
         lr = lrs.index_select(0, step)[0]
         sd = {k: v.index_select(0, step)[0] for k, v in seeds.items()}
         state, metrics = round_step(state, tuple(batch), lr, sd)
-        if aggregated:
+        if aggregated and masked_aggregate is not None:
+            state = masked_aggregate(
+                state, windows.index_select(0, step)[0], sd)
+        elif aggregated:
             state = aggregate(state, sd)
         return state, metrics
+
+    def run(state, data, lrs, seeds, fires, windows=None):
+        rows = []
+        for i, fire in enumerate(fires):
+            step = torch.full((1,), i, dtype=torch.int64, device=lrs.device)
+            state, m = body(state, data, lrs, seeds, step, fire, windows)
+            rows.append(m)
+        return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
     def chunk_step(state, *args):
         data, (lrs, seeds) = (args[:2] if gather else args[0]), args[-2:]
         flags = cadence(state["round"], lrs.shape[0])
-        rows = []
-        for i, aggregated in enumerate(flags):
-            step = torch.full((1,), i, dtype=torch.int64, device=lrs.device)
-            state, m = body(state, data, lrs, seeds, step, aggregated)
-            rows.append(m)
-        metrics = {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+        state, metrics = run(state, data, lrs, seeds, flags)
         return state, metrics, torch.tensor(flags)
 
-    chunk_step.body, chunk_step.cadence = body, cadence
-    return chunk_step
+    def masked_chunk_step(state, *args):
+        data = args[:2] if gather else args[0]
+        lrs, seeds, masks, part = args[-4:]
+        flags = cadence(state["round"], lrs.shape[0])
+        windows, fires, part_out = participation_windows(
+            masks.cpu().numpy(), part.cpu().numpy(), flags)
+        state, metrics = run(state, data, lrs, seeds, fires,
+                             torch.from_numpy(windows).to(lrs.device))
+        return (state, metrics, torch.tensor(flags),
+                torch.from_numpy(part_out).to(part.device))
+
+    step_fn = chunk_step if masked_aggregate is None else masked_chunk_step
+    step_fn.body, step_fn.cadence = body, cadence
+    return step_fn
 
 
 # ---------------------------------------------------------------------------
@@ -342,19 +405,41 @@ class FSLMethod:
         """The state key of the server: stacked replicas or one model."""
         return "servers" if self.server_replicated else "server"
 
-    def make_aggregate(self):
-        """FedAvg over the stacked client dim (Eq. 14), opt state included:
-        the clients and, where each client has its own, the server
-        replicas."""
-        keys = ("clients", self.server_key) if self.server_replicated \
+    @property
+    def agg_keys(self) -> tuple:
+        """The stacked state subtrees FedAvg averages: the clients and,
+        where each client has its own, the server replicas.  The masked
+        aggregate touches exactly these too."""
+        return ("clients", self.server_key) if self.server_replicated \
             else ("clients",)
+
+    def make_aggregate(self):
+        """FedAvg over the stacked client dim (Eq. 14), opt state included,
+        over :attr:`agg_keys`."""
+        keys = self.agg_keys
 
         def aggregate(state, seeds=None):
             return {**state, **{k: fedavg(state[k]) for k in keys}}
         return aggregate
 
+    def make_masked_aggregate(self, refresh: bool = True):
+        """Participation-aware FedAvg: ``aggregate(state, mask, seeds=None)``
+        averages the :attr:`agg_keys` subtrees over the clients the fp32
+        ``[n]`` 0/1 ``mask`` admits, weights renormalized over them
+        (:func:`fedavg_masked`); ``refresh`` decides whether the clients
+        left out receive the average or keep their own state.  Callers
+        guard the empty mask (the Trainer warns and skips it)."""
+        keys = self.agg_keys
+
+        def aggregate(state, mask, seeds=None):
+            return {**state, **{k: fedavg_masked(state[k], mask,
+                                                 refresh=refresh)
+                                for k in keys}}
+        return aggregate
+
     def make_wire_aggregate(self, bundle: SplitModelBundle, fsl: FSLConfig,
-                            transport=None):
+                            transport=None, participation: bool = False,
+                            refresh: bool = True):
         """Aggregation behind the model-sync wire: before FedAvg each
         client's model (``state["clients"]["params"]``, what Table II's
         ``2 n alpha |w|`` counts; the opt state stays local) crosses the
@@ -364,10 +449,19 @@ class FSLMethod:
         Each leaf is coded in the JAX package's checkpoint layout
         (``bundle.wire_axes``), with the seeds ``seeds["model_up"]`` and
         ``seeds["model_down"]`` of ``aggregate(state, seeds)``.  With the
-        identity model codecs this is :meth:`make_aggregate` unchanged."""
+        identity model codecs this is :meth:`make_aggregate` unchanged.
+
+        ``participation=True`` returns the masked variant ``aggregate(state,
+        mask, seeds=None)`` (:meth:`make_masked_aggregate` behind the same
+        wire): every client's model is coded up, as the JAX package codes
+        it; the participants' coded params are averaged, renormalized
+        (:func:`masked_mean0`), and the average is coded down once.  With
+        ``refresh`` every client takes the coded average; without it the
+        clients the mask leaves out keep their own params bit for bit."""
         from repro_torch.transport import resolve_transport
         tp = resolve_transport(transport, fsl)
-        agg = self.make_aggregate()
+        agg = self.make_masked_aggregate(refresh) if participation \
+            else self.make_aggregate()
         if tp.model_identity:
             return agg
         axes = bundle.wire_axes(self.client_param_specs(bundle, fsl))
@@ -390,34 +484,74 @@ class FSLMethod:
                 return x.permute(lead(inv)).contiguous()
             return tree_map(back, like)
 
-        def aggregate(state, seeds=None):
-            seeds, rnd = seeds or {}, state["round"]
+        def with_params(state, params):
+            return {**state, "clients": {**state["clients"],
+                                         "params": params}}
+
+        def coded_up(state, seeds):
             params = state["clients"]["params"]
-            coded = tp.code_model_up(to_wire(params), rnd,
-                                     seeds=seeds.get("model_up"))
-            state = agg({**state, "clients": {
-                **state["clients"], "params": from_wire(coded, params)}})
+            return from_wire(tp.code_model_up(
+                to_wire(params), state["round"],
+                seeds=seeds.get("model_up")), params)
+
+        def coded_down(avg, state, seeds):
+            return from_wire(tp.code_model_down(
+                to_wire(avg), state["round"],
+                seeds=seeds.get("model_down")), avg)
+
+        if participation:
+            def masked_aggregate(state, mask, seeds=None):
+                seeds = seeds or {}
+                orig = state["clients"]["params"]
+                coded = coded_up(state, seeds)
+                # the params' FedAvg is the explicit average below: run
+                # the masked aggregate on the rest (opt state, replicas)
+                rest = {k: v for k, v in state["clients"].items()
+                        if k != "params"}
+                st = agg({**state, "clients": rest}, mask)
+                w = mask_weights(mask)
+                avg = coded_down(tree_map(lambda x: masked_mean0(x, w),
+                                          coded), state, seeds)
+                sel = mask > 0
+
+                def place(d, x):
+                    b = d.expand(x.shape).to(x.dtype)
+                    if refresh:
+                        return b.contiguous()
+                    s = sel.reshape((-1,) + (1,) * (x.dim() - 1))
+                    return torch.where(s, b, x)
+                return with_params(st, tree_map(place, avg, orig))
+            return masked_aggregate
+
+        def aggregate(state, seeds=None):
+            seeds = seeds or {}
+            state = agg(with_params(state, coded_up(state, seeds)))
             # post-FedAvg the stacked clients are identical: code the
             # average once and broadcast the same coded copy to all n
             params = state["clients"]["params"]
-            avg = tp.code_model_down([x[:1] for x in to_wire(params)], rnd,
-                                     seeds=seeds.get("model_down"))
-            avg = from_wire(avg, params)
+            avg = coded_down(tree_map(lambda x: x[:1], params), state,
+                             seeds)
             params = tree_map(
                 lambda d, x: d.expand(x.shape).to(x.dtype).contiguous(),
                 avg, params)
-            return {**state, "clients": {**state["clients"],
-                                         "params": params}}
+            return with_params(state, params)
         return aggregate
 
     def make_chunk_step(self, bundle: SplitModelBundle, fsl: FSLConfig,
-                        transport=None, gather: bool = False):
+                        transport=None, participation: bool = False,
+                        refresh: bool = True, gather: bool = False):
         """``chunk_step`` over a chunk of rounds of this method's round
-        step and wire aggregate (:func:`make_chunk_step`)."""
+        step and wire aggregate (:func:`make_chunk_step`);
+        ``participation=True`` builds the masked variant over
+        ``make_wire_aggregate(..., participation=True, refresh=refresh)``."""
+        magg = self.make_wire_aggregate(
+            bundle, fsl, transport=transport, participation=True,
+            refresh=refresh) if participation else None
         return make_chunk_step(
             self.make_round_step(bundle, fsl, transport=transport),
             self.make_wire_aggregate(bundle, fsl, transport=transport),
-            fsl, self.unit_batches(fsl), gather=gather)
+            fsl, self.unit_batches(fsl), gather=gather,
+            masked_aggregate=magg)
 
     def merged_params(self, state) -> Dict[str, Any]:
         raise NotImplementedError
@@ -572,6 +706,54 @@ def fedavg(tree):
     """Mean over the stacked client dim, broadcast back (Eq. 14)."""
     return tree_map(lambda x: _mean0(x).expand(x.shape).to(x.dtype)
                     .contiguous(), tree)
+
+
+def mask_weights(mask: torch.Tensor) -> torch.Tensor:
+    """FedAvg's weights over a fp32 ``[n]`` 0/1 participation mask:
+    ``mask / max(sum(mask), 1)``, summing to 1 over the participants."""
+    return mask.float() / mask.float().sum().clamp(min=1.0)
+
+
+def masked_mean0(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``sum_i w_i x_i`` over dim 0 in fp32, ``[1, ...]``, rounded as the JAX
+    package's ``jnp.tensordot(w, x, axes=1)`` comes out of XLA's CPU dot:
+    client 0's product, then one fused multiply-add a client, in client
+    order.  Each step runs in fp64, where the product of two fp32 values
+    is exact, and the sum is rounded to odd there (round to nearest, then
+    one fp64 ulp towards the exact sum, from Knuth's TwoSum, wherever that
+    makes the last bit odd); rounding that to fp32 is the correctly
+    rounded fused multiply-add.  (``torch.tensordot`` and a sum of
+    products differ from XLA's dot in the last bit, at n = 8 and n = 4.)"""
+    acc = x[:1].to(torch.float64, copy=True).mul_(w[0].double()).float()
+    for i in range(1, x.shape[0]):
+        a = acc.double()
+        b = x[i:i + 1].to(torch.float64, copy=True).mul_(w[i].double())
+        s = a + b
+        bb = s - a
+        err = torch.sub(a, s - bb).add_(b.sub_(bb))   # TwoSum: a + b - s
+        del b, bb
+        toward = torch.where(err > 0, math.inf, -math.inf).to(s)
+        step = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+        del err
+        acc = torch.where(step, torch.nextafter(s, toward), s).float()
+    return acc
+
+
+def fedavg_masked(tree, mask: torch.Tensor, refresh: bool = True):
+    """Partial-participation FedAvg: the average over the clients the fp32
+    ``[n]`` 0/1 ``mask`` admits, weights renormalized over them
+    (:func:`masked_mean0`).  With ``refresh`` the average is broadcast to
+    every client; without it the clients left out keep their own rows bit
+    for bit.  Callers guard the all-zero mask (its "average" is zeros)."""
+    w = mask_weights(mask)
+    sel = mask > 0
+
+    def avg(x):
+        b = masked_mean0(x, w).expand(x.shape).to(x.dtype)
+        if refresh:
+            return b.contiguous()
+        return torch.where(sel.reshape((-1,) + (1,) * (x.dim() - 1)), b, x)
+    return tree_map(avg, tree)
 
 
 def client_mean(tree):

@@ -23,6 +23,15 @@ a :class:`CostModel` — communication metering from the method's
 Aggregation goes through the model-sync wire (``make_wire_aggregate``;
 with the identity model codecs it is the plain FedAvg).
 
+Partial participation: a ``scheduler`` (``repro_torch.sched``: who the
+barrier waits for, planned against a ``network`` of per-client links) and
+``faults`` (``repro_torch.faults``: pre-drawn loss, crashes and outages)
+mask clients out of FedAvg.  A client enters an aggregation only if the
+plan admitted it and its wire round survived in every round since the
+last one; the average is renormalized over those clients, an empty
+cohort is a warned no-op, and retransmissions are billed to the byte.
+With ``wait_all`` and no faults (the defaults) none of this is built.
+
 ``batcher.next_round()`` must yield ``(inputs, labels)`` with leading dims
 ``[n_clients, h, B, ...]``; ``inputs`` is an array or a tree of them
 (``{"tokens": ...}`` for transformers).
@@ -30,6 +39,7 @@ with the identity model codecs it is the plain FedAvg).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -41,6 +51,11 @@ from repro_torch.core import graphs
 from repro_torch.core.accounting import CommMeter, CostModel
 from repro_torch.core.bundle import SplitModelBundle
 from repro_torch.core.methods import CommProfile, FSLMethod, get_method
+from repro_torch.core.methods.base import participation_windows
+from repro_torch.faults import (FRAME_BYTES, FaultStats, accumulate_round,
+                                resolve_fault)
+from repro_torch.network import IdealNetwork
+from repro_torch.sched import SchedContext, resolve_policy
 from repro_torch.transport import resolve_transport
 
 
@@ -68,6 +83,90 @@ def _stack_rounds(*xs):
     return np.stack(xs)
 
 
+class _Participation:
+    """The masked engines' host bookkeeping for one call of ``run`` or
+    ``run_compiled``, a round at a time: the window's AND of the plan
+    since the last aggregation (``part``, all True at the call's start,
+    mid-window too, as in the JAX package), its scheduler-only mirror
+    (which attributes drops to the policy in ``FaultStats``), the dropped
+    updates, the fault billing and the rows' participation fields.  Both
+    engines drive this one object, so their rows, meters and stats
+    agree."""
+
+    def __init__(self, trainer: "Trainer", horizon: int):
+        self.tr, self.horizon = trainer, horizon
+        self.n = n = trainer.fsl.num_clients
+        self.sched_active = not trainer.scheduler.is_wait_all
+        self.fault_active = not trainer.faults.is_null
+        self.ftrace = trainer._plan_faults(horizon) \
+            if self.fault_active else None
+        self.masks = None
+        self.part = np.ones(n, bool)
+        self.part_s = np.ones(n, bool) \
+            if self.sched_active and self.fault_active else None
+        self.dropped_updates = 0
+        self.unit_bytes = self.ms_pair = None
+
+    def plan(self, batch) -> np.ndarray:
+        """The ``[horizon, n]`` participation plan, drawn at the first
+        batch (``batch`` or its spec sizes the scheduler's payloads)."""
+        if self.masks is None:
+            self.masks = self.tr._effective_masks(batch, self.horizon,
+                                                  self.ftrace)
+        return self.masks
+
+    def advance(self, rnd: int, aggregated: bool, profile):
+        """Account round ``rnd``; returns ``(mask, extra, model_sync_bytes,
+        wire_bytes)``: the fp32 ``[n]`` cohort where the round aggregates a
+        non-empty one (else None), the row's participation fields, the
+        cohort's model-sync bytes and the trace-exact wire bytes (None
+        where the meter is off or there are no faults)."""
+        tr, n = self.tr, self.n
+        self.part &= self.masks[rnd]
+        if self.part_s is not None:
+            self.part_s &= tr._sched_masks[rnd]
+        wire = None
+        if self.fault_active and profile is not None:
+            if self.unit_bytes is None:
+                self.unit_bytes = profile.unit_wire_bytes(
+                    n, tr._uploads_per_round())
+            wire = accumulate_round(tr._fault_stats, tr.faults, self.ftrace,
+                                    rnd, *self.unit_bytes,
+                                    tr.method.downloads_gradients,
+                                    FRAME_BYTES)
+        if not aggregated:
+            return None, None, None, wire
+        k, mask, ms_bytes = int(self.part.sum()), None, None
+        if k == 0:
+            who = (f"scheduler {tr.scheduler.name!r}" if self.sched_active
+                   else f"fault model {tr.faults.name!r}")
+            warnings.warn(f"{who} admitted no clients at the round-{rnd + 1} "
+                          "aggregation; FedAvg skipped (no-op)")
+        else:
+            mask = self.part.astype(np.float32)
+        self.dropped_updates += n - k
+        extra = {"participants": k, "dropped_updates": self.dropped_updates}
+        if self.fault_active:
+            fs = tr._fault_stats
+            fs.windows += 1
+            fs.participants.append(k)
+            if k == 0:
+                fs.empty_windows += 1
+            if self.part_s is not None:
+                fs.deadline_drops += n - int(self.part_s.sum())
+                self.part_s[:] = True
+            extra.update(fault_retries=fs.retries,
+                         fault_drops=fs.crash_drops + fs.wire_drops)
+        if profile is not None:
+            if self.ms_pair is None:
+                self.ms_pair = tr._model_sync_wire_pair()
+            recv = n if tr.scheduler.refresh_dropped else k
+            ms_bytes = 0 if k == 0 \
+                else k * self.ms_pair[0] + recv * self.ms_pair[1]
+        self.part[:] = True
+        return mask, extra, ms_bytes, wire
+
+
 @dataclasses.dataclass
 class Trainer:
     bundle: SplitModelBundle
@@ -77,6 +176,17 @@ class Trainer:
     # names the uplink codec; a repro_torch.transport.Transport passes
     # through.
     transport: Optional[Any] = None
+    # scheduling: None/"wait_all" keeps the everyone-participates barrier
+    # (no mask machinery is built); a policy name or a
+    # repro_torch.sched.SchedulerPolicy gates FedAvg participation per
+    # round, planned against ``network`` (default: the ideal network).
+    scheduler: Optional[Any] = None
+    network: Optional[Any] = None
+    # fault injection: None/"none" keeps the lossless path; a preset name or
+    # a repro_torch.faults.FaultModel pre-draws a FaultTrace that masks
+    # crashed or undelivered clients out of FedAvg and bills every
+    # retransmission.
+    faults: Optional[Any] = None
 
     def __post_init__(self):
         m = self.method if self.method is not None else self.fsl.method
@@ -85,6 +195,13 @@ class Trainer:
         self.method = m
         self.device = self.bundle.device
         self.transport = resolve_transport(self.transport, self.fsl)
+        self.scheduler = resolve_policy(self.scheduler)
+        self.faults = resolve_fault(self.faults)
+        if self.network is None:
+            self.network = IdealNetwork()
+        self._sched_ctx = self._sched_masks = None
+        self._fault_stats = None
+        self._payload_bytes = {}    # see _unit_payload_bytes
         self.step_fn = m.make_round_step(self.bundle, self.fsl,
                                          transport=self.transport)
         self.agg_fn = m.make_wire_aggregate(self.bundle, self.fsl,
@@ -93,10 +210,20 @@ class Trainer:
                                           transport=self.transport)
         self.pool_chunk_fn = m.make_chunk_step(
             self.bundle, self.fsl, transport=self.transport, gather=True)
+        if self.masked:
+            refresh = self.scheduler.refresh_dropped
+            self.masked_agg_fn = m.make_wire_aggregate(
+                self.bundle, self.fsl, transport=self.transport,
+                participation=True, refresh=refresh)
+            self.masked_chunk_fn, self.masked_pool_chunk_fn = (
+                m.make_chunk_step(self.bundle, self.fsl,
+                                  transport=self.transport,
+                                  participation=True, refresh=refresh,
+                                  gather=g) for g in (False, True))
         self.units_per_round = self.fsl.h // m.unit_batches(self.fsl)
         self._wire_leaves = self._model_leaves = None   # see _seed_leaves
         self._captured = None       # graphs.CapturedChunk on the card
-        self._mempool = self._stream = None   # its memory pool and stream
+        self._stream = None         # the captures' side stream
 
     # -- public per-round API -------------------------------------------------
     def init(self, seed: int = 0):
@@ -195,20 +322,168 @@ class Trainer:
                                         payload_specs=specs,
                                         model_specs=mspecs)
 
+    @property
+    def masked(self) -> bool:
+        """A scheduler other than wait_all, or faults, is set: FedAvg runs
+        masked over each window's cohort."""
+        return not self.scheduler.is_wait_all or not self.faults.is_null
+
+    def wallclock_estimate(self, cost_model: CostModel, batch_size: int,
+                           num_rounds: int, network, batch=None,
+                           compute: float = 1.0, server_time: float = 0.05,
+                           faults=None):
+        """Analytic synchronous wall-clock of ``num_rounds`` rounds under
+        ``network`` (a :class:`repro_torch.network.NetworkModel`), from the
+        codec-effective wire bytes: exact payload bytes with a ``batch``
+        (the method's payload specs), else from the analytic CommProfile
+        (identity transports only).  ``compute`` is the per-upload-unit
+        client compute seconds.  With a non-null fault model (``faults``,
+        default the trainer's) transfer bytes scale by the expected
+        transmissions under the retry budget, frame included per attempt,
+        and the expected backoff joins the compute time.  Returns a
+        :class:`repro_torch.network.WallClockEstimate`."""
+        from repro_torch.network.wallclock import estimate_sync_wallclock
+        fsl, m, tp = self.fsl, self.method, self.transport
+        n = fsl.num_clients
+        K = self._uploads_per_round()
+        profile = self.comm_profile(cost_model, batch_size, batch=batch)
+        if batch is not None:
+            pb = self._unit_payload_bytes(batch)
+            up_bytes, down_bytes = pb["up_bytes"], pb["down_bytes"]
+        else:
+            if not tp.is_identity:
+                raise ValueError(
+                    "wallclock_estimate needs a `batch` to derive the "
+                    "codec-effective payload bytes of a non-identity "
+                    "transport (without one the estimate would silently "
+                    "use uncompressed sizes)")
+            up_bytes = (profile.wire_uplink_smashed
+                        + profile.uplink_labels) // (n * K)
+            down_bytes = profile.wire_downlink_grads // (n * K)
+        fm = resolve_fault(faults if faults is not None else self.faults)
+        if not fm.is_null:
+            att = fm.expected_attempts()
+            up_bytes = int(round((up_bytes + FRAME_BYTES) * att))
+            if down_bytes:
+                down_bytes = int(round((down_bytes + FRAME_BYTES) * att))
+            compute = compute + fm.expected_backoff()
+        ms_up, ms_down = self._model_sync_wire_pair()
+        # rounds that cross a C-batch threshold: at most one aggregation a
+        # round, as AggregationCadence.advance(h) counts them
+        C = fsl.resolved_agg_every
+        aggs = sum(1 for r in range(1, num_rounds + 1)
+                   if (r * fsl.h) // C > ((r - 1) * fsl.h) // C)
+        return estimate_sync_wallclock(
+            network, n, num_rounds, uploads_per_round=K, up_bytes=up_bytes,
+            down_bytes=down_bytes, blocking=m.downloads_gradients,
+            compute=compute, server_time=server_time, agg_events=aggs,
+            model_up_bytes=ms_up, model_down_bytes=ms_down)
+
+    # -- participation: the scheduler's plan and the fault trace --------------
+    def _plan_schedule(self, batch, horizon: int) -> np.ndarray:
+        """The scheduler's plan for global rounds ``0..horizon-1`` (indexed
+        by the absolute round, so a resumed run realizes the same plan),
+        against a SchedContext whose payload bytes come from the method's
+        payload specs through this trainer's transport."""
+        m, fsl = self.method, self.fsl
+        ctx = SchedContext(
+            fsl=fsl, network=self.network, **self._unit_payload_bytes(batch),
+            blocking=m.downloads_gradients,
+            uploads_per_round=self._uploads_per_round())
+        masks = np.asarray(self.scheduler.plan(ctx, horizon), bool)
+        if masks.shape != (horizon, fsl.num_clients):
+            raise ValueError(f"scheduler plan shape {masks.shape} != "
+                             f"{(horizon, fsl.num_clients)}")
+        self._sched_ctx, self._sched_masks = ctx, masks
+        return masks
+
+    def _unit_payload_bytes(self, batch) -> dict:
+        """One client's ``up_bytes`` / ``down_bytes`` a unit (the reply's 0
+        for non-blocking methods): the method's payload specs through this
+        trainer's transport, computed once per batch shape (the specs come
+        from running the hooks on ``meta`` tensors, which on a large model
+        costs more than a captured round's host work)."""
+        key = tuple((tuple(x.shape), str(x.dtype)) for x in tree_leaves(batch))
+        if key not in self._payload_bytes:
+            tp = self.transport
+            up, reply = self.method.payload_specs(self.bundle, self.fsl,
+                                                  batch)
+            self._payload_bytes[key] = {
+                "up_bytes": tp.uplink_payload_bytes(up),
+                "down_bytes": tp.downlink_payload_bytes(reply)
+                if reply is not None else 0}
+        return self._payload_bytes[key]
+
+    def _uploads_per_round(self) -> int:
+        return self.fsl.h if self.method.uploads_every_batch else 1
+
+    def _plan_faults(self, horizon: int):
+        """The fault trace of global rounds ``0..horizon-1``; resets the
+        run's :class:`FaultStats`."""
+        trace = self.faults.trace(horizon, self.fsl.num_clients,
+                                  self._uploads_per_round())
+        self._fault_stats = FaultStats()
+        return trace
+
+    def _effective_masks(self, batch, horizon: int,
+                         fault_trace) -> np.ndarray:
+        """Per-round participation, ``[horizon, n]``: the scheduler's plan
+        AND the fault trace's survival (no crash, every unit delivered,
+        and for blocking methods every reply received)."""
+        if not self.scheduler.is_wait_all:
+            masks = np.array(self._plan_schedule(batch, horizon), copy=True)
+        else:
+            masks = np.ones((horizon, self.fsl.num_clients), bool)
+        if fault_trace is not None:
+            masks &= fault_trace.survives(self.method.downloads_gradients)
+        return masks
+
+    def participation_summary(self):
+        """The scheduler's summary of the realized plan (None before a
+        scheduled run and for wait_all), plus ``"faults"`` (the run's
+        :class:`FaultStats`) whenever a fault model was active."""
+        base = None
+        if self._sched_masks is not None:
+            base = self.scheduler.summary(self._sched_ctx, self._sched_masks)
+        if self.faults.is_null or self._fault_stats is None:
+            return base
+        out = dict(base or {})
+        out["faults"] = self._fault_stats.as_dict()
+        return out
+
+    def _model_sync_wire_pair(self):
+        """(up, down) wire bytes of ONE client's model-sync payload."""
+        mspecs = self.method.model_sync_specs(self.bundle, self.fsl)
+        return (self.transport.model_up_wire_bytes(mspecs),
+                self.transport.model_down_wire_bytes(mspecs))
+
     def _log_round(self, rnd, rnd0, aggregated, metrics_fn, profile, meter,
-                   log_every, callback, history, state):
+                   log_every, callback, history, state, extra=None,
+                   model_sync_bytes=None, wire_bytes=None):
         """Meter + history row for one finished (post-aggregation) round.
         ``metrics_fn`` lazily yields the float-cast metrics, so device
-        scalars are fetched only on logged rounds."""
+        scalars are fetched only on logged rounds.  The masked engines pass
+        the row's participation ``extra`` fields, the cohort's
+        ``model_sync_bytes`` (None: the whole fleet's, from the profile)
+        and, under faults, ``wire_bytes``: the trace-exact bytes by kind
+        (retransmissions and frames included) in place of the profile's
+        per-round charges."""
         if profile is not None:
-            meter.log("uplink_smashed", profile.wire_uplink_smashed)
-            meter.log("uplink_labels", profile.uplink_labels)
-            meter.log("downlink_grads", profile.wire_downlink_grads)
+            if wire_bytes is None:
+                meter.log("uplink_smashed", profile.wire_uplink_smashed)
+                meter.log("uplink_labels", profile.uplink_labels)
+                meter.log("downlink_grads", profile.wire_downlink_grads)
+            else:
+                for kind, nb in wire_bytes.items():
+                    meter.log(kind, nb)
             if aggregated:
-                meter.log("model_sync", profile.wire_model_sync)
+                meter.log("model_sync", profile.wire_model_sync
+                          if model_sync_bytes is None else model_sync_bytes)
         if log_every and (rnd + 1 - rnd0) % log_every == 0:
             m = metrics_fn()
             row: dict = {"round": rnd + 1, **m, "aggregated": aggregated}
+            if extra:
+                row.update(extra)
             if meter is not None:
                 row["comm_bytes"] = meter.total
             history.append(row)
@@ -228,7 +503,13 @@ class Trainer:
         - with ``meter`` + ``cost_model``, per-round and per-aggregation
           bytes from the method's CommProfile are logged and a
           ``comm_bytes`` running total joins the history rows; each row
-          also records whether that round ``aggregated``.
+          also records whether that round ``aggregated``;
+        - with a scheduler other than wait_all, or faults, FedAvg runs
+          masked over each window's cohort (:class:`_Participation`); rows
+          of aggregating rounds gain ``participants`` and
+          ``dropped_updates`` (and, under faults, ``fault_retries`` and
+          ``fault_drops``), the model-sync meter bills the cohort, and an
+          empty cohort is a warned no-op.
 
         For many rounds of a small model, :meth:`run_compiled` runs the
         same rounds without the per-round host dispatch.
@@ -239,22 +520,34 @@ class Trainer:
         rnd0 = start_batches // self.fsl.h
         history = []
         profile = None
+        book = _Participation(self, rnd0 + num_rounds) if self.masked \
+            else None
         for rnd in range(rnd0, rnd0 + num_rounds):
             batch = self.to_device(batcher.next_round())
             if meter is not None and cost_model is not None and profile is None:
                 profile = self.comm_profile(cost_model, batch[1].shape[2],
                                             batch=batch)
+            if book is not None:
+                book.plan(batch)
             seeds = {k: self._put(v) for k, v in
                      self._round_seeds(state["round"], batch).items()}
             state, metrics = self.step_fn(state, batch,
                                           self._lr(self.lr_at(rnd)), seeds)
             aggregated = cadence.advance(self.fsl.h)
-            if aggregated:
-                state = self.agg_fn(state, seeds)
+            extra = ms_bytes = wire = None
+            if book is None:
+                if aggregated:
+                    state = self.agg_fn(state, seeds)
+            else:
+                mask, extra, ms_bytes, wire = book.advance(rnd, aggregated,
+                                                           profile)
+                if mask is not None:
+                    state = self.masked_agg_fn(state, self._put(mask), seeds)
             self._log_round(rnd, rnd0, aggregated,
                             lambda: {k: float(v) for k, v in metrics.items()},
                             profile, meter, log_every, callback, history,
-                            state)
+                            state, extra=extra, model_sync_bytes=ms_bytes,
+                            wire_bytes=wire)
         return state, history
 
     # -- the compiled loop ----------------------------------------------------
@@ -299,6 +592,14 @@ class Trainer:
         - resume: like :meth:`run`, the cadence and the lr schedule restart
           from ``state["round"]``, chunk-aligned or not.
 
+        Under a scheduler or faults the chunk takes its rounds' slice of
+        the participation plan and the carry of the plan's AND across
+        chunks (the JAX chunk's ``part``); each round's cohort is computed
+        on the host and staged as a table the masked aggregate reads, and
+        on the card a round whose cadence fires on an empty cohort replays
+        the graph without the aggregation.  Rows, meter and stats come
+        from the same host bookkeeping as :meth:`run`'s.
+
         Data path: with ``device_data=True`` (the default) and a batcher
         that speaks the device-pool protocol (``device_pool(device)`` +
         ``next_round_indices()``), the sample pool is uploaded once and
@@ -315,6 +616,10 @@ class Trainer:
         start_batches = self.method.batches_trained(self.fsl, state)
         rnd0 = start_batches // self.fsl.h
         history, profile, done = [], None, 0
+        book = _Participation(self, rnd0 + num_rounds) if self.masked \
+            else None
+        # the chunks' participation carry (the JAX chunk's ``part``)
+        carry = np.ones(self.fsl.num_clients, np.float32)
         pooled = (device_data and hasattr(batcher, "device_pool")
                   and hasattr(batcher, "next_round_indices"))
         pool = batcher.device_pool(self.device) if pooled else None
@@ -339,47 +644,81 @@ class Trainer:
             per = [self._round_seeds(unit0 + i * self.units_per_round, sample)
                    for i in range(r)]
             seeds = {k: np.stack([p[k] for p in per]) for k in per[0]}
+            plan = None
+            if book is not None:
+                plan = book.plan(sample)[rnd0 + done:rnd0 + done + r] \
+                    .astype(np.float32)
             if self.device.type == "cuda":
-                state, metrics, agg_mask = self._replay(
-                    state, pool, data, lrs, seeds, chunk)
+                state, metrics, agg_mask, carry = self._replay(
+                    state, pool, data, lrs, seeds, chunk, plan, carry)
             else:
-                fn = self.pool_chunk_fn if pooled else self.chunk_fn
+                if book is None:
+                    fn = self.pool_chunk_fn if pooled else self.chunk_fn
+                else:
+                    fn = self.masked_pool_chunk_fn if pooled \
+                        else self.masked_chunk_fn
                 args = (pool, self._put(data)) if pooled \
                     else (tree_map(self._put, data),)
-                state, metrics, agg_mask = fn(
-                    state, *args, self._put(lrs),
-                    {k: self._put(v) for k, v in seeds.items()})
+                args += (self._put(lrs),
+                         {k: self._put(v) for k, v in seeds.items()})
+                if book is not None:
+                    args += (self._put(plan), self._put(carry))
+                state, metrics, agg_mask, *out = fn(state, *args)
+                if out:
+                    carry = out[0].cpu().numpy()
                 metrics = {k: v.tolist() for k, v in metrics.items()}
                 agg_mask = agg_mask.tolist()
             for i in range(r):
+                rnd, aggregated = rnd0 + done + i, bool(agg_mask[i])
+                extra = ms_bytes = wire = None
+                if book is not None:
+                    _, extra, ms_bytes, wire = book.advance(rnd, aggregated,
+                                                            profile)
                 self._log_round(
-                    rnd0 + done + i, rnd0, bool(agg_mask[i]),
+                    rnd, rnd0, aggregated,
                     lambda: {k: float(v[i]) for k, v in metrics.items()},
-                    profile, meter, log_every, callback, history, state)
+                    profile, meter, log_every, callback, history, state,
+                    extra=extra, model_sync_bytes=ms_bytes, wire_bytes=wire)
             done += r
         return state, history
 
-    def _replay(self, state, pool, data, lrs, seeds, chunk: int):
+    def _replay(self, state, pool, data, lrs, seeds, chunk: int, plan=None,
+                carry=None):
         """One chunk on the card: stage it into the captured program's
         buffers (capturing first where no capture fits) and replay a
-        round per row.  Returns ``(state, {name: [r] floats}, flags)``."""
+        round per row.  With ``plan`` (the chunk's fp32 ``[r, n]``
+        participation plan) and ``carry``, the host computes each round's
+        cohort (:func:`participation_windows`), stages the table, and
+        replays the aggregating graph only where the cadence fires and the
+        cohort is not empty.  Returns ``(state, {name: [r] floats}, flags,
+        carry)``; ``flags`` is the cadence."""
         r, unit0 = lrs.shape[0], state["round"]
-        fn = self.pool_chunk_fn if pool is not None else self.chunk_fn
+        masked = plan is not None
+        if masked:
+            fn = self.masked_pool_chunk_fn if pool is not None \
+                else self.masked_chunk_fn
+        else:
+            fn = self.pool_chunk_fn if pool is not None else self.chunk_fn
+        flags = fn.cadence(unit0, r)
+        fires, windows = flags, None
+        if masked:
+            windows, fires, carry = participation_windows(plan, carry, flags)
         cap = self._captured
-        if graphs.matches(cap, r, pool, data):
+        if graphs.matches(cap, r, pool, data, masked):
             cap.load_state(state)
-            cap.stage(data, lrs, seeds)
+            cap.stage(data, lrs, seeds, windows)
         else:
             self._captured = cap = None
-            if self._mempool is None:
-                self._mempool = torch.cuda.graph_pool_handle()
+            if self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
+            # each capture takes a fresh private pool: a pool whose graphs
+            # have been freed cannot start another capture
             cap = graphs.CapturedChunk(fn.body, state, max(chunk, r), data,
-                                       lrs, seeds, pool, self._mempool,
-                                       self._stream)
+                                       lrs, seeds, pool,
+                                       torch.cuda.graph_pool_handle(),
+                                       self._stream, windows=windows)
             self._captured = cap
-        flags = fn.cadence(unit0, r)
-        rows = cap.replay(flags)
+        rows = cap.replay(fires)
         metrics = {k: rows[:, j].tolist() for j, k in enumerate(cap.names)}
         state = {**cap.state, "round": unit0 + r * self.units_per_round}
-        return state, metrics, flags
+        return state, metrics, flags, carry
