@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11), the
-compiled runner's (phase 19) and the masked runner's (phase 21) can fail.
-Run from the repo root on a machine with one NVIDIA GPU and nvcc:
+topk tie check (phase 15), the compiled runner's (phase 19), the masked
+runner's (phase 21) and the layer recompute's (phase 22) can fail.  Run
+from the repo root on a machine with one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
-The tree itself runs phases 1, 2, 7, 11, 19 (its CNN CSE-FSL path) and 21
-(its cnn-cse-deadline and cnn-cse-bwh paths) of ``chip_smoke.py`` in a
-fresh process, with every check reported instead of raised; each mutant
-below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward),
-11 (K5), 19 (the captured round) and 21 (the masked round) that holds its
-fault.  A mutant is one deliberate fault in a kernel source, in the
-compiled runner or in the masked aggregate, made in a copy of the
-checkout under a temporary directory; the checkout itself is never
-changed.  The script exits non-zero unless the tree passes
+The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
+CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths) and 22
+(its qwen3-cse_fsl path) of ``chip_smoke.py`` in a fresh process, with
+every check reported instead of raised; each mutant below runs phases 1,
+2 and the one of 7 (fused CE, K6 and its backward), 11 (K5), 15 (topk),
+19 (the captured round), 21 (the masked round) and 22 (the recomputed
+layer) that holds its fault.  A mutant is one deliberate fault in a
+kernel source, in the compiled runner, in the masked aggregate, in the
+topk codec or in the layer recompute, made in a copy of the checkout
+under a temporary directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
 failed.
@@ -33,7 +35,10 @@ SWA = "src/repro_torch/kernels/csrc/swa_attention.cu"
 SSM = "src/repro_torch/kernels/csrc/ssm_scan.cu"
 BASE = "src/repro_torch/core/methods/base.py"
 GRAPHS = "src/repro_torch/core/graphs.py"
+TRANSPORT = "src/repro_torch/transport/__init__.py"
+MODEL = "src/repro_torch/models/model.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
+REMAT = "[qwen3-cse_fsl] run with remat == run without, bitwise"
 # name -> (edits (file, old, new), a check that must fail[, the phase to
 # run, where the file's own phase (phase_of) is not it]).  A mutant
 # never desynchronises a kernel's producer and consumers (that would hang
@@ -131,6 +136,20 @@ MUTANTS = {
           "                    if True:\n"
           "                        return b.contiguous()")],
         "[cnn-cse-bwh] on the card the cohort's rows are equal", "21"),
+    "topk with an unstable order (torch.topk in place of the stable sort)": (
+        [(TRANSPORT, "        idx = torch.sort(x.abs(), dim=-1, descending=True,\n"
+          "                         stable=True).indices[..., :self._k(c)]",
+          "        idx = torch.topk(x.abs(), self._k(c), dim=-1).indices")],
+        "topk ties (bf16 [2, 64, 1024], ratio 0.1", "15"),
+    "recompute from a stale input (the layer's output, not its input)": (
+        [(MODEL, "        ctx.save_for_backward(x, *leaves)",
+          "        ctx.save_for_backward(output, *leaves)")],
+        REMAT, "22"),
+    "recompute drops the parameter leaves' gradients": (
+        [(MODEL, "        return vjp_fn(g)\n",
+          "        dx, *_ = vjp_fn(g)\n"
+          "        return (dx, *(torch.zeros_like(t) for t in leaves))\n")],
+        REMAT, "22"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -147,7 +166,10 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "19": 'cs.phase_compiled(torch.device("cuda"), '
                 'paths=("cnn-cse_fsl",))\n',
           "21": 'cs.phase_sched(torch.device("cuda"), '
-                'paths=("cnn-cse-deadline", "cnn-cse-bwh"))\n'}
+                'paths=("cnn-cse-deadline", "cnn-cse-bwh"))\n',
+          "15": 'cs.check_topk_ties(torch.device("cuda"))\n',
+          "22": 'cs.phase_remat(torch.device("cuda"), '
+                'paths=("qwen3-cse_fsl",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -157,7 +179,7 @@ def phase_of(path: str) -> str:
     return "11" if path == SSM else "7"
 
 
-def run(where: str, phases=("7", "11", "19", "21")) -> list:
+def run(where: str, phases=("7", "11", "15", "19", "21", "22")) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)

@@ -1,10 +1,17 @@
-"""Shared helpers of the table scripts (``benchmarks/common.py``): the
-output folder, a banner and a plain-text table."""
+"""Shared helpers of the table and figure scripts (``benchmarks/common.py``):
+the output folder, a banner, a plain-text table and the split CNN's test
+accuracy."""
 from __future__ import annotations
 
 import json
 import os
 from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from repro_torch.models.cnn import stages
 
 OUT_DIR = os.environ.get("REPRO_BENCH_OUT", "experiments/bench")
 
@@ -30,3 +37,16 @@ def table(rows: List[Dict[str, Any]], cols: List[str]):
     print("-" * len(line))
     for r in rows:
         print("  ".join(str(r.get(c, "")).ljust(widths[c]) for c in cols))
+
+
+def accuracy(bundle, cfg, params, x: np.ndarray, y: np.ndarray) -> float:
+    """Top-1 accuracy of the merged split CNN ``params`` (client stage, then
+    server stage) on ``(x, y)``, computed on the bundle's device."""
+    dev = bundle.device
+    with torch.no_grad():
+        sm = bundle.client_smashed(params["client"],
+                                   torch.from_numpy(x).to(dev))
+        logits = functional_call(stages(cfg)["server"], params["server"],
+                                 (sm,))
+        hits = logits.argmax(-1) == torch.from_numpy(y).to(dev)
+    return float(hits.float().mean())

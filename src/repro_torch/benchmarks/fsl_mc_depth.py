@@ -3,10 +3,11 @@ kernels on) with FSL_MC's four server replicas, int8 up and down, n = 4
 clients, h = 2, B = 1, S = 4096 (``chip_smoke.py``'s Qwen3 setup), two
 rounds through ``Trainer.run`` at each depth asked for, deepest first.
 Prints each depth's peak device memory (``torch.cuda.max_memory_allocated``)
-or, where an allocation ran out, the memory held when it did.  The port
-keeps every layer's activations (no remat), so the replicas' saved
-activations decide the depth.  Run from the repo root on a machine with
-a GPU:
+or, where an allocation ran out, the memory held when it did.  The config
+recomputes each layer in its backward (``remat=True``), so only the
+layers' inputs stay saved; with ``remat=False`` the replicas' saved
+activations decide the depth (20 of 28 layers fit).  Run from the repo root on
+a machine with a GPU:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.fsl_mc_depth \\
         --layers 28 24 20

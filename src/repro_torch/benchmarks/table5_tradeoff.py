@@ -16,10 +16,7 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-from torch.func import functional_call
-
-from repro_torch.benchmarks.common import banner, save, table
+from repro_torch.benchmarks.common import accuracy, banner, save, table
 from repro_torch.common import bytes_of
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CommMeter, CostModel
@@ -27,19 +24,9 @@ from repro_torch.core.bundle import cnn_bundle
 from repro_torch.core.trainer import Trainer
 from repro_torch.data import (FederatedBatcher, partition_iid,
                               synthetic_classification)
-from repro_torch.models.cnn import CIFAR10, stages
+from repro_torch.models.cnn import CIFAR10
 
 N, BS, ROUNDS = 5, 24, 8
-
-
-def accuracy(bundle, params, x, y) -> float:
-    with torch.no_grad():
-        sm = bundle.client_smashed(params["client"],
-                                   torch.from_numpy(x).to(bundle.device))
-        logits = functional_call(stages(CIFAR10)["server"], params["server"],
-                                 (sm,))
-    return float((logits.argmax(-1).cpu() == torch.from_numpy(y)).float()
-                 .mean())
 
 
 def main(device="cuda", rounds: int = ROUNDS):
@@ -64,7 +51,8 @@ def main(device="cuda", rounds: int = ROUNDS):
         state, _ = trainer.run_compiled(trainer.init(), FederatedBatcher(
             fed, BS, h, seed=0), rounds, chunk=rounds, meter=meter,
             cost_model=cm)
-        acc = accuracy(bundle, trainer.merged_params(state), xt, yt)
+        acc = accuracy(bundle, CIFAR10, trainer.merged_params(state), xt,
+                       yt)
         profile = trainer.comm_profile(cm, BS)
         label = f"cse_fsl_h{h}" if method == "cse_fsl" else method
         rows.append({"method": label, "acc": round(acc, 4),

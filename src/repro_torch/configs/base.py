@@ -3,11 +3,12 @@
 
 Only the fields this port reads are here.  ``ModelConfig`` carries the
 dense and Mamba-1 (``ssm``) families' fields; MoE, hybrid and modality
-fields come with the slices that port those families.  ``remat`` is left
-out: activation checkpointing (``torch.utils.checkpoint``) does not
-compose with the ``torch.func.grad`` of the client phase, so the port runs
-without it.  ``unroll`` and ``dryrun_unroll`` are JAX scan hints with no
-PyTorch meaning and stay out.
+fields come with the slices that port those families.  ``remat`` recomputes
+each layer's activations in the backward (``models.model.Remat``, a
+layer-level ``torch.autograd.Function`` that composes with the client
+phase's ``vmap(grad(...))``, where ``torch.utils.checkpoint`` does not); it
+changes memory only.  ``unroll`` and ``dryrun_unroll`` are JAX scan hints
+with no PyTorch meaning and stay out.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ class ModelConfig:
 
     # numerics
     dtype: str = "float32"          # activation / param dtype
+    remat: bool = False             # recompute layers in the backward
     use_pallas: bool = False        # route hot spots through the kernels
 
     def __post_init__(self):
@@ -85,8 +87,8 @@ class ModelConfig:
         return replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model<=256 (the reference's
-        ``reduced`` on the dense and ssm families)."""
+        """Smoke-test variant: 2 layers, d_model<=256, no remat (the
+        reference's ``reduced`` on the dense and ssm families)."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
@@ -96,7 +98,7 @@ class ModelConfig:
             num_layers=2, d_model=d, num_heads=heads, num_kv_heads=kv,
             head_dim=0, d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512), cut_layer=1,
-            aux_rank=min(self.aux_rank, 32), ssm_chunk=16)
+            aux_rank=min(self.aux_rank, 32), ssm_chunk=16, remat=False)
         if self.ssm_variant:
             kw["ssm_state"] = min(self.ssm_state, 16)
         return self.with_(**kw)

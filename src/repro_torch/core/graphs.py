@@ -41,6 +41,7 @@ every block freed later reserved for the rest of the process.)
 """
 from __future__ import annotations
 
+import gc
 from typing import Dict, Optional
 
 import numpy as np
@@ -96,6 +97,9 @@ class CapturedChunk:
                                    self.step, True, self.windows)[1])
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         torch.cuda.synchronize(dev)
+        # torch.cuda.graph no longer collects before a capture: a dead cycle
+        # holding warm-up tensors would stay beside the graph's pool
+        gc.collect()
         torch.cuda.empty_cache()
         self.metrics = torch.zeros((rows, len(self.names)),
                                    dtype=torch.float64, device=dev)

@@ -107,6 +107,103 @@ def aux_logits_fn(cfg: ModelConfig, ap) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _batched(layer, in_dims):
+    """``layer`` vmapped over its input and leaves at ``in_dims``."""
+    xd, ld = in_dims[0], tuple(in_dims[1:])
+    return lambda x, leaves: torch.func.vmap(layer, in_dims=(xd, ld))(
+        x, tuple(leaves))
+
+
+class RematBwd(torch.autograd.Function):
+    """``(dx, *dleaves)`` of ``layer`` at ``(x, leaves)`` against ``g``: the
+    layer rerun and ``torch.func.vjp`` of it.  A Function of its own, as
+    the kernels' backwards in ``kernels/ops.py`` are, so that its vmap rule
+    runs the vjp on plain tensors (the layer vmapped inside it, where the
+    kernel Functions fold the clients), also when the backward is reached
+    through a ``vjp``'s pull under ``vmap`` (the blocking methods' client
+    update), and so that ``torch.func.grad``'s ``create_graph=True``
+    records none of the rerun."""
+
+    @staticmethod
+    def forward(layer, x, g, *leaves):
+        _, vjp_fn = torch.func.vjp(lambda xx, *ll: layer(xx, ll), x, *leaves)
+        return vjp_fn(g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("a recomputed layer has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, layer, x, g, *leaves):
+        n = info.batch_size
+
+        def lead(t, d):
+            # every operand batched on dim 0, so each row gets its own grads
+            return t.expand((n,) + tuple(t.shape)) if d is None \
+                else t.movedim(d, 0)
+
+        _, xd, gd, *ld = in_dims
+        out = RematBwd.apply(_batched(layer, (0,) * (1 + len(leaves))),
+                             lead(x, xd), lead(g, gd),
+                             *(lead(t, d) for t, d in zip(leaves, ld)))
+        return out, (0,) * len(out)
+
+
+class Remat(torch.autograd.Function):
+    """One layer recomputed in the backward (``jax.checkpoint`` of the
+    reference's scan body): ``Remat.apply(layer, x, *leaves)`` with
+    ``layer(x, leaves) -> x'``.
+
+    The forward runs the layer without recording it, so none of its
+    activations stay alive; only its input and parameter leaves are saved.
+    The backward (:class:`RematBwd`) reruns the layer and takes
+    ``torch.func.vjp`` of it with respect to the input and the leaves.
+    Built for ``torch.func`` as the kernel Functions in ``kernels/ops.py``
+    are (``setup_context``, no ``ctx`` in ``forward``, a ``vmap``
+    staticmethod): under the clients' ``vmap`` the layer runs vmapped
+    inside one call, so the kernel Functions in it still fold the clients
+    into one launch, in the forward and in its rerun.
+    ``torch.utils.checkpoint`` does not compose with ``torch.func.grad``;
+    this does."""
+
+    @staticmethod
+    def forward(layer, x, *leaves):
+        return layer(x, leaves)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        layer, x, *leaves = inputs
+        ctx.layer = layer
+        ctx.save_for_backward(x, *leaves)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        return (None, *RematBwd.apply(ctx.layer, x, g, *leaves))
+
+    @staticmethod
+    def vmap(info, in_dims, layer, x, *leaves):
+        return Remat.apply(_batched(layer, in_dims[1:]), x, *leaves), 0
+
+
+def _remat_layer(cfg: ModelConfig, apply_fn, p, ctx: Ctx):
+    """``layer(x, leaves)`` for :class:`Remat`: the block ``apply_fn`` with
+    ``p``'s structure refilled from ``leaves``."""
+    def layer(x, leaves):
+        it = iter(leaves)
+        x, _, a = apply_fn(cfg, tree_map(lambda _: next(it), p), x, ctx,
+                           None)
+        if isinstance(a, torch.Tensor):
+            raise NotImplementedError("remat of a block with an aux loss "
+                                      "(MoE) is not ported")
+        return x
+    return layer
+
+
 def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx):
     """Run a stage's stacked blocks in order.  Returns ``(x, aux, None)``
     (no caches in training mode).
@@ -115,10 +212,20 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx):
     backward stacks the layers' grads once.  Indexing ``a[i]`` per layer
     would make each layer's backward a zero-filled grad of the whole stack,
     summed across layers: a stack's size per layer and leaf (4 GiB for
-    falcon-mamba's 4 stacked clients' ``in_proj``)."""
+    falcon-mamba's 4 stacked clients' ``in_proj``).
+
+    With ``cfg.remat`` in train mode each layer runs through
+    :class:`Remat`: its activations are recomputed in the backward, the
+    numbers are the same bit for bit, and the layer's kernels launch once
+    more there (the rerun forward).  The dense and Mamba-1 blocks add no
+    aux loss, so the stage's aux stays 0."""
     _, apply_fn = BLOCKS[plan.kind]
     aux = 0.0
     for p in _unstack(sp["blocks"]):
+        if cfg.remat and ctx.mode == "train":
+            x = Remat.apply(_remat_layer(cfg, apply_fn, p, ctx), x,
+                            *tree_leaves(p))
+            continue
         x, _, a = apply_fn(cfg, p, x, ctx, None)
         aux = aux + a
     return x, aux, None

@@ -154,9 +154,11 @@ class Fp8Codec(_QuantCodec):
 class TopKCodec(Codec):
     """Magnitude top-k per row of the 2D wire view: ``k = max(1, min(c,
     round(ratio c)))`` fp32 values with their int32 indices cross the wire,
-    and the receiver scatters them into a dense zero payload.  Where the
-    k-th largest |x| ties, the kept indices may differ from the JAX
-    package's; the decoded payload differs only if the tied values do."""
+    and the receiver scatters them into a dense zero payload.  Among equal
+    magnitudes the lower index comes first, as ``jax.lax.top_k`` orders
+    them: the indices are the first k of a stable descending sort of |x|,
+    so the wire (its index order included) and the decoded payload equal
+    the JAX package's also where |x| ties, as it does in bf16 payloads."""
 
     ratio: float = 0.1           # kept fraction of the last axis
     name = "topk"
@@ -168,7 +170,8 @@ class TopKCodec(Codec):
         n = payload.shape[0]
         r, c = _rows_cols(tuple(payload.shape[1:]))
         x = payload.reshape(n, r, c).float()
-        idx = torch.topk(x.abs(), self._k(c), dim=-1).indices
+        idx = torch.sort(x.abs(), dim=-1, descending=True,
+                         stable=True).indices[..., :self._k(c)]
         return {"values": torch.gather(x, -1, idx),
                 "indices": idx.to(torch.int32)}
 

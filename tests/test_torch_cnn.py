@@ -142,3 +142,69 @@ def test_optimizers_match_reference(name):
     for k in params:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
                                    rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("gdtype", [torch.bfloat16, torch.float32])
+def test_sgd_slices_large_leaves_bitwise(monkeypatch, gdtype):
+    """Leaves of SLICE_NUMEL elements or more take the SGD step in slices
+    along dim 0: the same bits as the whole-leaf step and as the JAX
+    package's, per client under ``vmap`` (rows that do not divide dim 0,
+    a one-row leaf, a 0-d leaf) with the lr a 0-d fp32 tensor."""
+    import repro_torch.optim as optim
+    rng = np.random.default_rng(3)
+    shapes = {"stack": (7, 5, 3, 2), "rows": (9, 4), "one": (1, 40),
+              "small": (3,), "scalar": ()}
+    params = {k: torch.from_numpy(rng.normal(size=(2,) + s).astype(
+        np.float32)).to(torch.bfloat16) for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.normal(size=(2,) + s).astype(
+        np.float32)).to(gdtype) for k, s in shapes.items()}
+    lr = torch.tensor(0.15, dtype=torch.float32)
+    _, upd = make_optimizer("sgd")
+    calls = []
+    whole = torch.func.vmap(lambda p, g: upd(g, (), p, lr)[0])(params, grads)
+    monkeypatch.setattr(optim, "SLICE_NUMEL", 32)
+    sliced_fn = optim.sliced
+
+    def counted(fn, p, *rest):       # the rows of each slice of a leaf
+        if not p.dim() or p.numel() < 32:
+            return sliced_fn(fn, p, *rest)
+        rows = []
+        calls.append(rows)
+
+        def rec(*xs):
+            rows.append(xs[0].shape[0])
+            return fn(*xs)
+        return sliced_fn(rec, p, *rest)
+
+    monkeypatch.setattr(optim, "sliced", counted)
+    sliced = torch.func.vmap(lambda p, g: upd(g, (), p, lr)[0])(params,
+                                                                  grads)
+    # 16 elements a slice: stack 30 a row -> 7 slices of 1 row; rows 4 a
+    # row -> slices of 4, 4 and 1 rows; one -> 1 slice of 1 row
+    assert calls == [[1] * 7, [4, 4, 1], [1]]
+    _, jupd = jmake_optimizer("sgd")
+    for k in shapes:
+        assert torch.equal(sliced[k], whole[k]), k
+        jp = jnp.asarray(params[k].float().numpy()).astype(jnp.bfloat16)
+        jg = jnp.asarray(grads[k].float().numpy()).astype(
+            jnp.bfloat16 if gdtype == torch.bfloat16 else jnp.float32)
+        want = jupd(jg, (), jp, jnp.float32(0.15))[0]
+        np.testing.assert_array_equal(
+            sliced[k].float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def test_sgd_slices_unbatched_params_batched_grads(monkeypatch):
+    """Under ``vmap`` with the params shared and the grads per client,
+    the sliced step's result is per client, as the whole-leaf step's is."""
+    import repro_torch.optim as optim
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.normal(size=(9, 4)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(3, 9, 4)).astype(np.float32))
+    _, upd = make_optimizer("sgd")
+
+    def step(gg):
+        return upd({"w": gg}, (), {"w": p}, 0.1)[0]["w"]
+    whole = torch.func.vmap(step)(g)
+    monkeypatch.setattr(optim, "SLICE_NUMEL", 32)
+    got = torch.func.vmap(step)(g)
+    assert got.shape == (3, 9, 4) and torch.equal(got, whole)

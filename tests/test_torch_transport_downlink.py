@@ -74,6 +74,42 @@ def test_topk_matches_reference(shape, relu, ratio):
     assert get_codec("topk").ratio == jget_codec("topk").ratio == 0.1
 
 
+def _tied_payload(kind, shape, seed):
+    """Payloads whose magnitudes tie: bf16 Gaussians (the LM paths' smashed
+    data; 2 of a 1,024-wide row share each bf16 magnitude on average) or
+    fp32 integers drawn from [-8, 8] (17 values)."""
+    rng = np.random.default_rng(seed)
+    if kind == "bf16":
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(rng.integers(-8, 9, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("ratio", [0.1, 0.5])
+@pytest.mark.parametrize("kind,shape", [
+    ("bf16", (2, 64, 1024)), ("bf16", (3, 4, 6, 6, 64)),
+    ("ints", (2, 64, 1024)), ("ints", (3, 7, 300))])
+def test_topk_ties_match_reference(kind, shape, ratio):
+    """Where magnitudes tie, the wire (indices in their order, values) and
+    the decoded payload equal the JAX codec's bit for bit, per client:
+    ``jax.lax.top_k`` puts the lower index first among equals."""
+    x = _tied_payload(kind, shape, 3)
+    codec, jcodec = TopKCodec(ratio=ratio), \
+        dataclasses.replace(jget_codec("topk"), ratio=ratio)
+    wire = codec.encode(x)
+    got = codec.decode(wire, x).float().numpy()
+    xj = jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if kind == "bf16" else jnp.float32)
+    for c in range(shape[0]):
+        jwire = jcodec.encode(xj[c])
+        np.testing.assert_array_equal(wire["indices"][c].numpy(),
+                                      np.asarray(jwire["indices"]))
+        np.testing.assert_array_equal(wire["values"][c].numpy(),
+                                      np.asarray(jwire["values"]))
+        want = np.asarray(jcodec.decode(jwire, xj[c]).astype(jnp.float32))
+        np.testing.assert_array_equal(got[c], want)
+
+
 @pytest.mark.parametrize("codec", ["int8", "fp8", "topk"])
 def test_code_downlink_matches_reference(codec):
     """``code_downlink`` of a client-stacked reply equals the reference's
