@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11), the
 topk tie check (phase 15), the compiled runner's (phase 19), the masked
-runner's (phase 21) and the layer recompute's (phase 22) can fail.  Run
-from the repo root on a machine with one NVIDIA GPU and nvcc:
+runner's (phase 21), the layer recompute's (phase 22) and the event
+engine's (phase 24) can fail.  Run from the repo root on a machine with
+one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
-CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths) and 22
-(its qwen3-cse_fsl path) of ``chip_smoke.py`` in a fresh process, with
-every check reported instead of raised; each mutant below runs phases 1,
-2 and the one of 7 (fused CE, K6 and its backward), 11 (K5), 15 (topk),
-19 (the captured round), 21 (the masked round) and 22 (the recomputed
-layer) that holds its fault.  A mutant is one deliberate fault in a
-kernel source, in the compiled runner, in the masked aggregate, in the
-topk codec or in the layer recompute, made in a copy of the checkout
+CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
+(its qwen3-cse_fsl path) and 24 (its CNN paths) of ``chip_smoke.py`` in a
+fresh process, with every check reported instead of raised; each mutant
+below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward),
+11 (K5), 15 (topk), 19 (the captured round), 21 (the masked round), 22
+(the recomputed layer) and 24 (the event engine) that holds its fault.  A
+mutant is one deliberate fault in a kernel source, in the compiled
+runner, in the masked aggregate, in the topk codec, in the layer
+recompute, in the per-client coding, in the checksum frame or in the
+arrival heap, made in a copy of the checkout
 under a temporary directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
@@ -37,6 +40,8 @@ BASE = "src/repro_torch/core/methods/base.py"
 GRAPHS = "src/repro_torch/core/graphs.py"
 TRANSPORT = "src/repro_torch/transport/__init__.py"
 MODEL = "src/repro_torch/models/model.py"
+FRAME = "src/repro_torch/faults/frame.py"
+ENGINE = "src/repro_torch/core/async_trainer.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
 REMAT = "[qwen3-cse_fsl] run with remat == run without, bitwise"
 # name -> (edits (file, old, new), a check that must fail[, the phase to
@@ -150,6 +155,23 @@ MUTANTS = {
           "        dx, *_ = vjp_fn(g)\n"
           "        return (dx, *(torch.zeros_like(t) for t in leaves))\n")],
         REMAT, "22"),
+    "per-client coding with client 0's seeds for every client": (
+        [(TRANSPORT, "s = seeds[i][client:client + 1] if one else seeds[i]",
+          "s = seeds[i][0:1] if one else seeds[i]")],
+        "one client's coding (client=c) == row c of the stacked coding",
+        "24"),
+    "check_frame passes every payload": (
+        [(FRAME, "    return frame_checksum(tree) == (int(frame[0]), "
+          "int(frame[1]))", "    return True")],
+        "[cnn-cse-lognormal-lossy]", "24"),
+    "the arrival heap pops ties by descending client id": (
+        [(ENGINE, "            heapq.heappush(heap, (client_t[c] + xfer,\n"
+          "                                  next(seq), c, k, upload, "
+          "pending))",
+          "            heapq.heappush(heap, (client_t[c] + xfer,\n"
+          "                                  -1000 * c + next(seq), c, k, "
+          "upload, pending))")],
+        "[cnn-cse_fsl] zero latency consumes in Trainer.run's order", "24"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -169,7 +191,9 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
                 'paths=("cnn-cse-deadline", "cnn-cse-bwh"))\n',
           "15": 'cs.check_topk_ties(torch.device("cuda"))\n',
           "22": 'cs.phase_remat(torch.device("cuda"), '
-                'paths=("qwen3-cse_fsl",))\n'}
+                'paths=("qwen3-cse_fsl",))\n',
+          "24": 'cs.phase_engine(torch.device("cuda"), cs.make_data(), '
+                'parts=("cnn",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -179,7 +203,7 @@ def phase_of(path: str) -> str:
     return "11" if path == SSM else "7"
 
 
-def run(where: str, phases=("7", "11", "15", "19", "21", "22")) -> list:
+def run(where: str, phases=("7", "11", "15", "19", "21", "22", "24")) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)

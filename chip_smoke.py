@@ -139,14 +139,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    seconds.  Fig 9's cheapest-uplink claim fails in the JAX script too at
    these settings: the phase holds the port's failure to the reference's
    row (FIG9_REFERENCE_FAILURE) and lists it, open, under
-   ``"known_reference_failures"`` in the JSON record.
+   ``"known_reference_failures"`` in the JSON record;
+24. the event engine (``core/async_trainer.py``, ``AsyncTrainer``): on the
+   full-width CIFAR-10 CNN (int8 uplink and model sync) every method at
+   zero latency against ``Trainer.run`` -- the aggregation schedule, the
+   meter, the consumption order (Trainer.run's), AsyncStats and meter
+   equal to the CPU engine's, K2 once per client and unit on one client's
+   payload (the per-client coding bitwise the stacked coding's rows), each
+   unit's update within UNIT_RTOL of Trainer.run's from its state; CSE-FSL
+   under a lognormal latency and the lossy wire: the order permuted,
+   retries, every corrupted copy caught by its frame, the host stats equal
+   to the CPU run's; CSE-FSL on full-width Qwen3 against ``Trainer.run``:
+   launches a round with nothing folded, at one client's shapes, losses
+   at rtol 1e-3, updates within UNIT_RTOL; then the three drivers
+   (``fig6_async_order``, ``fig_sched``, ``fig_wallclock``) at their own
+   settings, claims asserted; ms a round of the engine and the loop.
 
 Phases 7-21 pin ``remat=False``, which the Qwen3 and falcon-mamba configs
 now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
-``"sched"``, ``"remat"``, ``"figures"`` and
-``"known_reference_failures"``: phases 21-23's numbers), the
+``"sched"``, ``"remat"``, ``"figures"``, ``"engine"`` and
+``"known_reference_failures"``: phases 21-24's numbers), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -183,7 +197,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.common import bytes_of, tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs.base import FSLConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import async_trainer  # noqa: E402
 from repro_torch.core.accounting import CommMeter, CostModel  # noqa: E402
+from repro_torch.core.async_trainer import (AsyncTrainer,  # noqa: E402
+                                            ConstantLatency,
+                                            LognormalLatency)
 from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
 from repro_torch.core.graphs import state_leaves  # noqa: E402
 from repro_torch.core.methods import get_method  # noqa: E402
@@ -1109,6 +1127,42 @@ def check_swa_bwd(cases, err, dev):
         torch.cuda.empty_cache()
 
 
+# The LM paths' bundles (by config), host copies of their initial
+# parameters (by config less remat, which does not change them, and seed)
+# and their token data (by vocabulary, clients and S), built once for every
+# phase that runs the path (8, 12, 17, 19-22, 24): each draw runs on the
+# CPU's generator, and a falcon-mamba one takes tens of seconds.
+BUNDLES, PARAMS, DATA = {}, {}, {}
+
+
+def lm_bundle(cfg, dev):
+    """``transformer_bundle(cfg, dev)`` whose ``init(gen)`` draws the
+    parameters once per config and seed and copies the host copy to the
+    card after; each method's ``init_state`` draws nothing else, so
+    ``Trainer.init`` gives the same bits as a fresh draw."""
+    key = (repr(cfg), str(dev))
+    if key not in BUNDLES:
+        bundle = transformer_bundle(cfg, device=dev)
+        pkey = repr(cfg.with_(remat=False))
+
+        def init(gen, bundle=bundle, pkey=pkey):
+            k = (pkey, gen.initial_seed())
+            if k not in PARAMS:
+                PARAMS[k] = tree_map(lambda t: t.cpu(), bundle.init(gen))
+            return tree_map(lambda t: t.to(bundle.device), PARAMS[k])
+        BUNDLES[key] = dataclasses.replace(bundle, init=init)
+    return BUNDLES[key]
+
+
+def lm_data(cfg, fsl, seq: int):
+    """``build_data`` of an LM path (LM_SAMPLES iid sequences a client)."""
+    key = (cfg.vocab_size, fsl.num_clients, seq)
+    if key not in DATA:
+        DATA[key] = build_data(cfg, fsl, seq, LM_SAMPLES, non_iid=False,
+                               seed=0)
+    return DATA[key]
+
+
 def lm_cfg():
     # the earlier phases keep their sizes, counts and peaks without remat;
     # phase 22 turns it on
@@ -1162,9 +1216,9 @@ def phase_lm_main(dev):
     t0 = phase("8 LM main path: CSE-FSL, Qwen3-0.6B full width, bf16, "
                "kernels on, Trainer.run")
     cfg = lm_cfg()
-    bundle = transformer_bundle(cfg, device=dev)
+    bundle = lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8")
-    fed = build_data(cfg, fsl, LM_S, LM_SAMPLES, non_iid=False, seed=0)
+    fed = lm_data(cfg, fsl, LM_S)
     cm = cost_model(bundle, LM_N, LM_SAMPLES)
     tr = Trainer(bundle, fsl)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1609,9 +1663,9 @@ def phase_mamba_main(dev):
     t0 = phase(f"12 Mamba main path: CSE-FSL, falcon-mamba-7b full width "
                f"({MB_LAYERS} layers), bf16, kernels on, Trainer.run")
     cfg = mb_cfg()
-    bundle = transformer_bundle(cfg, device=dev)
+    bundle = lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8")
-    fed = build_data(cfg, fsl, MB_S, LM_SAMPLES, non_iid=False, seed=0)
+    fed = lm_data(cfg, fsl, MB_S)
     cm = cost_model(bundle, LM_N, LM_SAMPLES)
     tr = Trainer(bundle, fsl)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1983,14 +2037,15 @@ def check_topk_ties(dev):
 def rel_error(got, want, before=None) -> float:
     """``|got - want| / |want - before|`` (``before`` None: ``/ |want|``),
     2-norms over all the tensors of the trees ``got`` (any device) and
-    ``want``, ``before`` (the CPU).  With ``before`` (an update read back
-    as new params less old) each element's difference first drops one ulp
-    of ``want``: the rounding of the new params, which differs between the
-    two sides wherever their updates differ at all."""
+    ``want``, ``before`` (both on one device, the CPU or the card).  With
+    ``before`` (an update read back as new params less old) each element's
+    difference first drops one ulp of ``want``: the rounding of the new
+    params, which differs between the two sides wherever their updates
+    differ at all."""
     num = den = 0.0
     olds = tree_leaves(before) if before is not None else None
     for j, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
-        d = (g.cpu() - w).abs()
+        d = (g.to(w.device) - w).abs()
         if olds is not None:
             a = w.abs()
             d = (d - (torch.nextafter(a, torch.full_like(a, math.inf)) - a)
@@ -2152,9 +2207,9 @@ def phase_lm_baselines(dev):
     for method, layers in BL_LM_PATHS:
         cfg = lm_cfg() if layers is None else lm_cfg().with_(
             num_layers=layers)
-        bundle = transformer_bundle(cfg, device=dev)
+        bundle = lm_bundle(cfg, dev)
         fsl = baseline_fsl(method, lm=True)
-        fed = build_data(cfg, fsl, LM_S, LM_SAMPLES, non_iid=False, seed=0)
+        fed = lm_data(cfg, fsl, LM_S)
         cm = cost_model(bundle, LM_N, LM_SAMPLES)
         tr = Trainer(bundle, fsl, transport=baseline_transport(method))
         tag = f"qwen3-0.6b {cfg.num_layers} layers {method} int8"
@@ -2311,23 +2366,27 @@ COMPILED_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", 2, 2),
                   ("cnn-fsl_an", "cnn", "fsl_an", 3, 2))
 
 
-def kernel_counts(prof) -> dict:
-    """Launches of each of the port's kernels in a profile, by symbol."""
+def cuda_events(prof) -> list:
+    """A profile's device kernels, averaged by name: one pass of
+    ``key_averages``, which on an LM path's profile takes seconds."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_counts(ev) -> dict:
+    """Launches of each of the port's kernels in ``cuda_events``' list, by
+    symbol."""
     out = {k: 0 for k in PROFILED}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in ev:
         for k in PROFILED:
             if re.search(rf"\b{k}\b", e.key):
                 out[k] += e.count
     return out
 
 
-def device_ms(prof, tag="", per: int = 1, top: int = 0) -> float:
-    """Kernel time in a profile (ms, divided by ``per``); prints the
-    ``top`` kernels."""
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+def device_ms(ev, tag="", per: int = 1, top: int = 0) -> float:
+    """Kernel time in ``cuda_events``' list (ms, divided by ``per``);
+    prints the ``top`` kernels."""
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {tag} {e.self_device_time_total / per / 1e3:9.3f} ms "
               f"{e.count / per:7.1f}x  {e.key[:70]}")
@@ -2377,28 +2436,13 @@ def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
                 cost_model(bundle, N, SAMPLES // N), B)
     cfg = path_cfg(model, remat, layers)
     s = seq or (LM_S if model == "qwen3" else MB_S)
-    bundle = transformer_bundle(cfg, device=dev)
+    bundle = lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
                     method=method)
-    fed = build_data(cfg, fsl, s, LM_SAMPLES, non_iid=False, seed=0)
+    fed = lm_data(cfg, fsl, s)
     return (Trainer(bundle, fsl, transport=tp),
             lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0),
             cost_model(bundle, LM_N, LM_SAMPLES), LM_B)
-
-
-# Host copies of the paths' initial states by (model, method, depth), drawn
-# once for phases 19 and 22: neither S nor remat changes them, and a
-# falcon-mamba init draws its 2.2 G weights on the CPU.
-INITS = {}
-
-
-def initial_state(tr, key, dev):
-    """``tr.init(0)`` on ``dev``, from INITS' host copy under ``key``."""
-    if key not in INITS:
-        INITS[key] = tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t,
-                              tr.init(0))
-    return tree_map(lambda t: t.to(dev) if torch.is_tensor(t) else t,
-                    INITS[key])
 
 
 def events_ms(fn, reps: int, per: int) -> list:
@@ -2419,13 +2463,31 @@ def state_on_cpu(state) -> list:
     return [t.cpu() for t in state_leaves(state)]
 
 
+class Laps:
+    """Wall seconds of a path's steps in order (``lap(name)`` closes the
+    step running since the last lap): where phases 19 and 22 spend their
+    time."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name: str):
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.3f}" for k, v in self.s.items())
+
+
 def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                         remat=False, seq=None, layers=None, want=None):
     """Phase 19 for one path, with the measurements phase 20 prints; phase
     22 runs its paths through it with ``remat`` (at sequence ``seq`` and
     depth ``layers``).
 
-    ``run`` for ``rounds`` rounds from ``init(0)`` (INITS' copy), profiled,
+    ``run`` for ``rounds`` rounds from ``init(0)`` (lm_bundle's params),
+    profiled,
     an LM path's wrapper launches counted round by round against
     lm_launches, then timed on for a few more; ``run_compiled`` for the
     same rounds from the same state (warm-up, the two captures, the
@@ -2442,8 +2504,10 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     print(f"  {lab} at the start: "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated",
           flush=True)
+    lap = Laps()
     tr, make_batcher, cm, bsz = compiled_trainer(model, method, dev, remat,
                                                  seq, layers)
+    lap("setup (bundle, data, trainer)")
     nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
     k2 = tr.units_per_round * (
         2 if get_method(method).downloads_gradients else 1) + 2 * nm
@@ -2460,8 +2524,8 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     torch.backends.cudnn.deterministic = True
     meters, after = [CommMeter(), CommMeter()], []
     reps = 5 if model == "cnn" else 2
-    key = (model, method, layers)
-    batcher, state = make_batcher(), initial_state(tr, key, dev)
+    batcher, state = make_batcher(), tr.init(0)
+    lap("initial state")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t = time.perf_counter()
@@ -2471,10 +2535,13 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                               callback=lambda *_: after.append(counts()))
         sync(dev)
         loop_s = time.perf_counter() - t
+        lap("loop rounds (profiled)")
         close_profile(dev)
-    loop_counts = kernel_counts(prof)
-    loop_dev = device_ms(prof, "loop", rounds, top=5)
-    del prof
+    ev = cuda_events(prof)
+    loop_counts = kernel_counts(ev)
+    loop_dev = device_ms(ev, "loop", rounds, top=5)
+    del prof, ev
+    lap("loop profile read")
     if expect is not None:
         for i, c in enumerate(after):
             c = {k: v - (after[i - 1][k] if i else 0) for k, v in c.items()}
@@ -2498,22 +2565,26 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
 
     loop_ms = events_ms(loop_round, reps, 1)
     loop_peak = torch.cuda.max_memory_allocated(dev)
+    lap("loop timed rounds")
     del state, box
     gc.collect()
     torch.cuda.empty_cache()
+    lap("free")
 
     print(f"  {lab} before run_compiled: "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated",
           flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    batcher, state = make_batcher(), initial_state(tr, key, dev)
+    batcher, state = make_batcher(), tr.init(0)
+    lap("initial state")
     t = time.perf_counter()
     state, chist = tr.run_compiled(state, batcher, rounds, chunk=chunk,
                                    log_every=1, meter=meters[1],
                                    cost_model=cm)
     sync(dev)
     first_s = time.perf_counter() - t
+    lap("run_compiled (warm-up, captures, replays)")
     at_capture = {k: v for k, v in counts().items() if v}
     got = state_leaves(state)
     bitwise = len(got) == len(copy) and all(
@@ -2549,14 +2620,17 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                   " (the captured backward reruns the forward)"
                   if remat else ""))
 
+    lap("checks")
     reset_counts()
     with cuda_profile() as prof:
         state, rhist = tr.run_compiled(state, batcher, chunk, chunk=chunk,
                                        log_every=1)
         close_profile(dev)
-    replay_counts = kernel_counts(prof)
-    replay_dev = device_ms(prof, "replay", chunk, top=5)
-    del prof
+    ev = cuda_events(prof)
+    replay_counts = kernel_counts(ev)
+    replay_dev = device_ms(ev, "replay", chunk, top=5)
+    del prof, ev
+    lap("replays (profiled, read)")
     wrapper_calls = sum(counts().values())
     per_loop = {k: v / rounds for k, v in loop_counts.items() if v}
     per_replay = {k: v / chunk for k, v in replay_counts.items() if v}
@@ -2588,6 +2662,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
 
     graph_ms_ = events_ms(replay_round, reps, 1)
     peak = torch.cuda.max_memory_allocated(dev)
+    lap("compiled timed rounds")
     out = {"rounds": rounds, "chunk": chunk, "remat": remat,
            "seq": seq, "layers": lcfg and lcfg.num_layers,
            "loop_ms": statistics.median(loop_ms), "loop_rounds_ms": loop_ms,
@@ -2610,6 +2685,9 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     del box, state, tr, cap
     gc.collect()
     torch.cuda.empty_cache()
+    lap("free")
+    out["laps_s"] = lap.s
+    print(f"  {lab} seconds: {lap.line()}", flush=True)
     return out
 
 
@@ -3034,7 +3112,8 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
             cap.step.zero_()
             cap.graphs[aggregated].replay()
             sync(dev)
-        k2[aggregated] = kernel_counts(prof)["quantize_philox_kernel"]
+        k2[aggregated] = kernel_counts(cuda_events(prof))[
+            "quantize_philox_kernel"]
         check(sum(counts().values()) == 0, f"[{tag}] the replay called no "
               "kernel wrapper")
         if aggregated:
@@ -3104,7 +3183,7 @@ def check_empty_window(tag, tr, make_batcher, dev, k2_plain):
         state, hist = tr.run_compiled(state, batcher, 1, chunk=2,
                                       log_every=1)
         sync(dev)
-    n_k2 = kernel_counts(prof)["quantize_philox_kernel"]
+    n_k2 = kernel_counts(cuda_events(prof))["quantize_philox_kernel"]
     lb = make_batcher()
     ref_state, _ = tr.run(tr.init(0), lb, 2)
     ref_state, _ = tr.step(ref_state, lb.next_round(), rnd=2)
@@ -3345,6 +3424,424 @@ def phase_figures(dev):
     return out, known
 
 
+# ---------------------------------------------------------------------------
+# The event engine (AsyncTrainer)
+# ---------------------------------------------------------------------------
+
+# Phase 24: the event engine against Trainer.run at zero latency, on the
+# CNN main path's setup (int8 uplink, int8 model sync; every method) and
+# on phase 19's Qwen3 CSE-FSL path (int8 uplink and model sync, lr decaying
+# every round), then CSE-FSL on the CNN under a lognormal latency and the
+# lossy wire with its frames verified, then the three drivers at their own
+# settings.  The CNN rounds aggregate every round (C = h).
+ENGINE_ROUNDS = 2
+ENGINE_FAULTS = dict(loss_rate=0.5, seed=0)
+ENGINE_DRIVERS = ("fig6_async_order", "fig_sched", "fig_wallclock")
+
+
+class Shapes:
+    """Records what an engine run hands its wire and kernel wrappers: each
+    uplink coding's client and payload shape (``Transport.code_uplink``),
+    and the input shapes of K3/K4 (x) and of K6 and its backward (q), by
+    wrapping what the engine and the ops call (nothing where not
+    ``active``)."""
+
+    SITES = ((Transport, "code_uplink", "uplink",
+              lambda tp, payload, *a, client=None, **kw:
+              (client, tuple(tree_leaves(payload)[0].shape))),
+             (ce, "fused_ce_fwd", "fused_ce_fwd",
+              lambda x, *a, **kw: tuple(x.shape)),
+             (ce, "fused_ce_bwd", "fused_ce_bwd",
+              lambda x, *a, **kw: tuple(x.shape)),
+             (swa, "swa_attention_fwd", "swa_attention",
+              lambda q, *a, **kw: tuple(q.shape)),
+             (swa, "swa_attention_bwd", "swa_attention_bwd",
+              lambda q, *a, **kw: tuple(q.shape)))
+
+    def __init__(self, active: bool = True):
+        self.active, self.saved = active, []
+        self.seen = {key: set() for _, _, key, _ in self.SITES}
+
+    def __enter__(self):
+        for obj, attr, key, what in self.SITES if self.active else ():
+            fn = getattr(obj, attr)
+            self.saved.append((obj, attr, fn))
+
+            def wrapped(*a, _fn=fn, _key=key, _what=what, **kw):
+                self.seen[_key].add(_what(*a, **kw))
+                return _fn(*a, **kw)
+            setattr(obj, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self.saved:
+            setattr(obj, attr, fn)
+
+
+def engine_lm_launches(cfg, k2: int) -> dict:
+    """A CSE-FSL round's wrapper launches through the event engine on an LM
+    path (n = 4, h = 2), each client on its own (nothing folded): the aux
+    head's fused CE (one fwd, one bwd) per local step per client and the
+    server head's per consumed upload; the layer kernel once per client
+    layer a local step and the smashed pass, per server layer an update;
+    its backward once per client layer a step and per server layer an
+    update; ``k2`` K2 launches."""
+    cut = cfg.resolved_cut
+    srv = cfg.num_layers - cut
+    heads = LM_N * LM_H + LM_N
+    want = only(quantize_philox=k2, fused_ce_fwd=heads, fused_ce_dx=heads,
+                fused_ce_dw=heads, fused_ce_p=heads)
+    want.update(swa_attention_tc=LM_N * (cut * (LM_H + 1) + srv),
+                **{n: LM_N * (cut * LM_H + srv) for n in swa.BWD_KERNELS})
+    return want
+
+
+def engine_cpu_run(fsl, tp, make_batcher, rounds, cm, **kw):
+    """The same engine run on the CPU (full width, the same Philox bits):
+    its AsyncStats, arrival order, FaultStats and meter."""
+    eng = AsyncTrainer(cnn_bundle(CIFAR10, device="cpu"), fsl, transport=tp,
+                       **kw)
+    meter = CommMeter()
+    eng.run(eng.init(0), make_batcher(), rounds, meter=meter, cost_model=cm)
+    return eng.stats.as_dict(), eng.stats.arrival_order, (
+        eng.fault_stats.as_dict() if eng.fault_stats is not None
+        else None), meter.counts
+
+
+def run_pair(tr, eng, state0, make_batcher, rounds, cm, reps):
+    """``Trainer.run`` then ``AsyncTrainer.run`` for ``rounds`` rounds from
+    copies of ``state0``, each with its launches counted a round, then
+    ``reps`` more rounds of each timed alone (CUDA events).  Returns both
+    runs' (state, history, meter, per-round launches), ms a round, and the
+    engine's kernel-wrapper input shapes (Shapes.seen) and AsyncStats of
+    its checked run."""
+    out, ms = [], []
+    for t in (tr, eng):
+        meter, after = CommMeter(), []
+        state = tree_map(lambda x: x.clone() if torch.is_tensor(x) else x,
+                         state0)
+        batcher = make_batcher()
+        sync(t.device)
+        reset_counts()
+        with Shapes(active=t is eng) as shapes:
+            state, hist = t.run(state, batcher, rounds, log_every=1,
+                                meter=meter, cost_model=cm,
+                                callback=lambda *_: after.append(counts()))
+            sync(t.device)
+        per_round = [{k: c[k] - (after[i - 1][k] if i else 0) for k in c}
+                     for i, c in enumerate(after)]
+        out.append((state, hist, meter, per_round))
+        stats = getattr(t, "stats", None)       # each run draws new stats
+        box = {"state": tree_map(lambda x: x.clone() if torch.is_tensor(x)
+                                 else x, state)}
+
+        def one_round(t=t, box=box, batcher=batcher):
+            box["state"], _ = t.run(box["state"], batcher, 1)
+
+        ms.append(events_ms(one_round, reps, 1))
+        del box
+    # the engine's (it runs second)
+    return out, ms, shapes.seen, stats
+
+
+def states_agree(a, b, rtol=1e-5):
+    """``(bitwise, worst |a - b| - rtol |b|)`` over two states' tensors."""
+    xs = [x for k in sorted(a) if k != "round" for x in tree_leaves(a[k])]
+    ys = [y for k in sorted(b) if k != "round" for y in tree_leaves(b[k])]
+    bitwise = all(same(x, y) for x, y in zip(xs, ys))
+    worst = max(float(((x.float() - y.float()).abs()
+                       - rtol * y.float().abs()).max())
+                for x, y in zip(xs, ys))
+    return bitwise, worst
+
+
+def zero_latency_order(method: str) -> list:
+    """The first round's consumption order of the engine at zero latency
+    (every event at t = 0 and the heap FIFO on ties): a unit at a time in
+    client order where the client waits for its reply or uploads once a
+    round (Trainer.run's order), every unit of a client in turn where it
+    streams its h uploads (FSL_AN, whose servers are per client)."""
+    m = get_method(method)
+    k = H if m.uploads_every_batch else 1
+    if m.downloads_gradients or k == 1:
+        return [c for _ in range(k) for c in range(N)]
+    return [c for c in range(N) for _ in range(k)]
+
+
+def check_client_coding(dev):
+    """The engine's per-client coding (``Transport.code_uplink(...,
+    client=c)``, and the downlink's) against the stacked round step's, on
+    the card at the CNN's and Qwen3's wire shapes: client c's row bitwise
+    the stacked call's row c, from the staged seed table and from seeds
+    derived on the host."""
+    tp = make_transport("int8", "int8")
+    g = torch.Generator().manual_seed(0)
+    for shape, dtype in (((N, B, 6, 6, 64), torch.float32),
+                         ((LM_N, LM_B, LM_S, 1024), torch.bfloat16)):
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        lab = torch.randint(0, 10, shape[:2], generator=g,
+                            dtype=torch.int32).to(dev)
+        n, unit = shape[0], 7
+        table = {k: torch.from_numpy(v).to(dev) for k, v in tp.stage_seeds(
+            unit, 1, n, {"uplink": 2, "downlink": 1}).items()}
+        up = tp.code_uplink((x, lab), unit, seeds=table["uplink"][0])
+        down = tp.code_downlink(x, unit, seeds=table["downlink"][0])
+        rows = [(tp.code_uplink((x[c], lab[c]), unit, client=c,
+                                seeds=table["uplink"][0]),
+                 tp.code_uplink((x[c], lab[c]), unit, client=c),
+                 tp.code_downlink(x[c], unit, client=c,
+                                  seeds=table["downlink"][0]))
+                for c in range(n)]
+        ok = all(same(r[0][0], up[0][c]) and same(r[0][1], lab[c])
+                 and same(r[1][0], up[0][c]) and same(r[2], down[c])
+                 for c, r in enumerate(rows))
+        check(ok and not same(up[0][0], up[0][1]),
+              f"one client's coding (client=c) == row c of the stacked "
+              f"coding, bitwise, uplink and downlink, at {list(shape)} "
+              f"{str(dtype)[6:]}")
+
+
+def check_engine_cnn(dev, fed, out):
+    """Phase 24 (a): every method on the CNN at zero latency against
+    Trainer.run, and (b): CSE-FSL under a lognormal latency and the lossy
+    wire with its frames verified."""
+    check_client_coding(dev)
+    bundle = cnn_bundle(CIFAR10, device=dev)
+    cm = cost_model(bundle, N, SAMPLES // N)
+    tp = make_transport("int8", model_sync="int8")
+    zero = ConstantLatency(0.0, 0.0, 0.0)
+
+    def make_batcher(skip=0, h=H):
+        batcher = FederatedBatcher(fed, B, h, seed=0)
+        for _ in range(skip):
+            batcher.next_round()
+        return batcher
+
+    r = ENGINE_ROUNDS
+    for method in ("cse_fsl",) + BASELINES:
+        fsl = FSLConfig(num_clients=N, h=H, lr=LR, method=method)
+        tr = Trainer(bundle, fsl, transport=tp)
+        eng = AsyncTrainer(bundle, fsl, transport=tp, latency=zero)
+        state0 = tr.init(0)
+        ((s_sync, h_sync, m_sync, _), (s_eng, h_eng, m_eng, per_round)), \
+            (sync_ms, eng_ms), seen, stats = run_pair(
+                tr, eng, state0, make_batcher, r, cm, 3)
+        K = eng.hooks.uploads_per_round
+        nm = len(tr.method.model_sync_specs(bundle, fsl))
+        k2 = N * K + 2 * nm
+        tag = f"[cnn-{method}]"
+        check([x["aggregated"] for x in h_eng]
+              == [x["aggregated"] for x in h_sync] == [True] * r,
+              f"{tag} the engine's aggregation schedule == Trainer.run's "
+              "(every round)")
+        check(m_eng.counts == m_sync.counts and [x["comm_bytes"] for x in
+                                                 h_eng]
+              == [x["comm_bytes"] for x in h_sync],
+              f"{tag} meter {m_eng.counts} == Trainer.run's, row by row")
+        check(stats.arrival_order == zero_latency_order(method),
+              f"{tag} zero latency consumes in Trainer.run's order "
+              f"(first round {stats.arrival_order})")
+        cpu_stats, order, _, cpu_meter = engine_cpu_run(
+            fsl, tp, make_batcher, r, cm, latency=zero)
+        check(stats.as_dict() == cpu_stats and stats.arrival_order == order
+              and cpu_meter == m_eng.counts,
+              f"{tag} AsyncStats and meter == the CPU engine's "
+              f"({stats.events} events, async {stats.async_time:.3f} s, "
+              f"barrier {stats.sync_time:.3f} s)")
+        for i, c in enumerate(per_round):
+            check(c == only(quantize_philox=k2),
+                  f"{tag} round {i + 1}: K2 {k2} times, nothing else: "
+                  f"{N} clients x {K} unit(s) one at a time + {nm} "
+                  f"model leaves up + {nm} down")
+        check(seen["uplink"] == {(c, (B, 6, 6, 64)) for c in range(N)},
+              f"{tag} the uplink codes one client's [{B}, 6, 6, 64] upload "
+              f"a call, as that client: {sorted(seen['uplink'])}")
+        # numerics, unit by unit from Trainer.run's states as phase 16
+        # holds the card: the free runs part by fp32 rounding (per-client
+        # against vmapped convolutions), which lr 0.15 amplifies step by
+        # step and the int8 wires' rounding boundaries turn into whole
+        # quantization steps.  So each unit is one mini-batch (h = 1
+        # rounds, C = h not crossed) on the identity wire (the coding is
+        # held bitwise above).
+        bitwise, worst = states_agree(s_eng, s_sync)
+        fsl_u = FSLConfig(num_clients=N, h=1, lr=LR, method=method,
+                          agg_every=H)
+        tr_u = Trainer(bundle, fsl_u, transport="none")
+        eng_u = AsyncTrainer(bundle, fsl_u, transport="none", latency=zero)
+        start, errs = state0, []
+        for i in range(r):
+            want, _ = tr_u.run(start, make_batcher(i, 1), 1)
+            got, _ = eng_u.run(start, make_batcher(i, 1), 1)
+            errs.append(max(rel_change_error(got[k]["params"],
+                                             want[k]["params"],
+                                             start[k]["params"])
+                            for k in want if k != "round"))
+            start = want
+        check(max(errs) <= UNIT_RTOL,
+              f"{tag} each unit's update from Trainer.run's state within "
+              f"{UNIT_RTOL} of Trainer.run's (relative 2-norm, worst key: "
+              f"{[f'{e:.3g}' for e in errs]}); after {r} free rounds "
+              + ("bitwise" if bitwise else f"|diff| - 1e-5 |ref| up to "
+                 f"{worst:.3g}"))
+        out[f"cnn-{method}"] = {
+            "engine_ms": statistics.median(eng_ms), "engine_rounds_ms": eng_ms,
+            "loop_ms": statistics.median(sync_ms), "loop_rounds_ms": sync_ms,
+            "k2_per_round": k2, "unit_update_rel_err": errs,
+            "free_bitwise": bitwise, "free_worst_excess": worst}
+        print(f"  {tag} engine {out[f'cnn-{method}']['engine_ms']:.3f} ms a "
+              f"round of {[round(x, 3) for x in eng_ms]} | Trainer.run "
+              f"{out[f'cnn-{method}']['loop_ms']:.3f} ms of "
+              f"{[round(x, 3) for x in sync_ms]}", flush=True)
+        del tr, eng, tr_u, eng_u, state0, s_sync, s_eng, start, want, got
+    # (b) arrival order, retries and the frame on the card
+    fsl = FSLConfig(num_clients=N, h=H, lr=LR)
+    kw = dict(latency=LognormalLatency(sigma=1.0, spread=1.0),
+              faults=LossyWire(**ENGINE_FAULTS), seed=3)
+    eng = AsyncTrainer(bundle, fsl, transport=tp, **kw)
+    tag = "[cnn-cse-lognormal-lossy]"
+    checked, raised = [], None
+    check_frame = async_trainer.check_frame
+
+    def counted(tree, frame):
+        checked.append(check_frame(tree, frame))
+        return checked[-1]
+
+    async_trainer.check_frame = counted
+    try:
+        meter = CommMeter()
+        eng.run(eng.init(0), make_batcher(), r, meter=meter, cost_model=cm)
+        sync(dev)
+    except RuntimeError as e:       # an undetected corruption
+        raised = e
+    finally:
+        async_trainer.check_frame = check_frame
+    trace = eng.faults.trace(r, N, 1)
+    retried = int((trace.up_attempts > 1).sum())
+    check(raised is None and eng.fault_stats.retries > 0 and retried > 0
+          and len(checked) == retried and not any(checked),
+          f"{tag} {eng.fault_stats.retries} retries; each of the "
+          f"{retried} retransmitted units' corrupted copy failed its frame "
+          f"({len(checked)} checks, {sum(checked)} passed"
+          + (f"; the engine raised: {raised}" if raised else "") + ")")
+    if raised is not None:
+        return
+    stats, order, fstats, cpu_meter = engine_cpu_run(fsl, tp, make_batcher,
+                                                     r, cm, **kw)
+    check(eng.stats.arrival_order != list(range(N)),
+          f"{tag} the arrival order permutes: {eng.stats.arrival_order}")
+    check(eng.stats.as_dict() == stats and eng.fault_stats.as_dict()
+          == fstats and eng.stats.arrival_order == order
+          and meter.counts == cpu_meter,
+          f"{tag} AsyncStats, FaultStats and meter == the CPU run's of the "
+          f"same traces (async {eng.stats.async_time:.3f} s against the "
+          f"barrier's {eng.stats.sync_time:.3f} s)")
+    out["cnn-cse-lognormal-lossy"] = {
+        "stats": eng.stats.as_dict(), "arrival_order": eng.stats.arrival_order,
+        "faults": eng.fault_stats.as_dict(), "frames_checked": len(checked),
+        "meter": dict(meter.counts)}
+    del eng
+
+
+def check_engine_lm(dev, out):
+    """Phase 24 (c): CSE-FSL on full-width Qwen3-0.6B, the engine against
+    Trainer.run at zero latency on phase 19's trainer: losses at rtol 1e-3,
+    each state key's update within UNIT_RTOL, launches a round as
+    engine_lm_launches states them, at one client's shapes."""
+    tr, make_batcher, cm, _ = compiled_trainer("qwen3", "cse_fsl", dev)
+    eng = AsyncTrainer(tr.bundle, tr.fsl, transport=tr.transport,
+                       latency=ConstantLatency(0.0, 0.0, 0.0))
+    state0 = tr.init(0)
+    nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
+    cfg = lm_cfg()
+    want = engine_lm_launches(cfg, LM_N + 2 * nm)
+    tag = "[qwen3-cse_fsl]"
+    print(f"  {tag} expected launches a round "
+          f"{ {k: v for k, v in want.items() if v} }", flush=True)
+    ((s_sync, h_sync, m_sync, _), (s_eng, h_eng, m_eng, per_round)), \
+        (sync_ms, eng_ms), seen, _ = run_pair(
+            tr, eng, state0, make_batcher, ENGINE_ROUNDS, cm, 1)
+    for i, c in enumerate(per_round):
+        check(c == want, f"{tag} round {i + 1} launches "
+              f"{ {k: v for k, v in c.items() if v} } == expected")
+    hd = cfg.resolved_head_dim
+    check(seen["uplink"] == {(c, (LM_B, LM_S, cfg.d_model))
+                             for c in range(LM_N)}
+          and seen["swa_attention"] == seen["swa_attention_bwd"]
+          == {(LM_B, LM_S, cfg.num_heads, hd)}
+          and seen["fused_ce_fwd"] == seen["fused_ce_bwd"] == {
+              (1, LM_S, d) for d in (cfg.aux_rank, cfg.d_model)},
+          f"{tag} one client a call: the uplink "
+          f"{sorted(seen['uplink'])}, K6 and its backward at "
+          f"{sorted(seen['swa_attention'])}, K3/K4 at "
+          f"{sorted(seen['fused_ce_fwd'])}")
+    check([x["aggregated"] for x in h_eng] == [x["aggregated"]
+                                              for x in h_sync]
+          and m_eng.counts == m_sync.counts,
+          f"{tag} aggregation schedule and meter {m_eng.counts} == "
+          "Trainer.run's")
+    for re, rs in zip(h_eng, h_sync):
+        for k in metric_keys(rs):
+            check(math.isclose(re[k], rs[k], rel_tol=1e-3),
+                  f"{tag} round {rs['round']} {k} {re[k]:.6f} == "
+                  f"Trainer.run's {rs[k]:.6f} at rtol 1e-3")
+    errs = {k: rel_change_error(s_eng[k]["params"], s_sync[k]["params"],
+                                state0[k]["params"])
+            for k in s_sync if k != "round"}
+    check(max(errs.values()) <= UNIT_RTOL,
+          f"{tag} each key's update within {UNIT_RTOL} of Trainer.run's "
+          f"(relative 2-norm: { {k: round(v, 5) for k, v in errs.items()} })")
+    out["qwen3-cse_fsl"] = {
+        "engine_ms": eng_ms[0], "loop_ms": sync_ms[0],
+        "launches_per_round": {k: v for k, v in want.items() if v},
+        "update_rel_err": errs}
+    print(f"  {tag} engine {eng_ms[0]:.3f} ms a round | Trainer.run "
+          f"{sync_ms[0]:.3f} ms", flush=True)
+    del tr, eng, state0, s_sync, s_eng
+
+
+def phase_engine(dev, fed, parts=("cnn", "lm", "drivers")):
+    """Phase 24: the event engine on the card, the ``parts`` of it (the CNN
+    paths, the Qwen3 path, the drivers).  Returns its numbers."""
+    t0 = phase("24 event engine: AsyncTrainer against Trainer.run at zero "
+               "latency (CNN, four methods; Qwen3 CSE-FSL), arrival order, "
+               "retries and frames, the three drivers")
+    release(dev)
+    out = {}
+    # deterministic algorithms, as in phases 19-22: the same kernels on
+    # every run, so the comparisons and the times do not wander
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        if "cnn" in parts:
+            t = time.perf_counter()
+            check_engine_cnn(dev, fed, out)
+            release(dev)
+            out["cnn_s"] = time.perf_counter() - t
+        if "lm" in parts:
+            t = time.perf_counter()
+            check_engine_lm(dev, out)
+            release(dev)
+            out["lm_s"] = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    import importlib
+    for name in ENGINE_DRIVERS if "drivers" in parts else ():
+        mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
+        t = time.perf_counter()
+        res = mod.main(dev)
+        sync(dev)
+        secs = time.perf_counter() - t
+        print(f"  {name}: ran to its end, its claims held, {secs:.3f} s",
+              flush=True)
+        out[name] = {"seconds": secs, "result": res if name ==
+                     "fig6_async_order" else {k: v[-1] for k, v in
+                                              res.items()}}
+        release(dev)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -3398,6 +3895,7 @@ def main() -> int:
     for t in main_lm:
         del compiled[t]["loop_run"]
     figures, known = phase_figures(dev)
+    engine = phase_engine(dev, fed)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -3412,7 +3910,7 @@ def main() -> int:
                       "round_ms": round_ms, "lm": lm, "mamba": mb,
                       "baselines": baselines, "compiled": compiled,
                       "sched": scheduled, "remat": remat,
-                      "figures": figures,
+                      "figures": figures, "engine": engine,
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

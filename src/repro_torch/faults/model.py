@@ -33,8 +33,8 @@ replays the faults of the uninterrupted one):
 ``NoFaults.is_null`` sends the Trainer down its untouched unmasked path:
 no trace drawn, no mask built, no frame bytes billed.
 
-The event engine's first-attempt corruption key (``retry_key``, a
-``jax.random`` stream) is not ported: only the event engine reads it.
+The event engine's first-attempt corruption seed (:func:`retry_key`)
+comes from the port's own seed stream, disjoint from every codec seed.
 """
 from __future__ import annotations
 
@@ -50,10 +50,24 @@ from repro_torch.core.accounting import Recordable
 # weather, and faults without coupling the draws.
 FAULT_STREAM = 0x666C74          # "flt"
 
-# The JAX package's fold constant of its retransmission/corruption key
-# stream (``repro.faults.model.retry_key``), kept as a plain integer for
-# the event engine's port; the sync trainers never read it.
+# The retransmission/corruption stream (:func:`retry_key`): its units sit
+# at ``RETRY_FOLD + unit``, far above any unit counter a run reaches, and
+# its salt past the four ``CHANNEL_SALTS`` of the codec seeds.
 RETRY_FOLD = 0x52455452          # "RETR"
+RETRY_SALT = 4
+
+
+def retry_key(transport, unit: int, client: Optional[int] = None) -> int:
+    """The seed of the simulated first-attempt corruption of upload
+    ``unit`` of ``client`` (:func:`repro_torch.faults.frame.corrupt_frame`):
+    ``transport.unit_seed`` at unit ``RETRY_FOLD + unit`` and salt
+    ``RETRY_SALT`` (client 0 where None), a splitmix64 chain that shares
+    no input with the codec seeds of any unit below ``RETRY_FOLD``.  The
+    JAX package folds ``RETRY_FOLD + unit`` into a ``jax.random`` key
+    instead; the two streams differ by design."""
+    return transport.unit_seed(RETRY_FOLD + unit,
+                               0 if client is None else client,
+                               RETRY_SALT, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -323,20 +323,32 @@ class Transport:
         return out
 
     def _code(self, codec: Codec, payload, salt: int, unit=None,
-              seeds=None):
+              seeds=None, client=None):
         """Code every float leaf of the client-stacked tree ``payload``.
         Stochastic codecs take leaf ``i``'s seeds from ``seeds[i]`` (int64
         ``[n]`` on the payload's device: the unit's table on this channel)
         or, given only the Python int ``unit``, derive them on the host
         and copy them over (a convenience for direct calls; the round step
-        always passes ``seeds``)."""
+        always passes ``seeds``).
+
+        With ``client`` (the event engine, one upload at a time) the
+        payload is ONE client's tree, without the client dim, and is coded
+        as client ``client`` of the unit: leaf ``i`` with
+        ``unit_seed(unit, client, salt, i)`` (column ``client`` of the
+        ``seeds`` table) or ``bits_fn(unit, client, i, salt, ...)``, one
+        launch a leaf on the client's own shape -- the noise the stacked
+        call draws for that client."""
         if codec.is_identity:
             return payload
+        one = client is not None
+        if one:
+            payload = tree_map(lambda x: x.unsqueeze(0), payload)
 
         def code(i, leaf):
             if not leaf.is_floating_point():
                 return leaf
             n = leaf.shape[0]
+            clients = [client] if one else range(n)
             s = bits = None
             if codec.stochastic and self.bits_fn is not None:
                 if unit is None:
@@ -345,30 +357,34 @@ class Transport:
                 bits = torch.stack([torch.from_numpy(np.array(
                     self.bits_fn(unit, cl, i, salt, rc),
                     dtype=np.uint32).view(np.int32))
-                    for cl in range(n)]).to(leaf.device)
+                    for cl in clients]).to(leaf.device)
             elif codec.stochastic and seeds is not None:
-                s = seeds[i]
+                s = seeds[i][client:client + 1] if one else seeds[i]
             elif codec.stochastic:
                 if unit is None:
                     raise ValueError(f"codec {codec.name!r} is stochastic: "
                                      "pass seeds= (or unit=)")
-                s = torch.from_numpy(self.seed_table(
-                    [unit], salt, n, i + 1)[0, i]).to(leaf.device)
+                s = torch.tensor([self.unit_seed(unit, cl, salt, i)
+                                  for cl in clients], dtype=torch.int64,
+                                 device=leaf.device)
             return codec.roundtrip(leaf, seeds=s, bits=bits)
 
-        return _walk(payload, code)
+        out = _walk(payload, code)
+        return tree_map(lambda x: x[0], out) if one else out
 
-    def code_uplink(self, payload, unit=None, *, seeds=None):
+    def code_uplink(self, payload, unit=None, *, seeds=None, client=None):
         """Code a client-stacked upload (a tensor or a tuple of tensors,
-        each ``[n, ...]``) of upload unit ``unit`` (salt 0)."""
+        each ``[n, ...]``) of upload unit ``unit`` (salt 0); with
+        ``client``, one client's upload (see :meth:`_code`)."""
         return self._code(self.uplink, payload, CHANNEL_SALTS["uplink"],
-                          unit, seeds)
+                          unit, seeds, client)
 
-    def code_downlink(self, payload, unit=None, *, seeds=None):
+    def code_downlink(self, payload, unit=None, *, seeds=None, client=None):
         """Code a client-stacked reply of upload unit ``unit`` (the same
-        ``unit`` as that unit's upload; salt 1)."""
+        ``unit`` as that unit's upload; salt 1); with ``client``, one
+        client's reply."""
         return self._code(self.downlink, payload, CHANNEL_SALTS["downlink"],
-                          unit, seeds)
+                          unit, seeds, client)
 
     def code_model_up(self, model, unit=None, *, seeds=None):
         """Code every client's model (a tree of ``[n, ...]`` leaves) as
