@@ -1,23 +1,26 @@
 #!/usr/bin/env python3
 """Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11), the
 topk tie check (phase 15), the compiled runner's (phase 19), the masked
-runner's (phase 21), the layer recompute's (phase 22) and the event
-engine's (phase 24) can fail.  Run from the repo root on a machine with
+runner's (phase 21), the layer recompute's (phase 22), the event
+engine's (phase 24) and the population engine's and telemetry's (phase
+25) can fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py
 
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
-(its qwen3-cse_fsl path) and 24 (its CNN paths) of ``chip_smoke.py`` in a
-fresh process, with every check reported instead of raised; each mutant
-below runs phases 1, 2 and the one of 7 (fused CE, K6 and its backward),
-11 (K5), 15 (topk), 19 (the captured round), 21 (the masked round), 22
-(the recomputed layer) and 24 (the event engine) that holds its fault.  A
-mutant is one deliberate fault in a kernel source, in the compiled
-runner, in the masked aggregate, in the topk codec, in the layer
-recompute, in the per-client coding, in the checksum frame or in the
-arrival heap, made in a copy of the checkout
+(its qwen3-cse_fsl path), 24 and 25 (their CNN paths) of
+``chip_smoke.py`` in a fresh process, with every check reported instead
+of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
+K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
+(the masked round), 22 (the recomputed layer), 24 (the event engine) and
+25 (the population engine, telemetry) that holds its fault.  A mutant is
+one deliberate fault in a kernel source, in the compiled runner, in the
+masked aggregate, in the topk codec, in the layer recompute, in the
+per-client coding, in the checksum frame, in the arrival heap, in the
+population engine's rows, in the cohort or shard draws or in telemetry,
+made in a copy of the checkout
 under a temporary directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
 shape.  The last line is a JSON summary: per run, the checks that
@@ -42,6 +45,10 @@ TRANSPORT = "src/repro_torch/transport/__init__.py"
 MODEL = "src/repro_torch/models/model.py"
 FRAME = "src/repro_torch/faults/frame.py"
 ENGINE = "src/repro_torch/core/async_trainer.py"
+POPULATION = "src/repro_torch/population/engine.py"
+POOL = "src/repro_torch/population/data.py"
+COHORT = "src/repro_torch/sched/cohort.py"
+TRAINER = "src/repro_torch/core/trainer.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
 REMAT = "[qwen3-cse_fsl] run with remat == run without, bitwise"
 # name -> (edits (file, old, new), a check that must fail[, the phase to
@@ -172,6 +179,29 @@ MUTANTS = {
           "                                  -1000 * c + next(seq), c, k, "
           "upload, pending))")],
         "[cnn-cse_fsl] zero latency consumes in Trainer.run's order", "24"),
+    "the population's default row kept as a view of the state": (
+        [(POPULATION, "self._default = {k: _row(state[k]) for k in "
+          "self._stacked}",
+          "self._default = {k: tree_map(lambda x: x[0], state[k]) for k in "
+          "self._stacked}")],
+        "[cnn-fleet] the default row is unchanged by the rounds", "25"),
+    "the cohort draws' salt changed": (
+        [(COHORT, "_COHORT_SALT = 0xC0408", "_COHORT_SALT = 0xC0409")],
+        "[cnn-fleet] cohorts == the plain stratified draws", "25"),
+    "the virtual shards' hash changed": (
+        [(POOL, "_SHARD_HASH = 2654435761", "_SHARD_HASH = 2654435769")],
+        "[cnn-fleet] index plans == the plain virtual-shard draws", "25"),
+    "telemetry reads a state tensor on the host each round": (
+        [(TRAINER, "            if tele.enabled:\n"
+          "                tele.round_record(engine, rnd + 1, m, "
+          "aggregated,",
+          "            if tele.enabled:\n"
+          "                tele.gauge(\"state_norm\", float(\n"
+          "                    graphs.state_leaves(state)[0].float()"
+          ".norm()))\n"
+          "                tele.round_record(engine, rnd + 1, m, "
+          "aggregated,")],
+        "[telemetry compiled] the recorder adds no synchronizing call", "25"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -193,6 +223,8 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "22": 'cs.phase_remat(torch.device("cuda"), '
                 'paths=("qwen3-cse_fsl",))\n',
           "24": 'cs.phase_engine(torch.device("cuda"), cs.make_data(), '
+                'parts=("cnn",))\n',
+          "25": 'cs.phase_population(torch.device("cuda"), cs.make_data(), '
                 'parts=("cnn",))\n'}
 
 
@@ -203,7 +235,8 @@ def phase_of(path: str) -> str:
     return "11" if path == SSM else "7"
 
 
-def run(where: str, phases=("7", "11", "15", "19", "21", "22", "24")) -> list:
+def run(where: str,
+        phases=("7", "11", "15", "19", "21", "22", "24", "25")) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)

@@ -100,7 +100,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches a round as stated before the run and its warm-up and
    captures calling the layer kernels 3 rounds' worth, a profiled replay
    launching every kernel of the loop's round as often (K2 on the uplink,
-   the downlink and the model-sync channels) with no wrapper called; and
+   the downlink and the model-sync channels) with no wrapper called; the
+   LM paths gather their batches from the device pool, and Qwen3 CSE-FSL
+   also runs the staged data path (``device_data=False``), bitwise
+   against the loop and the pooled run (STAGED_PATHS); and
    (run after phase 21) a kernel wrapper made to synchronize makes the
    capture raise;
 20. loop vs compiled: each path's round in both engines (CUDA-event
@@ -121,15 +124,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    window replaying the graph without FedAvg (no model-sync K2), and
    (last of all, with phase 19's) a syncing wrapper making the masked
    capture raise; two paths' rounds timed as in phase 20 beside the
-   unmasked path's;
+   unmasked path's; the Qwen3 path also through the staged data path,
+   its masked chunk program on staged batches, bitwise against the loop
+   and the pooled run;
 22. layer recompute (``cfg.remat``), every path through phase 19's
    checks with remat on: CSE-FSL on full-width Qwen3 (S = 4096) and on
    phase 12's falcon-mamba cut (S = 2048), against phase 19's runs of
    the same paths without it: the states, losses and meters bitwise
    equal, the launches a round stated before the run (with remat each
    layer's forward kernel once more per backward, every other kernel as
-   often), the capture calling the recomputed forwards, ms a round and
-   peak memory in both engines; then, in both engines too, the cuts
+   often), the capture calling the recomputed forwards, ms a round (one
+   timed round a path) and peak memory in both engines; then, in both
+   engines too, the cuts
    remat lifts: the Mamba path at S = 4096 and FSL_MC on Qwen3 at all 28
    layers (the largest size that fits; a size that runs out of memory is
    recorded);
@@ -153,14 +159,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches a round with nothing folded, at one client's shapes, losses
    at rtol 1e-3, updates within UNIT_RTOL; then the three drivers
    (``fig6_async_order``, ``fig_sched``, ``fig_wallclock``) at their own
-   settings, claims asserted; ms a round of the engine and the loop.
+   settings, claims asserted; ms a round of the engine and the loop;
+25. the population engine (``repro_torch.population``) and telemetry:
+   on the full-width CIFAR-10 CNN (int8 on every channel) ``Population``
+   with C == N over a FederatedPool against ``run_compiled``, bitwise
+   (state, history, meter), each method, a population round launching
+   phase 19's replayed round's kernels; a VirtualPool fleet of 10^6
+   (stratified on the tiered network, refresh=False): cohorts and index
+   plans against plain draws, one shared cache row a finished window, the
+   default row untouched by the replays, a checkpoint saved mid-window
+   and restored into a fresh engine resuming bitwise, ``engine_total`` the
+   same at N = 10^4; the lossy and crashy presets against the same engine
+   on the CPU (participants, drops, retries, wire bytes); full-width
+   Qwen3-0.6B through ``LMPool(VirtualPool)`` at N = 10^6 for 3 rounds
+   (launches, ms a round, peak memory, the memory report and the
+   population summary); telemetry on and off in ``run``,
+   ``run_compiled``, ``AsyncTrainer.run`` and ``Population.run``: bitwise,
+   the same number of synchronizing calls, every exported record valid,
+   and ``run`` at ``log_every=0``: its records those of a run logging
+   every round, one synchronizing call added (the one fetch at its end);
+   then ``fig_population`` at its own settings, its three claims asserted.
 
 Phases 7-21 pin ``remat=False``, which the Qwen3 and falcon-mamba configs
 now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
-``"sched"``, ``"remat"``, ``"figures"``, ``"engine"`` and
-``"known_reference_failures"``: phases 21-24's numbers), the
+``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
+``"telemetry"`` and ``"known_reference_failures"``: phases 21-25's
+numbers), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -176,6 +202,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -206,23 +233,27 @@ from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
 from repro_torch.core.graphs import state_leaves  # noqa: E402
 from repro_torch.core.methods import get_method  # noqa: E402
 from repro_torch.core.methods.base import stacked_keys  # noqa: E402
+from repro_torch.core import trainer as trainer_mod  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
-                              synthetic_classification)
+                              synthetic_classification, synthetic_lm)
 from repro_torch.faults import (FRAME_BYTES, FaultModel,  # noqa: E402
-                                LossyWire, round_wire_bytes)
+                                LossyWire, make_fault, round_wire_bytes)
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
-from repro_torch.launch.train import LMBatcher, build_data  # noqa: E402
+from repro_torch.launch.train import LMBatcher, LMPool, build_data  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
 from repro_torch.network import TieredNetwork  # noqa: E402
+from repro_torch.population import (FederatedPool, Population,  # noqa: E402
+                                    VirtualPool)
 from repro_torch.sched import (BandwidthHPolicy, DeadlinePolicy,  # noqa: E402
                                SchedContext, SchedulerPolicy,
                                StratifiedPolicy, available_policies,
                                register_policy)
+from repro_torch.telemetry import Telemetry, validate_record  # noqa: E402
 from repro_torch.transport import (Int8Codec, Transport,  # noqa: E402
                                    get_codec, make_transport)
 
@@ -690,8 +721,7 @@ def profile_round(step, rounds: int, round_ms: float, top: int = 8):
         for _ in range(rounds):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = cuda_events(prof)
     print(f"  profiled {rounds} round(s) in {time.perf_counter() - t0:.3f} s")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     if busy_ms <= 0:
@@ -2364,13 +2394,38 @@ COMPILED_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", 2, 2),
                   ("cnn-fsl_mc", "cnn", "fsl_mc", 3, 2),
                   ("cnn-fsl_oc", "cnn", "fsl_oc", 3, 2),
                   ("cnn-fsl_an", "cnn", "fsl_an", 3, 2))
+# The LM paths of phases 19 and 21 that also run the staged data path
+# (``device_data=False``): since the LM batchers speak the device-pool
+# protocol, ``run_compiled`` gathers their batches on the card by default.
+STAGED_PATHS = ("qwen3-cse_fsl", "qwen3-cse-deadline")
+
+
+class DeviceEvents:
+    """One name's device activities in a profile: ``key``, ``count`` and
+    ``self_device_time_total`` (µs), as ``key_averages`` gives them."""
+
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
 
 
 def cuda_events(prof) -> list:
-    """A profile's device kernels, averaged by name: one pass of
-    ``key_averages``, which on an LM path's profile takes seconds."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    """A profile's device activities (kernels, copies), summed by name
+    from the profiler's raw events: ``key_averages`` first builds every
+    event's tree, which took 12-21 s to read a Qwen3 path's profile in
+    phase 19 (H100 80GB HBM3, 700.00 W); a device activity has no
+    children, so its self time is its duration."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        d = out.get(e.name())
+        if d is None:
+            d = out[e.name()] = DeviceEvents(e.name())
+        d.count += 1
+        d.self_device_time_total += e.duration_ns() / 1e3
+    return list(out.values())
 
 
 def kernel_counts(ev) -> dict:
@@ -2480,8 +2535,60 @@ class Laps:
         return ", ".join(f"{k} {v:.3f}" for k, v in self.s.items())
 
 
+def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
+                 cm, dev, masked=False) -> dict:
+    """The staged data path, ``run_compiled(..., device_data=False)``: the
+    rounds' batches stacked on the host (counted at ``_stack_rounds``) and
+    copied into the capture's buffers, the masked chunk program on staged
+    data with ``masked``.  The same rounds from ``init(0)`` as the loop's
+    run (``want``: its state on the CPU, ``hist``, ``meter``), which the
+    pooled run equals too: state, history rows and meter bitwise."""
+    stacks, orig = [], trainer_mod._stack_rounds
+
+    def counting(*xs):
+        stacks.append(len(xs))
+        return orig(*xs)
+
+    m = CommMeter()
+    tr._captured = None             # the pooled capture's memory first
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_mod._stack_rounds = counting
+    t = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            state, shist = tr.run_compiled(tr.init(0), make_batcher(), rounds,
+                                           chunk=chunk, log_every=1, meter=m,
+                                           cost_model=cm, device_data=False)
+        sync(dev)
+    finally:
+        trainer_mod._stack_rounds = orig
+    secs = time.perf_counter() - t
+    cap = tr._captured
+    check(bool(stacks) and not cap.pooled and cap.masked == masked,
+          f"{lab} device_data=False staged the batches: {len(stacks)} "
+          f"stacked leaves, a staged {'masked ' if masked else ''}capture "
+          f"({secs:.3f} s for warm-up, captures, {rounds} replays)")
+    got = state_leaves(state)
+    bitwise = len(got) == len(want) and all(same(g, w)
+                                            for g, w in zip(got, want))
+    worst = 0.0 if bitwise else max(diff(g.cpu(), w)
+                                    for g, w in zip(got, want))
+    check(bitwise and shist == hist and m.counts == meter,
+          f"{lab} the staged run_compiled == run == the pooled "
+          f"run_compiled, bitwise (state, history rows, meter; worst "
+          f"|diff| {worst:.3g})")
+    del state, got, cap
+    tr._captured = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "stacked_leaves": len(stacks)}
+
+
 def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
-                        remat=False, seq=None, layers=None, want=None):
+                        remat=False, seq=None, layers=None, want=None,
+                        reps=None, staged=False):
     """Phase 19 for one path, with the measurements phase 20 prints; phase
     22 runs its paths through it with ``remat`` (at sequence ``seq`` and
     depth ``layers``).
@@ -2499,7 +2606,10 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     as often as a loop round, and no wrapper call; then a few chunks
     timed.  ``want``: a run without remat (CPU copy of the state, history,
     meter) that the loop's run must equal, bitwise.  With ``keep``, the
-    loop's run is returned under ``"loop_run"`` for phase 22."""
+    loop's run is returned under ``"loop_run"`` for phase 22.  ``reps``:
+    the loop rounds and compiled chunks timed (default 5 on the CNN, 2 on
+    an LM path).  With ``staged``, last, the same rounds through the
+    staged data path (check_staged)."""
     lab = f"[{tag}{' remat' if remat else ''}]"
     print(f"  {lab} at the start: "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated",
@@ -2523,7 +2633,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     meters, after = [CommMeter(), CommMeter()], []
-    reps = 5 if model == "cnn" else 2
+    reps = reps or (5 if model == "cnn" else 2)
     batcher, state = make_batcher(), tr.init(0)
     lap("initial state")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2680,9 +2790,16 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     out["compiled_idle"] = 1 - out["replay_ms"] / out["compiled_ms"]
     if keep:
         out["loop_run"] = loop_run
+    del box, state, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    if staged:
+        out["staged"] = check_staged(lab, tr, make_batcher, rounds, chunk,
+                                     copy, lhist, meters[0].counts, cm, dev)
+        lap("staged run_compiled")
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
-    del box, state, tr, cap
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
     lap("free")
@@ -2747,7 +2864,8 @@ def phase_compiled(dev, paths=None, keep=()):
     for tag, model, method, rounds, chunk in COMPILED_PATHS:
         if paths is None or tag in paths:
             out[tag] = check_compiled_path(tag, model, method, rounds, chunk,
-                                           dev, keep=tag in keep)
+                                           dev, keep=tag in keep,
+                                           staged=tag in STAGED_PATHS)
     done(t0)
     t0 = phase("20 loop vs compiled rounds (CUDA-event medians; device time "
                "from the profiled rounds)")
@@ -3038,7 +3156,6 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
                                             for g, w_ in zip(got, want))
     worst = 0.0 if bitwise else max(diff(g.cpu(), w_)
                                     for g, w_ in zip(got, want))
-    del want
     flags = [r["aggregated"] for r in lhist]
     parts = [r["participants"] for r in lhist if r["aggregated"]]
     print(f"  [{tag}] rows: " + "; ".join(
@@ -3132,6 +3249,11 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
           f"{out['k2_at_capture']}: the warm-up's aggregating round, the "
           "aggregating capture and the other")
     del state, cap, got
+    if tag in STAGED_PATHS:
+        out["staged"] = check_staged(f"[{tag}]", tr, make_batcher, rounds,
+                                     chunk, want, lhist, meters[0].counts,
+                                     cm, dev, masked=True)
+    del want
     if tag == "cnn-empty":
         check_empty_window(tag, tr, make_batcher, dev, k2_plain)
     torch.use_deterministic_algorithms(False)
@@ -3255,6 +3377,9 @@ REMAT_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", (MB_S,), None),
                 None),
                ("qwen3-fsl_mc-28L", "qwen3", "fsl_mc", (LM_S,), (28, 24)))
 REMAT_ROUNDS = 2
+# Phase 22 times one loop round and one compiled chunk a path (phase 19
+# times two): the room phase 25 takes in the script's time limit.
+REMAT_REPS = 1
 
 
 def remat_line(tag, r) -> str:
@@ -3290,7 +3415,8 @@ def phase_remat(dev, paths=None, plain=None):
             release(dev)
             withr = check_compiled_path(tag, model, method, r, r, dev,
                                         remat=True, seq=seqs[0],
-                                        want=base["loop_run"])
+                                        want=base["loop_run"],
+                                        reps=REMAT_REPS)
             print("  " + remat_line(tag, withr), flush=True)
             out[tag] = {"plain": {k: v for k, v in base.items()
                                   if k != "loop_run"}, "remat": withr}
@@ -3309,7 +3435,7 @@ def phase_remat(dev, paths=None, plain=None):
                 try:
                     res = check_compiled_path(tag, model, method, r, r, dev,
                                               remat=True, seq=seq,
-                                              layers=layers)
+                                              layers=layers, reps=REMAT_REPS)
                 except torch.OutOfMemoryError:
                     res = {"seq": seq, "fits": False,
                            "layers": path_cfg(model, True, layers).num_layers,
@@ -3842,6 +3968,529 @@ def phase_engine(dev, fed, parts=("cnn", "lm", "drivers")):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The population engine and telemetry
+# ---------------------------------------------------------------------------
+
+# Phase 25: the population engine (repro_torch.population) and telemetry
+# (repro_torch.telemetry) on the card, with phase 19's setup: int8 on every
+# wire channel (the uplink, the blocking methods' downlink, the model
+# sync), the lr decaying every round, deterministic algorithms.
+# - cnn-dense: C == N = 4 over a FederatedPool, Population.run against
+#   Trainer.run_compiled on the same data, 3 rounds at chunk 2 (segments
+#   across a window boundary), every method;
+# - cnn-fleet: a VirtualPool fleet of 10^6 sharding the CNN path's 1200
+#   samples (each client a hashed window of 300), C = 4 stratified on the
+#   tiered network, refresh=False, windows of 2 rounds (agg_every 2h), 6
+#   rounds; saved after round 3 (mid-window) and restored into a fresh
+#   engine; the same fleet at N = 10^4 for the memory report;
+# - cnn-lossy, cnn-crashy: the presets on that fleet with refresh=True, 4
+#   rounds, against the same engine on the CPU;
+# - qwen3-fleet: full-width Qwen3-0.6B through LMPool(VirtualPool), N =
+#   10^6, C = 4, h = 2, B = 1, S = 4096, CSE-FSL, stratified on the tiered
+#   network, 3 rounds;
+# - telemetry: CSE-FSL on the CNN through run, run_compiled, AsyncTrainer
+#   and Population with a recorder and without, 3 rounds each.
+POP_N, POP_SMALL_N = 10**6, 10**4
+POP_ROUNDS, POP_SAVE, POP_FAULT_ROUNDS, POP_LM_ROUNDS = 6, 3, 4, 3
+POP_EXACT = ("round", "aggregated", "comm_bytes", "participants",
+             "dropped_updates", "fault_retries", "fault_drops")
+# The constants of the cohort draw and of the virtual shards, spelled out
+# here so the plain draws below stand apart from the port's modules.
+COHORT_SALT, SHARD_HASH, DATA_SALT = 0xC0408, 2654435761, 0xDA7A
+POOLS = {}
+
+
+def plain_seats(cohort: int, spans) -> np.ndarray:
+    """Seats in proportion to the tiers, where that is exact (1/2/1 of 4
+    on the tiered network's 25/50/25 split)."""
+    sizes = np.array([hi - lo for _, lo, hi in spans])
+    return cohort * sizes // sizes.sum()
+
+
+def plain_cohort(seed: int, window: int, spans, seats) -> np.ndarray:
+    """The stratified cohort of ``window``, drawn plainly: ``seats`` a
+    tier, uniform within each tier from one generator keyed (seed,
+    window, COHORT_SALT), sorted."""
+    rng = np.random.default_rng((seed, window, COHORT_SALT))
+    return np.sort(np.concatenate([
+        lo + rng.choice(hi - lo, size=int(k), replace=False)
+        for (_, lo, hi), k in zip(spans, seats)]))
+
+
+def plain_round_indices(pool: VirtualPool, ids, rnd: int) -> np.ndarray:
+    """A virtual fleet's ``[len(ids), h, B]`` index plan, drawn plainly: a
+    client's shard starts at ``client * SHARD_HASH`` mod the pool, its
+    batches uniform over ``d_local`` samples from (seed, client, round,
+    DATA_SALT)."""
+    S = len(pool.pool_x)
+    return np.stack([
+        (int(c) * SHARD_HASH + np.random.default_rng(
+            (pool.seed, int(c), int(rnd), DATA_SALT)).integers(
+                0, pool.d_local, size=(pool.h, pool.batch_size))) % S
+        for c in ids])
+
+
+def pop_parts(model: str, method: str, dev, agg_every: int = 0):
+    """``(bundle, fsl, transport, cost model)`` of a phase-25 path."""
+    down = "int8" if get_method(method).downloads_gradients else "none"
+    tp = make_transport("int8", down, model_sync="int8")
+    if model == "cnn":
+        bundle = cnn_bundle(CIFAR10, device=dev)
+        fsl = FSLConfig(num_clients=N, h=H, lr=LR, lr_decay_every=1,
+                        method=method, agg_every=agg_every)
+        return bundle, fsl, tp, cost_model(bundle, N, SAMPLES // N)
+    bundle = lm_bundle(lm_cfg(), dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
+                    method=method)
+    return bundle, fsl, tp, cost_model(bundle, LM_N, LM_SAMPLES)
+
+
+def cnn_pool() -> VirtualPool:
+    """The CNN fleet's pool: the CNN path's 1200 samples (signal 12), each
+    client a window of 300 (the path's samples a client)."""
+    if "cnn" not in POOLS:
+        POOLS["cnn"] = VirtualPool.synthetic(
+            CIFAR10.in_shape, CIFAR10.num_classes, pool_size=SAMPLES,
+            d_local=SAMPLES // N, batch_size=B, h=H, seed=0, signal=12.0)
+    return POOLS["cnn"]
+
+
+def fleet(dev, population: int, refresh: bool = False, faults=None,
+          telemetry=None):
+    """A CSE-FSL engine on the CNN fleet (windows of 2 rounds) and its
+    cost model."""
+    bundle, fsl, tp, cm = pop_parts("cnn", "cse_fsl", dev, agg_every=2 * H)
+    return Population(bundle, fsl, population=population, data=cnn_pool(),
+                      transport=tp, sampler="stratified",
+                      network=TieredNetwork(), refresh=refresh,
+                      faults=faults, telemetry=telemetry), cm
+
+
+def profiled_round(pop, dev, chunk: int) -> dict:
+    """One more round of ``pop``, profiled: the port's kernels it launched
+    (nonzero counts)."""
+    with cuda_profile() as prof:
+        pop.run(1, chunk=chunk)
+        close_profile(dev)
+    return {k: v for k, v in kernel_counts(cuda_events(prof)).items() if v}
+
+
+def check_pop_dense(dev, fed, out, compiled):
+    """Phase 25 (a): C == N, Population.run == Trainer.run_compiled."""
+    for method in ("cse_fsl",) + BASELINES:
+        tag = f"[cnn-dense-{method}]"
+        bundle, fsl, tp, cm = pop_parts("cnn", method, dev)
+        meters = [CommMeter(), CommMeter()]
+        tr = Trainer(bundle, fsl, transport=tp)
+        state, hist = tr.run_compiled(
+            tr.init(0), FederatedBatcher(fed, B, H, seed=0), 3, chunk=2,
+            log_every=1, meter=meters[0], cost_model=cm)
+        want = state_on_cpu(state)
+        del tr, state
+        pop = Population(bundle, fsl, population=N, transport=tp,
+                         data=FederatedPool(fed, B, H, seed=0)).init(0)
+        state, phist = pop.run(3, chunk=2, log_every=1, meter=meters[1],
+                               cost_model=cm)
+        got = state_on_cpu(state)
+        check(len(got) == len(want) and all(same(a, b)
+                                            for a, b in zip(got, want))
+              and phist == hist and meters[1].counts == meters[0].counts,
+              f"{tag} Population.run == Trainer.run_compiled, bitwise "
+              f"(state, {len(hist)} history rows, meter "
+              f"{meters[1].total:,} B)")
+        kc = profiled_round(pop, dev, 2)
+        ref_ = (compiled or {}).get(f"cnn-{method}")
+        if ref_ is not None:
+            check(kc == ref_["kernels_per_round"], f"{tag} a population "
+                  f"round launches phase 19's replayed round's kernels {kc}")
+        out["k2_per_round"][f"cnn-dense-{method}"] = kc.get(
+            "quantize_philox_kernel", 0)
+        del pop, state
+        release(dev)
+
+
+def check_pop_fleet(dev, out):
+    """Phase 25 (b): the CNN fleet of 10^6, refresh=False: cohorts and
+    index plans against the plain draws, one shared cache row a finished
+    window, the default row untouched, save/restore mid-window bitwise,
+    engine_total independent of N."""
+    tag = "[cnn-fleet]"
+    pool = cnn_pool()
+    eng, _ = fleet(dev, POP_N)
+    eng.init(0)
+    default0 = [t.cpu() for t in tree_leaves(eng._default)]
+    t = time.perf_counter()
+    state, hist = eng.run(POP_ROUNDS, chunk=2, log_every=1)
+    sync(dev)
+    run_s = time.perf_counter() - t
+    want = state_on_cpu(state)
+    spans = TieredNetwork().tier_ranges(POP_N)
+    seats = plain_seats(N, spans)
+    cohorts = {w: eng._cohorts[w].tolist() for w in sorted(eng._cohorts)}
+    check(seats.sum() == N and (seats > 0).all()
+          and all(np.array_equal(ids, plain_cohort(0, w, spans, seats))
+                  for w, ids in eng._cohorts.items()),
+          f"{tag} cohorts == the plain stratified draws ({seats.tolist()} "
+          f"seats a tier): {cohorts}")
+    plans = [pool.round_indices(eng.cohort_for(eng.window_of(r)), r)
+             for r in range(POP_ROUNDS)]
+    check(all(np.array_equal(p, plain_round_indices(
+        pool, eng.cohort_for(eng.window_of(r)), r))
+        for r, p in enumerate(plans)),
+        f"{tag} index plans == the plain virtual-shard draws "
+        f"({POP_ROUNDS} rounds of [{N}, {H}, {B}])")
+    check(all(same(a.cpu(), b) for a, b in
+              zip(tree_leaves(eng._default), default0)),
+          f"{tag} the default row is unchanged by the rounds (a copy, not a "
+          "view of the replayed state)")
+    finished = [w for w in eng._cohorts if w < eng._window]
+    rows = {id(r) for r in eng._cache.values()}
+    clients = {int(c) for w in finished for c in eng._cohorts[w]}
+    rep = eng.memory_report()
+    check(len(rows) == len(finished) == POP_ROUNDS // 2
+          and set(eng._cache) == clients
+          and rep["engine"]["cache_rows"]
+          == len(rows) * rep["engine"]["default_row"],
+          f"{tag} one shared cache row a finished window: {len(rows)} rows "
+          f"for {len(eng._cache)} clients, {rep['engine']['cache_rows']:,} B")
+    summary = eng.population_summary(hist)
+    del eng, state
+    release(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet")
+        eng, _ = fleet(dev, POP_N)
+        eng.init(0)
+        eng.run(POP_SAVE, chunk=2)
+        check(eng.window_of(POP_SAVE) == eng.window_of(POP_SAVE - 1),
+              f"{tag} the checkpoint after round {POP_SAVE} is mid-window")
+        eng.save(path)
+        del eng
+        release(dev)
+        eng, _ = fleet(dev, POP_N)
+        state, rhist = eng.restore(path).run(POP_ROUNDS - POP_SAVE, chunk=2,
+                                             log_every=1)
+    got = state_on_cpu(state)
+    check(all(same(a, b) for a, b in zip(got, want))
+          and rhist == hist[POP_SAVE:],
+          f"{tag} save after round {POP_SAVE}, restore into a fresh engine: "
+          f"rounds {POP_SAVE + 1}-{POP_ROUNDS} bitwise the uninterrupted "
+          "run's (state, losses)")
+    del eng, state
+    release(dev)
+    small, _ = fleet(dev, POP_SMALL_N)
+    small.init(0)
+    small.run(POP_ROUNDS, chunk=2)
+    rep_small = small.memory_report()
+    check(rep_small["engine_total"] == rep["engine_total"]
+          and rep["engine_total"] * 1000 < rep["dense_extrapolated"],
+          f"{tag} engine_total {rep['engine_total']:,} B at N = 10^4 and "
+          f"10^6; dense extrapolation at 10^6 "
+          f"{rep['dense_extrapolated']:,} B "
+          f"({rep['dense_extrapolated'] / rep['engine_total']:.0f}x)")
+    del small
+    release(dev)
+    out["cnn_fleet"] = {"memory_report": rep,
+                        "memory_report_small": rep_small,
+                        "population_summary": summary, "cohorts": cohorts,
+                        "run_s": run_s}
+
+
+def check_pop_faults(dev, out):
+    """Phase 25 (c): the lossy and crashy presets on the fleet, against the
+    same engine on the CPU."""
+    for preset in ("lossy", "crashy"):
+        tag = f"[cnn-{preset}]"
+        rows, meters, parts = [], [], []
+        for where in (dev, torch.device("cpu")):
+            eng, cm = fleet(where, POP_N, refresh=True,
+                            faults=make_fault(preset))
+            eng.init(0)
+            meter = CommMeter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, hist = eng.run(POP_FAULT_ROUNDS, chunk=2, log_every=1,
+                                  meter=meter, cost_model=cm)
+            rows.append([{k: r[k] for k in POP_EXACT if k in r}
+                         for r in hist])
+            meters.append(meter.counts)
+            parts.append(eng.trainer.participation_summary())
+            losses = [r["client_loss"] for r in hist]
+            del eng
+        f = parts[0]["faults"]
+        check(rows[0] == rows[1] and meters[0] == meters[1]
+              and parts[0] == parts[1],
+              f"{tag} participants {[r.get('participants') for r in rows[0]]},"
+              f" dropped updates, {f['retries']} retries, "
+              f"{f['crash_drops'] + f['wire_drops']} drops and the wire bytes "
+              f"({meters[0]['fault_frames']:,} B of frames) == the CPU "
+              "engine's")
+        check((f["retries"] > 0 if preset == "lossy" else
+               f["crash_drops"] > 0) and all(map(math.isfinite, losses)),
+              f"{tag} the faults bit: {json.dumps(f)}")
+        out[f"cnn_{preset}"] = {"rows": rows[0], "meter": meters[0],
+                                "faults": f}
+        release(dev)
+
+
+def check_pop_lm(dev, out, compiled):
+    """Phase 25 (d): full-width Qwen3-0.6B, a fleet of 10^6 through
+    LMPool(VirtualPool)."""
+    tag = "[qwen3-fleet]"
+    cfg = lm_cfg()
+    bundle, fsl, tp, cm = pop_parts("qwen3", "cse_fsl", dev)
+    x, y = synthetic_lm(LM_N * LM_SAMPLES, LM_S + 1, cfg.vocab_size, seed=0)
+    data = LMPool(cfg, VirtualPool(x, y, d_local=LM_SAMPLES,
+                                   batch_size=LM_B, h=LM_H, seed=0))
+    pop = Population(bundle, fsl, population=POP_N, data=data, transport=tp,
+                     sampler="stratified", network=TieredNetwork())
+    nm = len(pop.trainer.method.model_sync_specs(bundle, fsl))
+    k2 = pop.trainer.units_per_round + 2 * nm
+    expect = lm_launches(cfg, "cse_fsl", k2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pop.init(0)
+    meter = CommMeter()
+    reset_counts()
+    t = time.perf_counter()
+    state, hist = pop.run(POP_LM_ROUNDS, chunk=POP_LM_ROUNDS, log_every=1,
+                          meter=meter, cost_model=cm)
+    sync(dev)
+    first_s = time.perf_counter() - t
+    at_capture = {k: v for k, v in counts().items() if v}
+    check(all(math.isfinite(r[k]) for r in hist for k in metric_keys(r))
+          and len(hist) == POP_LM_ROUNDS,
+          f"{tag} {POP_LM_ROUNDS} rounds, losses finite: "
+          f"{[round(r[k], 5) for r in hist for k in metric_keys(r)]}")
+    layer = [k for k in expect if expect[k] and not k.startswith(
+        ("quantize", "fused_ce"))]
+    check(all(at_capture.get(k) == 3 * expect[k] for k in layer),
+          f"{tag} the warm-up and the two captured rounds called the layer "
+          f"kernels 3 rounds' worth { {k: at_capture.get(k) for k in layer} }")
+    spec = pop.trainer.pool_round_spec(data.device_pool(dev), (LM_N, LM_H,
+                                                               LM_B))
+    prof_ = pop.trainer.comm_profile(cm, LM_B, batch=spec)
+    aggs = sum(r["aggregated"] for r in hist)
+    wire = {"uplink_smashed": POP_LM_ROUNDS * prof_.wire_uplink_smashed,
+            "uplink_labels": POP_LM_ROUNDS * prof_.uplink_labels,
+            "downlink_grads": POP_LM_ROUNDS * prof_.wire_downlink_grads,
+            "model_sync": aggs * prof_.wire_model_sync}
+    check(meter.counts == wire, f"{tag} meter {meter.counts} == CommProfile "
+          f"({aggs} aggregations)")
+    kc = profiled_round(pop, dev, POP_LM_ROUNDS)
+    ref_ = (compiled or {}).get("qwen3-cse_fsl")
+    check(kc.get("quantize_philox_kernel") == k2 and (
+        ref_ is None or kc == ref_["kernels_per_round"]),
+        f"{tag} a replayed population round launches {kc}: K2 {k2} times"
+        + ("" if ref_ is None else ", phase 19's compiled round's kernels"))
+    box = {}
+
+    def one_round():
+        box["r"] = pop.run(1, chunk=POP_LM_ROUNDS)
+
+    ms = events_ms(one_round, 2, 1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rep = pop.memory_report()
+    summary = pop.population_summary(hist)
+    print(f"  {tag} run (warm-up, two captures, {POP_LM_ROUNDS} replays) "
+          f"{first_s:.3f} s; a round {statistics.median(ms):.3f} ms of "
+          f"{[round(v, 3) for v in ms]}; peak {peak / 2**30:.3f} GiB; "
+          f"engine {rep['engine_total']:,} B against "
+          f"{rep['dense_extrapolated']:,} B dense at N = 10^6; "
+          f"{json.dumps(summary)}", flush=True)
+    check(rep["engine_total"] * 1000 < rep["dense_extrapolated"],
+          f"{tag} engine_total {rep['engine_total']:,} B is under a "
+          "thousandth of the dense extrapolation")
+    out["qwen3_fleet"] = {"kernels_per_round": kc, "ms": statistics.median(ms),
+                          "rounds_ms": ms, "first_run_s": first_s,
+                          "peak_bytes": peak, "memory_report": rep,
+                          "population_summary": summary,
+                          "launches_at_capture": at_capture}
+    out["k2_per_round"]["qwen3-fleet"] = kc.get("quantize_philox_kernel", 0)
+    del pop, state, box
+    release(dev)
+
+
+def check_telemetry(dev, fed, out):
+    """Phase 25 (e): run, run_compiled, AsyncTrainer.run and
+    Population.run on the CNN with a recorder and without: states,
+    histories and meters bitwise, the same number of synchronizing calls
+    (the sync debug mode's warnings), every exported record valid; then
+    ``run`` at ``log_every=0``, where the recorder's one fetch at the
+    run's end is the one call it adds.  Each
+    engine runs once without a recorder first, uncounted: a first run in
+    the process can synchronize once more (on an H100 the loop's first
+    run counted 37 against 36)."""
+    bundle, fsl, tp, cm = pop_parts("cnn", "cse_fsl", dev)
+
+    def batcher():
+        return FederatedBatcher(fed, B, H, seed=0)
+
+    runs = {
+        "loop": lambda tele: Trainer(bundle, fsl, transport=tp,
+                                     telemetry=tele),
+        "compiled": lambda tele: Trainer(bundle, fsl, transport=tp,
+                                         telemetry=tele),
+        "async": lambda tele: AsyncTrainer(bundle, fsl, transport=tp,
+                                           latency=LognormalLatency(),
+                                           telemetry=tele),
+        "population": lambda tele: Population(
+            bundle, fsl, population=N, transport=tp, telemetry=tele,
+            data=FederatedPool(fed, B, H, seed=0)),
+    }
+    res = {}
+    for engine, make in runs.items():
+        for on in (None, True, False):
+            tele = Telemetry() if on else None
+            t = make(tele)
+            meter = CommMeter()
+            kw = dict(log_every=1, meter=meter, cost_model=cm)
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    if engine == "population":
+                        state, hist = t.init(0).run(3, chunk=2, **kw)
+                    elif engine == "compiled":
+                        state, hist = t.run_compiled(t.init(0), batcher(), 3,
+                                                     chunk=2, **kw)
+                    else:
+                        state, hist = t.run(t.init(0), batcher(), 3, **kw)
+                    sync(dev)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("synchronizing" in str(x.message) for x in w)
+            stats = t.stats.as_dict() if engine == "async" else None
+            if on is not None:
+                res[engine, on] = (state_on_cpu(state), hist, meter.counts,
+                                   stats, syncs, tele)
+            del t, state
+        (s1, h1, m1, st1, y1, tele), (s0, h0, m0, st0, y0, _) = \
+            res[engine, True], res[engine, False]
+        check(all(same(a, b) for a, b in zip(s1, s0)) and h1 == h0
+              and m1 == m0 and st1 == st0,
+              f"[telemetry {engine}] on == off, bitwise (state, history, "
+              "meter" + (", AsyncStats)" if st1 else ")"))
+        check(y1 == y0 > 0, f"[telemetry {engine}] the recorder adds no "
+              f"synchronizing call: {y1} with it, {y0} without")
+        rounds = [r for r in tele.records if r["type"] == "round"]
+        check(len(rounds) == 3 and all(r["engine"] == engine
+                                       for r in tele.records)
+              and tele.records[-1]["type"] == "summary",
+              f"[telemetry {engine}] {len(tele.records)} records "
+              f"({len(tele.spans)} spans)")
+        release(dev)
+    # the loop with no logged round: its records wait on the card for one
+    # fetch at the run's end, where one a round would add 3 calls here
+    quiet = {}
+    for on in (None, True, False):
+        tele = Telemetry() if on else None
+        t = runs["loop"](tele)
+        meter = CommMeter()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, hist = t.run(t.init(0), batcher(), 3, log_every=0,
+                                    meter=meter, cost_model=cm)
+                sync(dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if on is not None:
+            quiet[on] = (state_on_cpu(state), hist, meter.counts,
+                         sum("synchronizing" in str(x.message) for x in w),
+                         tele)
+        del t, state
+    (s1, h1, m1, y1, tele), (s0, h0, m0, y0, _) = quiet[True], quiet[False]
+    check(all(same(a, b) for a, b in zip(s1, s0)) and h1 == h0 == []
+          and m1 == m0 == res["loop", True][2],
+          "[telemetry loop, log_every=0] on == off, bitwise (state, "
+          "history, meter)")
+    check(tele.records == res["loop", True][5].records,
+          f"[telemetry loop, log_every=0] its {len(tele.records)} records "
+          "== those of the run that logs every round")
+    check(y1 == y0 + 1, f"[telemetry loop, log_every=0] the recorder adds "
+          f"one synchronizing call, its one fetch: {y1} with it, {y0} "
+          "without")
+    out["loop_log_every_0"] = {"syncs": y1, "syncs_without": y0}
+    release(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        n = 0
+        for engine in runs:
+            tele = res[engine, True][5]
+            path = os.path.join(tmp, f"{engine}.jsonl")
+            tele.export_jsonl(path)
+            with open(path) as f:
+                for line in f:
+                    validate_record(json.loads(line))
+                    n += 1
+            json.dumps(tele.chrome_trace())
+            tele.prometheus_text()
+    spans = res["compiled", True][5].spans
+    execs = [sp.labels["capture"] for sp in spans
+             if sp.name == "chunk/execute"]
+    check(n == sum(len(res[e, True][5].records) for e in runs)
+          and execs == [True, False],
+          f"[telemetry] {n} exported records pass validate_record; the "
+          f"compiled run's chunk spans mark its capture {execs}")
+    out.update({e: {"records": len(res[e, True][5].records),
+                    "spans": len(res[e, True][5].spans),
+                    "syncs": res[e, True][4]} for e in runs})
+    print(f"  [telemetry] synchronizing calls with the recorder, 3 rounds: "
+          f"{ {e: res[e, True][4] for e in runs} } at log_every=1; the "
+          f"loop at log_every=0 {y1} ({y0} without)", flush=True)
+
+
+def phase_population(dev, fed, parts=("cnn", "lm", "drivers"),
+                     compiled=None):
+    """Phase 25: the population engine and telemetry on the card, the
+    ``parts`` of it (the CNN paths and telemetry, the Qwen3 fleet, the
+    driver); ``compiled``: phase 19's numbers, whose replayed rounds'
+    kernels a population round must launch.  Returns the phase's
+    ``population`` and ``telemetry`` numbers."""
+    t0 = phase("25 population engine and telemetry: Population against "
+               "run_compiled (CNN, C == N), fleets of 10^6 (CNN, Qwen3), "
+               "checkpoint, faults, telemetry on and off, fig_population")
+    release(dev)
+    pop = {"k2_per_round": {}}
+    tele = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        if "cnn" in parts:
+            pop["seconds"] = secs = {}
+            for name, fn, args in (
+                    ("dense", check_pop_dense, (dev, fed, pop, compiled)),
+                    ("fleet", check_pop_fleet, (dev, pop)),
+                    ("faults", check_pop_faults, (dev, pop)),
+                    ("telemetry", check_telemetry, (dev, fed, tele))):
+                t = time.perf_counter()
+                fn(*args)
+                secs[name] = time.perf_counter() - t
+            print(f"  seconds: {secs}", flush=True)
+        if "lm" in parts:
+            t = time.perf_counter()
+            check_pop_lm(dev, pop, compiled)
+            pop["lm_s"] = time.perf_counter() - t
+            print(f"  qwen3-fleet seconds: {pop['lm_s']:.3f}", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if "drivers" in parts:
+        from repro_torch.benchmarks import fig_population
+        t = time.perf_counter()
+        res = fig_population.main(dev)
+        sync(dev)
+        secs = time.perf_counter() - t
+        print(f"  fig_population: ran to its end, its three claims held, "
+              f"{secs:.3f} s", flush=True)
+        pop["fig_population"] = {"seconds": secs,
+                                 "throughput": res["throughput"],
+                                 "memory": res["memory"]}
+        release(dev)
+    done(t0)
+    return pop, tele
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -3896,6 +4545,7 @@ def main() -> int:
         del compiled[t]["loop_run"]
     figures, known = phase_figures(dev)
     engine = phase_engine(dev, fed)
+    population, telemetry = phase_population(dev, fed, compiled=compiled)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -3904,6 +4554,7 @@ def main() -> int:
                 for tag, c in compiled.items()}
             r_["sched_launches_per_round"] = {
                 tag: c["k2_per_round"] for tag, c in scheduled.items()}
+            r_["population_launches_per_round"] = population["k2_per_round"]
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
@@ -3911,6 +4562,7 @@ def main() -> int:
                       "baselines": baselines, "compiled": compiled,
                       "sched": scheduled, "remat": remat,
                       "figures": figures, "engine": engine,
+                      "population": population, "telemetry": telemetry,
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

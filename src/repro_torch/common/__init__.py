@@ -49,6 +49,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_stack(trees):
+    """Stack a list of trees of one structure leafwise along a new leading
+    axis (new tensors, never views of the inputs)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def bytes_of(tree) -> int:
     """Total bytes of all tensors (real or ``meta`` shape specs) in a tree."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))

@@ -41,8 +41,13 @@ Design notes:
   ``compute + wire_bytes / bandwidth + rtt`` with the payload's
   codec-effective bytes; the trace's ``up``/``down`` fields stay additive
   base latencies (the default ideal network adds exactly 0.0 s).
-
-The JAX engine's ``telemetry`` field is not ported yet.
+- observability: a ``telemetry`` recorder (``repro_torch.telemetry``)
+  records a record per round (engine ``"async"``, with the simulated
+  clock) and the simulated timeline: per-client compute, each wire
+  attempt and retry backoff, server service, outages and model-sync
+  barriers, placed on the global simulated clock.  It is host bookkeeping
+  on floats the engine has computed already: the schedule, state, history
+  and meter are bitwise the same with it on and off.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from repro_torch.faults import (FRAME_BYTES, FaultStats, accumulate_round,
                                 resolve_fault, retry_key)
 from repro_torch.network import IdealNetwork, NetworkModel, NetworkTrace
 from repro_torch.sched import SchedContext, resolve_policy
+from repro_torch.telemetry import resolve_telemetry
 from repro_torch.transport import resolve_transport
 
 # Distinct seeded stream for the network trace, so (seed) determines both
@@ -304,6 +310,11 @@ class AsyncTrainer:
     # in CommMeter), crashed clients sit the round out, server outages
     # delay the round's service start.
     faults: Optional[Any] = None
+    # observability: None resolves to the shared no-op NullTelemetry; a
+    # repro_torch.telemetry.Telemetry records a record per round and the
+    # simulated timeline (only observing: the schedule, state and history
+    # are bitwise the same with it on and off).
+    telemetry: Optional[Any] = None
 
     def __post_init__(self):
         m = self.method if self.method is not None else self.fsl.method
@@ -318,6 +329,7 @@ class AsyncTrainer:
                                              transport=self.transport)
         self.scheduler = resolve_policy(self.scheduler)
         self.faults = resolve_fault(self.faults)
+        self.telemetry = resolve_telemetry(self.telemetry)
         if not self.scheduler.is_wait_all or not self.faults.is_null:
             self._magg_fn = m.make_wire_aggregate(
                 self.bundle, self.fsl, transport=self.transport,
@@ -637,6 +649,10 @@ class AsyncTrainer:
                             ms_up / net_trace.up_bps[r, :, -1]
                             + ms_down / net_trace.down_bps[r, :, -1]
                             + 2.0 * net_trace.rtt[r, :, -1]))
+                    if self.telemetry.enabled and secs:
+                        self.telemetry.sim_span(
+                            "model_sync", self.stats.async_time, secs,
+                            track="server", round=rnd0 + r + 1)
                     self.stats.async_time += secs
                     self.stats.sync_time += secs
                     self.stats.model_sync_time += secs
@@ -650,6 +666,21 @@ class AsyncTrainer:
                         meter.log("model_sync", profile.wire_model_sync)
                 if use_masks:
                     part[:] = True
+            if self.telemetry.enabled:
+                rex: dict = {}
+                if use_masks:
+                    rex["participants"] = row_part
+                if sched_active:
+                    rex["dropped_updates"] = self.stats.dropped
+                    rex["skipped_updates"] = self.stats.skipped
+                if fault_active:
+                    rex["fault_retries"] = fstats.retries
+                    rex["fault_drops"] = (fstats.crash_drops
+                                          + fstats.wire_drops)
+                self.telemetry.round_record(
+                    "async", rnd0 + r + 1, metrics, aggregated,
+                    comm_bytes=meter.total if meter is not None else None,
+                    sim_time=self.stats.async_time, extra=rex or None)
             if log_every and (r + 1) % log_every == 0:
                 row: dict = {"round": rnd0 + r + 1, **metrics,
                              "aggregated": aggregated,
@@ -672,6 +703,10 @@ class AsyncTrainer:
         if fault_active:
             # scheduler-induced drops, for contrast with crash/wire drops
             fstats.deadline_drops = self.stats.dropped
+        if self.telemetry.enabled:
+            self.telemetry.run_summary(
+                "async", comm=meter, stats=self.stats,
+                participation=self.participation_summary())
         return self._join(state, slices, shared, round_val), history
 
     def _run_round(self, slices: List[Dict[str, Any]], shared, batch,
@@ -717,6 +752,34 @@ class AsyncTrainer:
         if fault is not None:
             f_att, f_ok, fd_att, fd_ok, crash = fault
             fmodel = self.faults
+        # telemetry: spans on the GLOBAL simulated clock, this round's
+        # local event times offset by the clock so far -- host bookkeeping
+        # on floats computed anyway, never touching the schedule
+        tele = self.telemetry
+        emit = tele.enabled
+        t_base = st.async_time
+        if emit and server_start > 0.0:
+            tele.sim_span("outage", t_base, server_start, track="server")
+
+        def wire_spans(name: str, c: int, k: int, t0: float, per: float,
+                       att: int, ok: bool, channel: str):
+            """One span per transmission attempt, interleaved with its
+            retry-backoff waits: the durations add up to ``att * per +
+            backoff_seconds(att)``, the transfer time in the arrival and
+            reply instants."""
+            cur = t_base + t0
+            waits = fmodel.backoff_schedule(att) if fault is not None else ()
+            for a in range(att):
+                tele.sim_span(name, cur, per, track=f"client/{c}",
+                              unit=unit0 + k, attempt=a + 1,
+                              channel=channel,
+                              delivered=ok and a == att - 1)
+                cur += per
+                if a < len(waits):
+                    tele.sim_span("retry_backoff", cur, waits[a],
+                                  track=f"client/{c}", unit=unit0 + k,
+                                  channel=channel)
+                    cur += waits[a]
         heap: list = []
         seq = itertools.count()
         next_k = [0] * n
@@ -746,6 +809,10 @@ class AsyncTrainer:
                 upload = tp.code_uplink(
                     upload, unit0 + k, client=c,
                     seeds=None if useeds is None else useeds[k])
+            if emit:
+                tele.sim_span("compute", t_base + client_t[c],
+                              float(comp[c, k]), track=f"client/{c}",
+                              unit=unit0 + k)
             client_t[c] += float(comp[c, k])
             st.compute_time += float(comp[c, k])
             next_k[c] = k + 1
@@ -757,6 +824,10 @@ class AsyncTrainer:
                     self._verify_frame(upload, unit0 + k, c)
             st.comm_time += att * float(xu[c, k])
             xfer = att * (float(up[c, k]) + float(xu[c, k])) + backoff
+            if emit:
+                wire_spans("wire/up", c, k, client_t[c],
+                           float(up[c, k]) + float(xu[c, k]), att, ok,
+                           "uplink")
             if not ok:
                 # retry budget exhausted: the bytes burned on the wire,
                 # the payload never arrived -- this client's round is lost
@@ -777,6 +848,11 @@ class AsyncTrainer:
                     # compute for every unit but discard the payloads
                     for k in range(K):
                         compute(c, k)
+                        if emit:
+                            tele.sim_span("compute", t_base + client_t[c],
+                                          float(comp[c, k]),
+                                          track=f"client/{c}",
+                                          unit=unit0 + k, local=True)
                         client_t[c] += float(comp[c, k])
                         st.compute_time += float(comp[c, k])
                 else:
@@ -821,6 +897,11 @@ class AsyncTrainer:
             tally(m)
             st.events += 1
             st.server_busy += self.server_time
+            if emit:
+                tele.sim_span("serve", t_base + t_done - self.server_time,
+                              self.server_time,
+                              track="server" if hooks.server_shared
+                              else f"server/{c}", client=c, unit=unit0 + k)
             if hooks.server_shared:
                 shared, server_free = sstate, t_done
             else:
@@ -835,6 +916,10 @@ class AsyncTrainer:
                 st.comm_time += d_att * float(xd[c, k])
                 t_reply = t_done + d_att * (float(down[c, k])
                                             + float(xd[c, k])) + d_backoff
+                if emit:
+                    wire_spans("wire/down", c, k, t_done,
+                               float(down[c, k]) + float(xd[c, k]), d_att,
+                               d_ok, "downlink")
                 if not d_ok:
                     # the gradient reply never survived its retry budget:
                     # the client cannot continue its blocked chain -- the

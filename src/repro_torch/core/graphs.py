@@ -103,6 +103,7 @@ class CapturedChunk:
         torch.cuda.empty_cache()
         self.metrics = torch.zeros((rows, len(self.names)),
                                    dtype=torch.float64, device=dev)
+        self._host = None           # pinned landing rows of the metrics
         self.mempool = mempool
         self.graphs = {}
         for aggregated in (True, False):
@@ -157,15 +158,33 @@ class CapturedChunk:
         if self.masked:
             put(self.windows, windows)
 
-    def replay(self, flags) -> np.ndarray:
+    def replay(self, flags, fetch: bool = True):
         """Replay one round per entry of ``flags`` (True: the aggregating
         variant; for a masked body, where the cadence fires on a non-empty
         cohort) from step 0, then fetch the ``[len(flags), K]`` metrics
-        once."""
+        once.  With ``fetch=False`` the copy only starts, into pinned host
+        rows behind the replays, and a function that waits for it and
+        returns the rows comes back at once: the host works on while the
+        card replays.  Call it before the next replay."""
         self.step.zero_()
         for aggregated in flags:
             self.graphs[bool(aggregated)].replay()
-        return self.metrics[:len(flags)].cpu().numpy()
+        rows = self.metrics[:len(flags)]
+        if fetch:
+            return rows.cpu().numpy()
+        if self._host is None:
+            self._host = torch.empty(self.metrics.shape, dtype=torch.float64,
+                                     pin_memory=True)
+        host = self._host[:len(flags)]
+        host.copy_(rows, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record()
+
+        def wait() -> np.ndarray:
+            landed.synchronize()
+            return host.numpy().copy()
+
+        return wait
 
 
 def matches(cap: Optional[CapturedChunk], rows: int, pool, data,

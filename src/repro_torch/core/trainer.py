@@ -32,6 +32,18 @@ last one; the average is renormalized over those clients, an empty
 cohort is a warned no-op, and retransmissions are billed to the byte.
 With ``wait_all`` and no faults (the defaults) none of this is built.
 
+Observability: a ``telemetry`` recorder (``repro_torch.telemetry``) folds
+every round into its record stream (engine ``"loop"`` or ``"compiled"``),
+times each chunk's host staging and execution as host spans, and ends a
+run with a summary record.  State, history and meter are bitwise the same
+with it on and off.  The compiled engine's records read the metrics its
+chunk fetches anyway.  ``run`` fetches a logged round's metrics in one
+copy, and keeps an unlogged round's on the device: its record is folded
+in with the next logged round's fetch, or fetched at the run's end (the
+JAX package's recorder fetches every round).  So the recorder adds one
+synchronizing call to a run whose last round is not logged (with
+``log_every=0``, one a run), and none to the others.
+
 ``batcher.next_round()`` must yield ``(inputs, labels)`` with leading dims
 ``[n_clients, h, B, ...]``; ``inputs`` is an array or a tree of them
 (``{"tokens": ...}`` for transformers).
@@ -56,6 +68,7 @@ from repro_torch.faults import (FRAME_BYTES, FaultStats, accumulate_round,
                                 resolve_fault)
 from repro_torch.network import IdealNetwork
 from repro_torch.sched import SchedContext, resolve_policy
+from repro_torch.telemetry import resolve_telemetry
 from repro_torch.transport import resolve_transport
 
 
@@ -81,6 +94,19 @@ class AggregationCadence:
 
 def _stack_rounds(*xs):
     return np.stack(xs)
+
+
+def _host_metrics(rounds: list) -> list:
+    """Rounds' metric dicts of device scalars as host floats, in one fetch
+    (float64 holds every fp32, bf16 and integer metric exactly, as
+    ``float`` of each would)."""
+    vals = torch.stack([v.to(torch.float64).reshape(()) for m in rounds
+                        for v in m.values()]).tolist()
+    out, i = [], 0
+    for m in rounds:
+        out.append(dict(zip(m, vals[i:i + len(m)])))
+        i += len(m)
+    return out
 
 
 class _Participation:
@@ -187,6 +213,10 @@ class Trainer:
     # crashed or undelivered clients out of FedAvg and bills every
     # retransmission.
     faults: Optional[Any] = None
+    # observability: None resolves to the shared no-op NullTelemetry; a
+    # repro_torch.telemetry.Telemetry records a record per round, counters
+    # and host spans, on the host, after the values it reads were fetched.
+    telemetry: Optional[Any] = None
 
     def __post_init__(self):
         m = self.method if self.method is not None else self.fsl.method
@@ -197,6 +227,7 @@ class Trainer:
         self.transport = resolve_transport(self.transport, self.fsl)
         self.scheduler = resolve_policy(self.scheduler)
         self.faults = resolve_fault(self.faults)
+        self.telemetry = resolve_telemetry(self.telemetry)
         if self.network is None:
             self.network = IdealNetwork()
         self._sched_ctx = self._sched_masks = None
@@ -459,7 +490,8 @@ class Trainer:
 
     def _log_round(self, rnd, rnd0, aggregated, metrics_fn, profile, meter,
                    log_every, callback, history, state, extra=None,
-                   model_sync_bytes=None, wire_bytes=None):
+                   model_sync_bytes=None, wire_bytes=None, engine="loop",
+                   pending=None, device_metrics=None):
         """Meter + history row for one finished (post-aggregation) round.
         ``metrics_fn`` lazily yields the float-cast metrics, so device
         scalars are fetched only on logged rounds.  The masked engines pass
@@ -467,7 +499,10 @@ class Trainer:
         ``model_sync_bytes`` (None: the whole fleet's, from the profile)
         and, under faults, ``wire_bytes``: the trace-exact bytes by kind
         (retransmissions and frames included) in place of the profile's
-        per-round charges."""
+        per-round charges.  An enabled telemetry recorder folds every
+        round into its stream under ``engine``, from the same values; with
+        ``pending`` (a list) and the round's ``device_metrics``, an
+        unlogged round's record waits there for :meth:`_fold_pending`."""
         if profile is not None:
             if wire_bytes is None:
                 meter.log("uplink_smashed", profile.wire_uplink_smashed)
@@ -479,8 +514,21 @@ class Trainer:
             if aggregated:
                 meter.log("model_sync", profile.wire_model_sync
                           if model_sync_bytes is None else model_sync_bytes)
-        if log_every and (rnd + 1 - rnd0) % log_every == 0:
-            m = metrics_fn()
+        tele = self.telemetry
+        logged = log_every and (rnd + 1 - rnd0) % log_every == 0
+        if tele.enabled and pending is not None:
+            pending.append((engine, rnd + 1, {
+                k: v.detach() for k, v in device_metrics.items()},
+                aggregated, meter.total if meter is not None else None,
+                extra))
+            m = self._fold_pending(pending) if logged else None
+        else:
+            m = metrics_fn() if (logged or tele.enabled) else None
+            if tele.enabled:
+                tele.round_record(engine, rnd + 1, m, aggregated,
+                                  comm_bytes=meter.total if meter is not None
+                                  else None, extra=extra)
+        if logged:
             row: dict = {"round": rnd + 1, **m, "aggregated": aggregated}
             if extra:
                 row.update(extra)
@@ -489,6 +537,19 @@ class Trainer:
             history.append(row)
             if callback:
                 callback(rnd + 1, m, state)
+
+    def _fold_pending(self, pending: list):
+        """Fold the waiting round records into the recorder, their metrics
+        fetched in one copy (:func:`_host_metrics`); returns the last
+        record's metrics."""
+        if not pending:
+            return None
+        for (engine, rnd, _, aggregated, comm, extra), m in zip(
+                pending, _host_metrics([rec[2] for rec in pending])):
+            self.telemetry.round_record(engine, rnd, m, aggregated,
+                                        comm_bytes=comm, extra=extra)
+        pending.clear()
+        return m
 
     # -- the loop -------------------------------------------------------------
     def run(self, state, batcher, num_rounds: int, log_every: int = 0,
@@ -522,6 +583,7 @@ class Trainer:
         profile = None
         book = _Participation(self, rnd0 + num_rounds) if self.masked \
             else None
+        pending = []                # records waiting for a fetch
         for rnd in range(rnd0, rnd0 + num_rounds):
             batch = self.to_device(batcher.next_round())
             if meter is not None and cost_model is not None and profile is None:
@@ -544,10 +606,15 @@ class Trainer:
                 if mask is not None:
                     state = self.masked_agg_fn(state, self._put(mask), seeds)
             self._log_round(rnd, rnd0, aggregated,
-                            lambda: {k: float(v) for k, v in metrics.items()},
+                            lambda: _host_metrics([metrics])[0],
                             profile, meter, log_every, callback, history,
                             state, extra=extra, model_sync_bytes=ms_bytes,
-                            wire_bytes=wire)
+                            wire_bytes=wire, pending=pending,
+                            device_metrics=metrics)
+        self._fold_pending(pending)
+        if self.telemetry.enabled:
+            self.telemetry.run_summary(
+                "loop", comm=meter, participation=self.participation_summary())
         return state, history
 
     # -- the compiled loop ----------------------------------------------------
@@ -623,51 +690,38 @@ class Trainer:
         pooled = (device_data and hasattr(batcher, "device_pool")
                   and hasattr(batcher, "next_round_indices"))
         pool = batcher.device_pool(self.device) if pooled else None
+        tele, chunk_idx = self.telemetry, 0
         while done < num_rounds:
             r = min(chunk, num_rounds - done)
-            if pooled:
-                data = np.stack([batcher.next_round_indices()
-                                 for _ in range(r)]).astype(np.int64)
-                sample = self.pool_round_spec(pool, data.shape[1:])
-            else:
-                rounds = [batcher.next_round() for _ in range(r)]
-                sample = rounds[0]
-                data = tree_map(_stack_rounds, *rounds)
-            if meter is not None and cost_model is not None \
-                    and profile is None:
-                profile = self.comm_profile(
-                    cost_model, tree_leaves(sample[1])[0].shape[2],
-                    batch=sample)
-            lrs = np.array([self.lr_at(rnd0 + done + i) for i in range(r)],
-                           dtype=np.float32)
-            unit0 = state["round"]
-            per = [self._round_seeds(unit0 + i * self.units_per_round, sample)
-                   for i in range(r)]
-            seeds = {k: np.stack([p[k] for p in per]) for k in per[0]}
-            plan = None
-            if book is not None:
-                plan = book.plan(sample)[rnd0 + done:rnd0 + done + r] \
-                    .astype(np.float32)
-            if self.device.type == "cuda":
-                state, metrics, agg_mask, carry = self._replay(
-                    state, pool, data, lrs, seeds, chunk, plan, carry)
-            else:
-                if book is None:
-                    fn = self.pool_chunk_fn if pooled else self.chunk_fn
+            # host spans: the chunk's staging, then its rounds (on the card
+            # the replays and the one fetch of their metrics); ``capture``
+            # marks a chunk that captured its graphs first
+            with tele.timed("chunk/build", chunk=chunk_idx, rounds=r):
+                if pooled:
+                    data = np.stack([batcher.next_round_indices()
+                                     for _ in range(r)]).astype(np.int64)
+                    sample = self.pool_round_spec(pool, data.shape[1:])
                 else:
-                    fn = self.masked_pool_chunk_fn if pooled \
-                        else self.masked_chunk_fn
-                args = (pool, self._put(data)) if pooled \
-                    else (tree_map(self._put, data),)
-                args += (self._put(lrs),
-                         {k: self._put(v) for k, v in seeds.items()})
+                    rounds = [batcher.next_round() for _ in range(r)]
+                    sample = rounds[0]
+                    data = tree_map(_stack_rounds, *rounds)
+                if meter is not None and cost_model is not None \
+                        and profile is None:
+                    profile = self.comm_profile(
+                        cost_model, tree_leaves(sample[1])[0].shape[2],
+                        batch=sample)
+                lrs = np.array([self.lr_at(rnd0 + done + i)
+                                for i in range(r)], dtype=np.float32)
+                plan = None
                 if book is not None:
-                    args += (self._put(plan), self._put(carry))
-                state, metrics, agg_mask, *out = fn(state, *args)
-                if out:
-                    carry = out[0].cpu().numpy()
-                metrics = {k: v.tolist() for k, v in metrics.items()}
-                agg_mask = agg_mask.tolist()
+                    plan = book.plan(sample)[rnd0 + done:rnd0 + done + r] \
+                        .astype(np.float32)
+            with tele.timed("chunk/execute", chunk=chunk_idx,
+                            rounds=r) as span:
+                state, metrics, agg_mask, carry, captured = self._chunk(
+                    state, pool, data, lrs, sample, chunk, plan, carry)
+                span.label(capture=captured)
+            chunk_idx += 1
             for i in range(r):
                 rnd, aggregated = rnd0 + done + i, bool(agg_mask[i])
                 extra = ms_bytes = wire = None
@@ -678,12 +732,55 @@ class Trainer:
                     rnd, rnd0, aggregated,
                     lambda: {k: float(v[i]) for k, v in metrics.items()},
                     profile, meter, log_every, callback, history, state,
-                    extra=extra, model_sync_bytes=ms_bytes, wire_bytes=wire)
+                    extra=extra, model_sync_bytes=ms_bytes, wire_bytes=wire,
+                    engine="compiled")
             done += r
+        if tele.enabled:
+            tele.run_summary("compiled", comm=meter,
+                             participation=self.participation_summary())
         return state, history
 
+    def _chunk(self, state, pool, data, lrs: np.ndarray, sample, chunk: int,
+               plan=None, carry=None, defer: bool = False):
+        """One chunk of ``r = len(lrs)`` rounds from ``state``: the rounds'
+        wire seeds staged from ``state["round"]`` (``sample``, a round
+        batch or its spec, sizes them), then on the card a replay a round
+        (:meth:`_replay`, captures of ``max(chunk, r)`` rows) and on the
+        CPU the eager chunk program.  ``data`` is the int64 ``[r, n, h,
+        B]`` index plan into the device ``pool``, or (``pool`` None) the
+        stacked batches; ``plan`` and ``carry`` the masked chunk's fp32
+        participation plan and its carry.  Returns ``(state, {name: [r]
+        floats}, flags, carry, captured)``: ``flags`` says which rounds
+        aggregated by the cadence, ``captured`` whether the chunk captured
+        its graphs first.  With ``defer`` the metrics come as a function
+        that returns them: on the card it waits for the replays, which run
+        on while the host does other work."""
+        r, unit0 = lrs.shape[0], state["round"]
+        per = [self._round_seeds(unit0 + i * self.units_per_round, sample)
+               for i in range(r)]
+        seeds = {k: np.stack([p[k] for p in per]) for k in per[0]}
+        if self.device.type == "cuda":
+            return self._replay(state, pool, data, lrs, seeds, chunk, plan,
+                                carry, fetch=not defer)
+        if plan is None:
+            fn = self.pool_chunk_fn if pool is not None else self.chunk_fn
+        else:
+            fn = self.masked_pool_chunk_fn if pool is not None \
+                else self.masked_chunk_fn
+        args = (pool, self._put(data)) if pool is not None \
+            else (tree_map(self._put, data),)
+        args += (self._put(lrs), {k: self._put(v) for k, v in seeds.items()})
+        if plan is not None:
+            args += (self._put(plan), self._put(carry))
+        state, metrics, agg_mask, *out = fn(state, *args)
+        if out:
+            carry = out[0].cpu().numpy()
+        metrics = {k: v.tolist() for k, v in metrics.items()}
+        return (state, (lambda: metrics) if defer else metrics,
+                agg_mask.tolist(), carry, False)
+
     def _replay(self, state, pool, data, lrs, seeds, chunk: int, plan=None,
-                carry=None):
+                carry=None, fetch: bool = True):
         """One chunk on the card: stage it into the captured program's
         buffers (capturing first where no capture fits) and replay a
         round per row.  With ``plan`` (the chunk's fp32 ``[r, n]``
@@ -691,7 +788,9 @@ class Trainer:
         cohort (:func:`participation_windows`), stages the table, and
         replays the aggregating graph only where the cadence fires and the
         cohort is not empty.  Returns ``(state, {name: [r] floats}, flags,
-        carry)``; ``flags`` is the cadence."""
+        carry, captured)``; ``flags`` is the cadence.  ``fetch=False``:
+        the metrics come as a function that waits for the replays
+        (:meth:`graphs.CapturedChunk.replay`)."""
         r, unit0 = lrs.shape[0], state["round"]
         masked = plan is not None
         if masked:
@@ -704,7 +803,8 @@ class Trainer:
         if masked:
             windows, fires, carry = participation_windows(plan, carry, flags)
         cap = self._captured
-        if graphs.matches(cap, r, pool, data, masked):
+        captured = not graphs.matches(cap, r, pool, data, masked)
+        if not captured:
             cap.load_state(state)
             cap.stage(data, lrs, seeds, windows)
         else:
@@ -718,7 +818,13 @@ class Trainer:
                                        torch.cuda.graph_pool_handle(),
                                        self._stream, windows=windows)
             self._captured = cap
-        rows = cap.replay(fires)
-        metrics = {k: rows[:, j].tolist() for j, k in enumerate(cap.names)}
+        names = cap.names
+
+        def metrics_of(rows):
+            return {k: rows[:, j].tolist() for j, k in enumerate(names)}
+
+        rows = cap.replay(fires, fetch)
         state = {**cap.state, "round": unit0 + r * self.units_per_round}
-        return state, metrics, flags, carry
+        metrics = metrics_of(rows) if fetch \
+            else (lambda: metrics_of(rows()))
+        return state, metrics, flags, carry, captured

@@ -1,7 +1,16 @@
 """Network-aware client scheduling for the aggregation barrier
-(``repro.sched``): the policies of :mod:`repro_torch.sched.policy`.  The
-population engine's cohort samplers (``repro.sched.cohort``) are not
-ported yet."""
+(``repro.sched``): the policies of :mod:`repro_torch.sched.policy`, and
+the population engine's cohort samplers (which C of N clients train an
+aggregation window) in :mod:`repro_torch.sched.cohort`."""
+from repro_torch.sched.cohort import (
+    COHORT_SAMPLERS,
+    CohortSampler,
+    StratifiedCohort,
+    UniformCohort,
+    get_cohort_sampler,
+    register_cohort,
+    resolve_cohort,
+)
 from repro_torch.sched.policy import (
     BandwidthHPolicy,
     DeadlinePolicy,
@@ -20,6 +29,13 @@ from repro_torch.sched.policy import (
 
 __all__ = [
     "BandwidthHPolicy",
+    "COHORT_SAMPLERS",
+    "CohortSampler",
+    "StratifiedCohort",
+    "UniformCohort",
+    "get_cohort_sampler",
+    "register_cohort",
+    "resolve_cohort",
     "DeadlinePolicy",
     "SchedContext",
     "SchedulerPolicy",
