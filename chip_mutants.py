@@ -2,24 +2,30 @@
 """Show that the kernel checks of ``chip_smoke.py`` (phases 7 and 11), the
 topk tie check (phase 15), the compiled runner's (phase 19), the masked
 runner's (phase 21), the layer recompute's (phase 22), the event
-engine's (phase 24) and the population engine's and telemetry's (phase
-25) can fail.  Run from the repo root on a machine with
+engine's (phase 24), the population engine's and telemetry's (phase
+25) and the entry points' (phase 26: the CLI's Qwen3 run, Trainer
+resume, falcon-mamba through the population engine) can fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
-    python3 chip_mutants.py
+    python3 chip_mutants.py [--only PHASE ...]
+
+(``--only 19 26q``: the tree on those phases and the mutants that run in
+them.)
 
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
-(its qwen3-cse_fsl path), 24 and 25 (their CNN paths) of
-``chip_smoke.py`` in a fresh process, with every check reported instead
+(its qwen3-cse_fsl path), 24 and 25 (their CNN paths) and 26 (its
+qwen3, resume and mamba parts) of ``chip_smoke.py`` in a fresh process, with every check reported instead
 of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
 K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
 (the masked round), 22 (the recomputed layer), 24 (the event engine) and
-25 (the population engine, telemetry) that holds its fault.  A mutant is
+25 (the population engine, telemetry) or 26 (the CLI, the Trainer's
+checkpoint, the Mamba population run) that holds its fault.  A mutant is
 one deliberate fault in a kernel source, in the compiled runner, in the
 masked aggregate, in the topk codec, in the layer recompute, in the
 per-client coding, in the checksum frame, in the arrival heap, in the
-population engine's rows, in the cohort or shard draws or in telemetry,
+population engine's rows, in the cohort or shard draws, in telemetry,
+in the CLI or in the Trainer's checkpoint,
 made in a copy of the checkout
 under a temporary directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
@@ -49,6 +55,7 @@ POPULATION = "src/repro_torch/population/engine.py"
 POOL = "src/repro_torch/population/data.py"
 COHORT = "src/repro_torch/sched/cohort.py"
 TRAINER = "src/repro_torch/core/trainer.py"
+CLI = "src/repro_torch/launch/train.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
 REMAT = "[qwen3-cse_fsl] run with remat == run without, bitwise"
 # name -> (edits (file, old, new), a check that must fail[, the phase to
@@ -202,6 +209,20 @@ MUTANTS = {
           "                tele.round_record(engine, rnd + 1, m, "
           "aggregated,")],
         "[telemetry compiled] the recorder adds no synchronizing call", "25"),
+    "the CLI drops --model-codec": (
+        [(CLI, "codec=args.codec, model_codec=args.model_codec)",
+          "codec=args.codec, model_codec=\"none\")")],
+        "[cli-qwen3] the CLI's state", "26q"),
+    "the Trainer's checkpoint loses the window": (
+        [(TRAINER, "        if w is not None and w[0] == rnd:\n"
+          "            tree[\"window\"]",
+          "        if False:\n"
+          "            tree[\"window\"]")],
+        "[cnn-resume] saved after round", "26r"),
+    "the population's rows taken as views of the state": (
+        [(POPULATION, "    return tree_map(lambda x: x[0].clone(), tree)",
+          "    return tree_map(lambda x: x[0], tree)")],
+        "[mamba-population] the default row is untouched", "26m"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -225,7 +246,10 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "24": 'cs.phase_engine(torch.device("cuda"), cs.make_data(), '
                 'parts=("cnn",))\n',
           "25": 'cs.phase_population(torch.device("cuda"), cs.make_data(), '
-                'parts=("cnn",))\n'}
+                'parts=("cnn",))\n',
+          "26q": 'cs.phase_cli(torch.device("cuda"), parts=("qwen3",))\n',
+          "26r": 'cs.phase_cli(torch.device("cuda"), parts=("resume",))\n',
+          "26m": 'cs.phase_cli(torch.device("cuda"), parts=("mamba",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -235,8 +259,11 @@ def phase_of(path: str) -> str:
     return "11" if path == SSM else "7"
 
 
-def run(where: str,
-        phases=("7", "11", "15", "19", "21", "22", "24", "25")) -> list:
+ALL_PHASES = ("7", "11", "15", "19", "21", "22", "24", "25", "26q", "26r",
+              "26m")
+
+
+def run(where: str, phases=ALL_PHASES) -> list:
     """Phases 1, 2 and ``phases`` in ``where``; returns the failed
     checks."""
     code = KERNEL_PHASES + "".join(PHASES[p] for p in phases)
@@ -251,17 +278,26 @@ def run(where: str,
             if ln.startswith("  FAIL ")]
 
 
-def main() -> int:
+def phases_of(edits, where) -> list:
+    """The phases a mutant runs: its own, else those of its files."""
+    return list(where) or sorted({phase_of(p) for p, _, _ in edits})
+
+
+def main(only=None) -> int:
+    """The tree and every mutant; with ``only`` (phases, as in PHASES),
+    the tree on those phases and the mutants that run in them."""
     for name, (edits, *_) in MUTANTS.items():   # every edit applies once
         for path, old, _ in edits:
             with open(os.path.join(ROOT, path)) as f:
                 assert f.read().count(old) == 1, (name, old)
+    chosen = {name: m for name, m in MUTANTS.items()
+              if only is None or set(phases_of(m[0], m[2:])) <= set(only)}
     print("== the tree as it is", flush=True)
-    failed = {"tree": run(ROOT)}
+    failed = {"tree": run(ROOT, tuple(only) if only else ALL_PHASES)}
     ok = not failed["tree"]
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, (edits, must_fail, *where)) in enumerate(
-                MUTANTS.items()):
+                chosen.items()):
             print(f"\n== mutant: {name}", flush=True)
             copy = os.path.join(tmp, f"m{i}")
             # a mutant of Python code keeps the built kernels
@@ -275,8 +311,7 @@ def main() -> int:
                 assert src.count(old) == 1, (name, old)
                 with open(p, "w") as f:
                     f.write(src.replace(old, new))
-            failed[name] = run(copy, where or sorted({phase_of(p)
-                                                      for p, _, _ in edits}))
+            failed[name] = run(copy, phases_of(edits, where))
             caught = any(c.startswith(must_fail) for c in failed[name])
             print(f"  {'caught' if caught else 'MISSED'}: {must_fail}")
             ok = ok and caught
@@ -285,4 +320,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    only = sys.argv[sys.argv.index("--only") + 1:] \
+        if "--only" in sys.argv else None
+    sys.exit(main(only))

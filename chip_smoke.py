@@ -98,8 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the states bitwise, the history rows and meters equal, the meter
    equal to CommProfile (model-sync bytes included), an LM path's
    launches a round as stated before the run and its warm-up and
-   captures calling the layer kernels 3 rounds' worth, a profiled replay
-   launching every kernel of the loop's round as often (K2 on the uplink,
+   captures calling the layer kernels 3 rounds' worth, its own replays
+   (profiled inside the call) launching every kernel of the loop's round
+   as often (K2 on the uplink,
    the downlink and the model-sync channels) with no wrapper called; the
    LM paths gather their batches from the device pool, and Qwen3 CSE-FSL
    also runs the staged data path (``device_data=False``), bitwise
@@ -124,9 +125,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    window replaying the graph without FedAvg (no model-sync K2), and
    (last of all, with phase 19's) a syncing wrapper making the masked
    capture raise; two paths' rounds timed as in phase 20 beside the
-   unmasked path's; the Qwen3 path also through the staged data path,
-   its masked chunk program on staged batches, bitwise against the loop
-   and the pooled run;
+   unmasked path's (phase 19's run of it); the Qwen3 path also through
+   the staged data path, its masked chunk program on staged batches,
+   bitwise against the loop and the pooled run;
 22. layer recompute (``cfg.remat``), every path through phase 19's
    checks with remat on: CSE-FSL on full-width Qwen3 (S = 4096) and on
    phase 12's falcon-mamba cut (S = 2048), against phase 19's runs of
@@ -178,15 +179,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same number of synchronizing calls, every exported record valid,
    and ``run`` at ``log_every=0``: its records those of a run logging
    every round, one synchronizing call added (the one fetch at its end);
-   then ``fig_population`` at its own settings, its three claims asserted.
+   then ``fig_population`` at its own settings, its three claims asserted;
+26. the entry points, called in this process: the training CLI
+   (``repro_torch.launch.train.main``) on full-width Qwen3-0.6B at phase
+   20's flags (int8 uplink and model sync, chunk 3; the config's remat
+   on), its state, rows and meter bitwise a direct ``run_compiled`` built
+   the same way, its warm-up and captures calling the layer kernels 3
+   rounds' worth and its own replayed rounds (profiled inside the CLI
+   call) launching phase 22's kernels with remat, no wrapper called; K2
+   at the largest model-sync leaf (the embedding, ``[4, 151936, 1024]``:
+   its launches a round counted in the captured aggregating round, whose
+   K2 calls add up to the replayed round's; its first and last 1024 rows
+   bitwise the plain version's, its time beside its bound); the CLI's
+   population mode at N = 10^6; qwen2-1.5b at full width (28 layers, K6
+   at a GQA group of 6; its parameters drawn on the card): round 1's
+   losses near ln V, peak and a replayed round's ms; glm4-9b and
+   qwen2-72b reduced on the card against the same CLI run on the CPU;
+   ``Trainer.run_compiled`` on the CNN under lossy faults saved
+   mid-window and restored into a fresh Trainer, bitwise the
+   uninterrupted run (the window's cohort kept); falcon-mamba (phase 12's
+   cut, remat) through ``Population`` at C == N, bitwise
+   ``run_compiled``, the default row untouched, and through the event
+   engine for a round against ``Trainer.run`` within UNIT_RTOL; then
+   ``perf_bench --smoke`` with its two bars.
+
+Phases 18 (5 timed CNN rounds, 2 LM), 19 and 21 (one timed LM round or
+chunk) and 24 (``fig_sched`` and ``fig_wallclock`` at their own
+``--smoke`` settings) cut repetition to make room for phase 26; so do
+phases 19 and 22 (a path's kernels a replayed round read from its
+``run_compiled``'s own replays, not from one more profiled chunk), 21
+(its timed paths' unmasked twins are phase 19's runs) and 26 (qwen2-1.5b
+drawn on the card; the CLI's own replays profiled, not a second run).
+No check, kernel comparison or path went.
 
 Phases 7-21 pin ``remat=False``, which the Qwen3 and falcon-mamba configs
 now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
 ``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
-``"telemetry"`` and ``"known_reference_failures"``: phases 21-25's
-numbers), the
+``"telemetry"``, ``"cli"`` and ``"known_reference_failures"``: phases
+21-26's numbers), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -230,6 +262,7 @@ from repro_torch.core.async_trainer import (AsyncTrainer,  # noqa: E402
                                             ConstantLatency,
                                             LognormalLatency)
 from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
+from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.graphs import state_leaves  # noqa: E402
 from repro_torch.core.methods import get_method  # noqa: E402
 from repro_torch.core.methods.base import stacked_keys  # noqa: E402
@@ -244,7 +277,9 @@ from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import LMBatcher, LMPool, build_data  # noqa: E402
+from repro_torch.models import model as tf_mod  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
 from repro_torch.network import TieredNetwork  # noqa: E402
 from repro_torch.population import (FederatedPool, Population,  # noqa: E402
@@ -329,7 +364,8 @@ SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
 # zero-padded to 104); K6 cases (B, S, H, KH, hd, W): the main
 # path's and a longer one the window cuts, ragged ones for the tensor-core
 # kernel (S not a multiple of 128, windows that cut the kv tiles, hd = 64),
-# zamba2-7b's attention (hd = 112, on the tensor cores), then
+# zamba2-7b's attention (hd = 112, on the tensor cores), qwen2-1.5b's and
+# glm4-9b's (GQA groups of 6 and 16: 12 and 32 heads over 2), then
 # tests/test_kernels.py's four in fp32.
 CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((1, 4096, 1024, 151936), torch.bfloat16),
@@ -365,7 +401,9 @@ SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
              ((1, 8192, 16, 8, 128, 4096), torch.bfloat16),
              ((1, 777, 8, 2, 128, 200), torch.bfloat16),
              ((2, 1000, 4, 2, 64, 300), torch.bfloat16),
-             ((1, 4096, 32, 32, 112, 4096), torch.bfloat16)] + [
+             ((1, 4096, 32, 32, 112, 4096), torch.bfloat16),
+             ((1, 4096, 12, 2, 128, 4096), torch.bfloat16),
+             ((1, 4096, 32, 2, 128, 4096), torch.bfloat16)] + [
     (c, torch.float32) for c in ((1, 128, 2, 2, 16, 32),
                                  (1, 256, 4, 2, 32, 64),
                                  (2, 128, 4, 1, 16, 128),
@@ -373,7 +411,8 @@ SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
 # K6 backward cases (B, S, H, KH, hd, W): the Qwen3 main path's (one server
 # sequence, 4 folded clients), zamba2-7b's heads, a longer sequence the
 # window cuts (W < S), ragged ones (S off the 64- and 128-row tiles,
-# windows that cut them) at hd 128, 64 and 112 with GQA; then the plain
+# windows that cut them) at hd 128, 64 and 112 with GQA, qwen2-1.5b's and
+# glm4-9b's heads (groups of 6 and 16); then the plain
 # backward's routes on the card (bf16 at hd 32, fp32).
 SWA_BWD_CASES = [((1, 4096, 16, 8, 128, 4096), torch.bfloat16),
                  ((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
@@ -382,6 +421,8 @@ SWA_BWD_CASES = [((1, 4096, 16, 8, 128, 4096), torch.bfloat16),
                  ((1, 777, 8, 2, 128, 200), torch.bfloat16),
                  ((2, 1000, 4, 2, 64, 300), torch.bfloat16),
                  ((1, 1000, 4, 2, 112, 1000), torch.bfloat16),
+                 ((1, 4096, 12, 2, 128, 4096), torch.bfloat16),
+                 ((1, 4096, 32, 2, 128, 4096), torch.bfloat16),
                  ((1, 256, 4, 2, 32, 64), torch.bfloat16),
                  ((1, 256, 2, 2, 64, 200), torch.float32)]
 SWA_GRADS = ("dq", "dk", "dv")
@@ -450,10 +491,19 @@ def payload(n, r, c, seed, wide=False):
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Bitwise equality of two tensors of one dtype, any device."""
-    a, b = a.cpu().contiguous(), b.cpu().contiguous()
-    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.view(torch.uint8), b.view(torch.uint8))
+    """Bitwise equality of two tensors of one dtype, any device: where
+    both lie on one device, compared there (no copy to the host), 2^26
+    bytes at a time (so the comparison's own memory stays small beside
+    full-width states on the card)."""
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    x = a.contiguous().reshape(-1).view(torch.uint8)
+    y = b.contiguous().reshape(-1).view(torch.uint8)
+    step = 1 << 26
+    return all(torch.equal(x[i:i + step], y[i:i + step])
+               for i in range(0, x.numel(), step))
 
 
 def max_abs(q1, s1, q2, s2) -> float:
@@ -2072,6 +2122,12 @@ def rel_error(got, want, before=None) -> float:
     difference first drops one ulp of ``want``: the rounding of the new
     params, which differs between the two sides wherever their updates
     differ at all."""
+    num, den = rel_sums(got, want, before)
+    return (num / den) ** 0.5
+
+
+def rel_sums(got, want, before=None) -> tuple:
+    """:func:`rel_error`'s squared numerator and denominator."""
     num = den = 0.0
     olds = tree_leaves(before) if before is not None else None
     for j, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
@@ -2084,7 +2140,7 @@ def rel_error(got, want, before=None) -> float:
         w = w.double()
         den += float((w if olds is None else w - olds[j].double())
                      .square().sum())
-    return (num / den) ** 0.5
+    return num, den
 
 
 def update_error(before, want, got) -> float:
@@ -2317,7 +2373,7 @@ def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
         tr = p["trainer"]
         batch = tr.to_device(FederatedBatcher(fed, B, H, seed=1).next_round())
         out[f"cnn-{method}"] = {**timed(f"cnn {method}", tr, p["state"],
-                                        batch, LR, 7, 3, 2),
+                                        batch, LR, 5, 3, 2),
                                 "launches": {k: v for k, v in
                                              p["launches"].items() if v}}
     for tag, p in lm_paths.items():
@@ -2325,7 +2381,7 @@ def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
         batch = tr.to_device(LMBatcher(p["cfg"], p["fed"], LM_B, LM_H,
                                        seed=1).next_round())
         torch.cuda.empty_cache()
-        out[tag] = {**timed(tag, tr, tr.init(0), batch, LM_LR, 3, 1, 1),
+        out[tag] = {**timed(tag, tr, tr.init(0), batch, LM_LR, 2, 1, 1),
                     "peak_bytes": p["peak_bytes"],
                     "launches_per_round": {k: v for k, v in
                                            p["per_round"].items() if v}}
@@ -2468,6 +2524,91 @@ def close_profile(dev):
     time.sleep(0.2)
 
 
+class ReplayWatch:
+    """The captured chunks (``graphs.CapturedChunk``) of the calls made
+    inside it, watched: the wrapper launches of the warm-ups and captures
+    (``at_capture``); with ``shapes``, each K2 call's shape in the
+    aggregating and the other captured round (``k2_shapes[True]`` and
+    ``[False]``: shape -> calls); and every replay profiled: the device
+    activities (``events``, summed by name as :func:`cuda_events` gives
+    them), the rounds replayed (``flags``, True where the aggregating
+    graph ran), the wrapper calls made during the replays
+    (``replay_calls``: 0 where the graphs launch the kernels) and the wall
+    seconds the watching added around them (``added_s``: profiler start,
+    read and :func:`close_profile`).  So a run's own replays are read,
+    with no replayed chunk of its own for the count."""
+
+    def __init__(self, dev, shapes: bool = False):
+        self.dev, self.shapes = dev, shapes
+        self.at_capture, self.k2_shapes = {}, {True: {}, False: {}}
+        self.events, self.flags, self.replay_calls = {}, [], 0
+        self.added_s = 0.0
+
+    def _fold(self):
+        for k, v in counts().items():
+            if v:
+                self.at_capture[k] = self.at_capture.get(k, 0) + v
+        reset_counts()
+
+    def __enter__(self):
+        cls, watch = graphs.CapturedChunk, self
+        self._orig = replay, round_, quant = (cls.replay, cls._round,
+                                              qk.quantize_2d)
+        variant = [None]
+
+        def seen(x, *a, **kw):
+            if variant[0] is not None:
+                d = watch.k2_shapes[variant[0]]
+                d[tuple(x.shape)] = d.get(tuple(x.shape), 0) + 1
+            return quant(x, *a, **kw)
+
+        def watched_round(cap, aggregated):
+            variant[0] = bool(aggregated)
+            try:
+                return round_(cap, aggregated)
+            finally:
+                variant[0] = None
+
+        def watched_replay(cap, flags, fetch=True):
+            t0 = time.perf_counter()
+            watch._fold()
+            with cuda_profile() as prof:
+                t1 = time.perf_counter()
+                rows = replay(cap, flags, True)
+                t2 = time.perf_counter()
+                close_profile(watch.dev)
+            for e in cuda_events(prof):
+                d = watch.events.setdefault(e.key, DeviceEvents(e.key))
+                d.count += e.count
+                d.self_device_time_total += e.self_device_time_total
+            watch.flags += [bool(f) for f in flags]
+            watch.replay_calls += sum(counts().values())
+            reset_counts()
+            watch.added_s += time.perf_counter() - t0 - (t2 - t1)
+            return rows if fetch else (lambda: rows)
+
+        cls.replay, cls._round = watched_replay, watched_round
+        if self.shapes:
+            qk.quantize_2d = seen
+        return self
+
+    def __exit__(self, *exc):
+        self._fold()
+        cls = graphs.CapturedChunk
+        cls.replay, cls._round, qk.quantize_2d = self._orig
+        return False
+
+    def per_round(self) -> dict:
+        """The port's kernels launched a replayed round."""
+        return {k: v / max(len(self.flags), 1) for k, v in kernel_counts(
+            list(self.events.values())).items() if v}
+
+    def device_ms(self, tag: str = "", top: int = 0) -> float:
+        """Device ms a replayed round (:func:`device_ms`)."""
+        return device_ms(list(self.events.values()), tag,
+                         max(len(self.flags), 1), top=top)
+
+
 def path_cfg(model, remat=False, layers=None):
     """The LM path's config: phase 8's Qwen3 or phase 12's Mamba cut, with
     ``remat`` and at depth ``layers`` (None: the path's own)."""
@@ -2602,13 +2743,14 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     history rows and the meters equal, the meters equal to CommProfile, an
     LM path's warm-up and two captured rounds calling each layer kernel's
     wrapper 3 rounds' worth (so with remat the captured backward holds the
-    recompute); then one more chunk of replays, profiled: the same kernels
-    as often as a loop round, and no wrapper call; then a few chunks
-    timed.  ``want``: a run without remat (CPU copy of the state, history,
-    meter) that the loop's run must equal, bitwise.  With ``keep``, the
-    loop's run is returned under ``"loop_run"`` for phase 22.  ``reps``:
-    the loop rounds and compiled chunks timed (default 5 on the CNN, 2 on
-    an LM path).  With ``staged``, last, the same rounds through the
+    recompute); its replays profiled inside the call (ReplayWatch): the
+    same kernels as often as a loop round, and no wrapper call; then a few
+    chunks timed.  ``want``: a run without remat (CPU copy of the state,
+    history, meter) that the loop's run must equal, bitwise.  With
+    ``keep``, the loop's run is returned under ``"loop_run"`` for phase
+    22.  ``reps``: the loop rounds and compiled chunks timed (default 5 on
+    the CNN, 2 on an LM path; one LM round or chunk since phase 26 made
+    room, PERF.md §7).  With ``staged``, last, the same rounds through the
     staged data path (check_staged)."""
     lab = f"[{tag}{' remat' if remat else ''}]"
     print(f"  {lab} at the start: "
@@ -2633,7 +2775,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
     meters, after = [CommMeter(), CommMeter()], []
-    reps = reps or (5 if model == "cnn" else 2)
+    reps = reps or (5 if model == "cnn" else 1)
     batcher, state = make_batcher(), tr.init(0)
     lap("initial state")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2689,13 +2831,14 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     batcher, state = make_batcher(), tr.init(0)
     lap("initial state")
     t = time.perf_counter()
-    state, chist = tr.run_compiled(state, batcher, rounds, chunk=chunk,
-                                   log_every=1, meter=meters[1],
-                                   cost_model=cm)
-    sync(dev)
-    first_s = time.perf_counter() - t
-    lap("run_compiled (warm-up, captures, replays)")
-    at_capture = {k: v for k, v in counts().items() if v}
+    with ReplayWatch(dev) as watch:
+        state, chist = tr.run_compiled(state, batcher, rounds, chunk=chunk,
+                                       log_every=1, meter=meters[1],
+                                       cost_model=cm)
+        sync(dev)
+    first_s = time.perf_counter() - t - watch.added_s
+    lap("run_compiled (warm-up, captures, replays profiled)")
+    at_capture = {k: v for k, v in watch.at_capture.items() if v}
     got = state_leaves(state)
     bitwise = len(got) == len(copy) and all(
         same(g, w) for g, w in zip(got, copy))
@@ -2703,7 +2846,8 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                                     for g, w in zip(got, copy))
     print(f"  {lab} run: {rounds} rounds in {loop_s:.3f} s (profiled); "
           f"run_compiled (warm-up, two captures, {rounds} replays at chunk "
-          f"{chunk}): {first_s:.3f} s; wrapper launches at warm-up and "
+          f"{chunk}): {first_s:.3f} s, less the {watch.added_s:.3f} s its "
+          f"replays' profiling added; wrapper launches at warm-up and "
           f"capture {at_capture}")
     check(bitwise, f"{lab} run_compiled's state == run's, bitwise, under "
           f"deterministic algorithms (worst |diff| {worst:.3g})")
@@ -2731,22 +2875,15 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                   if remat else ""))
 
     lap("checks")
-    reset_counts()
-    with cuda_profile() as prof:
-        state, rhist = tr.run_compiled(state, batcher, chunk, chunk=chunk,
-                                       log_every=1)
-        close_profile(dev)
-    ev = cuda_events(prof)
-    replay_counts = kernel_counts(ev)
-    replay_dev = device_ms(ev, "replay", chunk, top=5)
-    del prof, ev
-    lap("replays (profiled, read)")
-    wrapper_calls = sum(counts().values())
+    # the run's own replays, profiled inside it (ReplayWatch)
+    replay_dev = watch.device_ms("replay", top=5)
+    wrapper_calls = watch.replay_calls
     per_loop = {k: v / rounds for k, v in loop_counts.items() if v}
-    per_replay = {k: v / chunk for k, v in replay_counts.items() if v}
+    per_replay = watch.per_round()
     print(f"  {lab} kernels a round, profiled: loop {per_loop}; replayed "
           f"{per_replay}")
-    check(per_replay == per_loop and all(r["aggregated"] for r in rhist),
+    check(per_replay == per_loop and len(watch.flags) == rounds
+          and all(watch.flags) and all(r["aggregated"] for r in chist),
           f"{lab} a replayed round launches every kernel a loop round "
           f"does, as often ({len(per_replay)} kernels; every round "
           "aggregates)")
@@ -2917,6 +3054,11 @@ SCHED_PATHS = (("cnn-cse-deadline", "cnn", "cse_fsl", 4, 3),
 SCHED_FAULTS = dict(loss_rate=0.3, crash_rate=0.15, max_retries=1, seed=2,
                     name="chip-mix")
 SCHED_TIMED = ("cnn-cse-deadline", "qwen3-cse-deadline")
+# each timed path's unmasked twin: phase 19's path of the same trainer
+# (compiled_trainer), chunk and timing, whose compiled rounds stand beside
+# the masked ones when phase 19 ran in this process
+SCHED_TWIN = {"cnn-cse-deadline": "cnn-cse_fsl",
+              "qwen3-cse-deadline": "qwen3-cse_fsl"}
 
 
 class NobodyInRound3(SchedulerPolicy):
@@ -3125,7 +3267,7 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
     loop_summary = tr.participation_summary()
     want = [t_.cpu() for t_ in state_leaves(state)]
     out = {"rounds": rounds, "chunk": chunk}
-    reps = 5 if model == "cnn" else 2
+    reps = 5 if model == "cnn" else 1       # one LM round: room for 26
     if tag in SCHED_TIMED:          # phase 20's cadence
         box = {"state": state}
 
@@ -3275,7 +3417,7 @@ def time_unmasked(model, method, chunk, dev) -> dict:
         box["state"], _ = base.run_compiled(box["state"], batcher, chunk,
                                             chunk=chunk)
 
-    ms = events_ms(plain_chunk, 5 if model == "cnn" else 2, chunk)
+    ms = events_ms(plain_chunk, 5 if model == "cnn" else 1, chunk)
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
     return {"unmasked_rounds_ms": ms, "unmasked_ms": statistics.median(ms)}
@@ -3325,9 +3467,11 @@ def check_empty_window(tag, tr, make_batcher, dev, k2_plain):
           "2 loop rounds, no FedAvg), bitwise")
 
 
-def phase_sched(dev, paths=None):
+def phase_sched(dev, paths=None, plain=None):
     """Phase 21: each path of SCHED_PATHS (or of ``paths``, tags) through
-    check_sched_path; prints the timed paths' rounds.  Returns each path's
+    check_sched_path; prints the timed paths' rounds beside their unmasked
+    twins' (SCHED_TWIN: from ``plain``, phase 19's numbers, where it holds
+    the twin; else timed here by time_unmasked).  Returns each path's
     numbers."""
     t0 = phase("21 scheduling and faults: masked FedAvg behind the "
                "model-sync wire, Trainer.run against run_compiled")
@@ -3339,7 +3483,14 @@ def phase_sched(dev, paths=None):
             out[tag] = check_sched_path(tag, model, method, rounds, chunk,
                                         dev)
             release(dev)
-            if tag in SCHED_TIMED:
+            twin = (plain or {}).get(SCHED_TWIN.get(tag))
+            if tag in SCHED_TIMED and twin is not None:
+                check(twin["chunk"] == chunk, f"[{tag}] phase 19's "
+                      f"{SCHED_TWIN[tag]} ran at chunk {chunk} too")
+                out[tag].update(unmasked_rounds_ms=twin["compiled_rounds_ms"],
+                                unmasked_ms=twin["compiled_ms"],
+                                unmasked_from="phase 19")
+            elif tag in SCHED_TIMED:
                 out[tag].update(time_unmasked(model, method, chunk, dev))
                 release(dev)
     for tag, r in out.items():
@@ -3351,7 +3502,8 @@ def phase_sched(dev, paths=None):
                   f"aggregating replay alone {r['replay_ms']:.3f} ms, peak "
                   f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB | unmasked "
                   f"compiled {r['unmasked_ms']:.3f} ms of "
-                  f"{[round(x, 3) for x in r['unmasked_rounds_ms']]}")
+                  f"{[round(x, 3) for x in r['unmasked_rounds_ms']]}"
+                  + (" (phase 19's run)" if r.get("unmasked_from") else ""))
     done(t0)
     return out
 
@@ -3563,6 +3715,13 @@ def phase_figures(dev):
 ENGINE_ROUNDS = 2
 ENGINE_FAULTS = dict(loss_rate=0.5, seed=0)
 ENGINE_DRIVERS = ("fig6_async_order", "fig_sched", "fig_wallclock")
+# fig_sched and fig_wallclock at their own ``--smoke`` settings (4 rounds;
+# the tiered network with wait_all and deadline, and 4g with none and
+# int8), which assert the same claims: room for phase 26
+DRIVER_KW = {"fig_sched": dict(rounds=4, nets=("tiered",),
+                               policies=("wait_all", "deadline")),
+             "fig_wallclock": dict(rounds=4, tiers=("4g",),
+                                   codecs=("none", "int8"))}
 
 
 class Shapes:
@@ -3608,17 +3767,25 @@ def engine_lm_launches(cfg, k2: int) -> dict:
     """A CSE-FSL round's wrapper launches through the event engine on an LM
     path (n = 4, h = 2), each client on its own (nothing folded): the aux
     head's fused CE (one fwd, one bwd) per local step per client and the
-    server head's per consumed upload; the layer kernel once per client
-    layer a local step and the smashed pass, per server layer an update;
-    its backward once per client layer a step and per server layer an
-    update; ``k2`` K2 launches."""
+    server head's per consumed upload; the layer kernel (K6 or K5) once per
+    client layer a local step and the smashed pass, per server layer an
+    update; its backward once per client layer a step and per server layer
+    an update (with ``cfg.remat`` the forward once more a backward);
+    ``k2`` K2 launches."""
     cut = cfg.resolved_cut
     srv = cfg.num_layers - cut
     heads = LM_N * LM_H + LM_N
+    fwd = LM_N * (cut * (LM_H + 1) + srv)
+    bwd = LM_N * (cut * LM_H + srv)
+    if cfg.remat:
+        fwd += bwd
     want = only(quantize_philox=k2, fused_ce_fwd=heads, fused_ce_dx=heads,
                 fused_ce_dw=heads, fused_ce_p=heads)
-    want.update(swa_attention_tc=LM_N * (cut * (LM_H + 1) + srv),
-                **{n: LM_N * (cut * LM_H + srv) for n in swa.BWD_KERNELS})
+    if cfg.family == "ssm":
+        want.update(ssm_scan=fwd, ssm_scan_bwd=bwd, ssm_scan_bwd_sum=bwd)
+    else:
+        want.update(swa_attention_tc=fwd,
+                    **{n: bwd for n in swa.BWD_KERNELS})
     return want
 
 
@@ -3955,7 +4122,7 @@ def phase_engine(dev, fed, parts=("cnn", "lm", "drivers")):
     for name in ENGINE_DRIVERS if "drivers" in parts else ():
         mod = importlib.import_module(f"repro_torch.benchmarks.{name}")
         t = time.perf_counter()
-        res = mod.main(dev)
+        res = mod.main(dev, **DRIVER_KW.get(name, {}))
         sync(dev)
         secs = time.perf_counter() - t
         print(f"  {name}: ran to its end, its claims held, {secs:.3f} s",
@@ -4491,6 +4658,629 @@ def phase_population(dev, fed, parts=("cnn", "lm", "drivers"),
     return pop, tele
 
 
+# ---------------------------------------------------------------------------
+# The entry points: the training CLI, perf_bench, the dense configs, Trainer
+# resume, falcon-mamba through both engines
+# ---------------------------------------------------------------------------
+
+# Phase 26 calls the CLI in this process (repro_torch.launch.train.main), so
+# the launch counters are read.  Its LM flags are phase 20's Qwen3 path's:
+# n 4, h 2, B 1, S 4096, 8 sequences a client, lr 0.1, int8 on the uplink
+# and the model sync.  The CLI takes each config as it is: qwen3-0.6b,
+# qwen2-1.5b and falcon-mamba-7b set remat, so a replayed Qwen3 round
+# launches phase 22's counts with remat (K6's forward once more a
+# backward).  The reduced dense configs run tiny on the card and the CPU.
+CLI_LM = ["--clients", str(LM_N), "--h", str(LM_H), "--batch", str(LM_B),
+          "--seq", str(LM_S), "--samples", str(LM_SAMPLES), "--lr",
+          str(LM_LR), "--codec", "int8", "--model-codec", "int8",
+          "--log-every", "1"]
+CLI_REDUCED = ["--size", "reduced", "--clients", "2", "--h", "2", "--batch",
+               "1", "--seq", "256", "--samples", "4", "--lr", "0.1",
+               "--rounds", "2", "--chunk", "2", "--log-every", "1"]
+CLI_ROUNDS, CLI_POP, CLI_POP_ROUNDS, CLI_QWEN2_ROUNDS = 3, 10**6, 2, 2
+# bf16 on both devices, the kernels on the card and their plain versions on
+# the CPU: a loss moves by a few bf16 ulps of the activations
+CLI_REDUCED_RTOL = 2e-2
+CLI_HOST = ("comm", "participation", "faults", "population", "memory",
+            "wallclock", "record")
+# Trainer resume on the card: the CNN path (int8 on every channel), windows
+# of 2 rounds (agg_every 2h), lossy faults whose trace drops client 2 in
+# round 3 (1-based) alone, 6 rounds at chunk 2 split after round 3.
+RESUME_FAULTS = dict(loss_rate=0.4, max_retries=1, seed=1)
+RESUME_ROUNDS, RESUME_SPLIT = 6, 3
+MB_ENGINE_ROUNDS, MB_POP_ROUNDS = 1, 2
+TELE_PROTOCOL_RUNS = 3
+
+
+def card_bundle(cfg, device):
+    """``transformer_bundle(cfg, dev)`` whose ``init(gen)`` is
+    ``init_params``' draw (its shapes, dtypes and scales) made on the card
+    from a generator seeded with ``gen``'s seed: a full-width model's host
+    draw took about 20 of qwen2-1.5b's 33 s in phase 26 (H100 80GB HBM3,
+    700.00 W)."""
+    bundle = transformer_bundle(cfg, device=device)
+    dev = bundle.device
+
+    def init(gen):
+        g = torch.Generator(device=dev).manual_seed(gen.initial_seed())
+        with torch.device(dev):
+            return tf_mod.init_params(cfg, g, device=dev)
+    return dataclasses.replace(bundle, init=init)
+
+
+def cli(argv, draw_on_card: bool = False):
+    """``train.main(argv + --out)`` on the card, the LM bundles this
+    script's (lm_bundle: the parameters drawn once a config and seed, the
+    bits of a fresh draw; with ``draw_on_card``, card_bundle's).  Returns
+    ``(state, history, --out JSON, s)``."""
+    path = os.path.join(tempfile.mkdtemp(), "out.json")
+    saved = train_mod.transformer_bundle
+    train_mod.transformer_bundle = card_bundle if draw_on_card \
+        else (lambda cfg, device: lm_bundle(cfg, device))
+    try:
+        t = time.perf_counter()
+        state, hist = train_mod.main(list(argv) + ["--out", path])
+        sync(state_leaves(state)[0].device)
+        secs = time.perf_counter() - t
+    finally:
+        train_mod.transformer_bundle = saved
+    with open(path) as f:
+        return state, hist, json.load(f), secs
+
+
+def at_capture_ok(lab, at_cap, expect, rounds=3):
+    """The warm-up and the two captures called each layer kernel's wrapper
+    ``rounds`` rounds' worth (phase 19's check)."""
+    layer = [k for k in expect if expect[k] and not k.startswith(
+        ("quantize", "fused_ce"))]
+    check(all(at_cap.get(k) == rounds * expect[k] for k in layer),
+          f"{lab} the warm-up and the two captured rounds called the layer "
+          f"kernels {rounds} rounds' worth "
+          f"{ {k: at_cap.get(k) for k in layer} }")
+
+
+def philox_rows(seeds, r0: int, r1: int, c: int) -> torch.Tensor:
+    """``ref.philox_bits(seeds, r1, c)[..., r0:r1, :]`` without drawing
+    the rows before ``r0`` (a tile's bits depend on its tile indices and
+    the seed alone); ``r0`` a multiple of the 8-row tile."""
+    seeds = torch.as_tensor(seeds, dtype=torch.int64).cpu()
+    nr, nc = (r1 - r0) // ref.BT, -(-c // ref.BC)
+    s = seeds.reshape(-1, 1, 1, 1)
+    k0, k1 = s & ref._M32, (s >> 32) & ref._M32
+    ti = torch.arange(r0 // ref.BT, r0 // ref.BT + nr,
+                      dtype=torch.int64).reshape(1, nr, 1, 1)
+    tj = torch.arange(nc, dtype=torch.int64).reshape(1, 1, nc, 1)
+    call = torch.arange(ref.BT * ref.BC // 4,
+                        dtype=torch.int64).reshape(1, 1, 1, -1)
+    words = ref.philox4x32_10((tj, ti, call, torch.zeros((),
+                                                         dtype=torch.int64)),
+                              (k0, k1))
+    w = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    w = w.reshape(-1, nr, nc, ref.BT, ref.BC).permute(0, 1, 3, 2, 4)
+    w = w.reshape(-1, nr * ref.BT, nc * ref.BC)[:, :, :c]
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def time_k2_leaf(shape, launches, dev) -> dict:
+    """K2 at a model-sync leaf shape ``[n, R, C]``: its first and last
+    1024 rows bitwise the plain version's (from the same Philox tiles),
+    its device time (graph replay), a wrapper call's, and its bound from
+    the bytes it moves (fp32 in, int8 and a scale a tile out, a seed a
+    client).  The plain version draws its bits on the CPU: at this size
+    it is not timed."""
+    n, r, c = shape
+    g = torch.Generator(device=dev).manual_seed(11)
+    xd = torch.randn(shape, generator=g, device=dev) * 2
+    seeds = torch.arange(1, n + 1, dtype=torch.int64, device=dev)
+    q, s = qk.quantize_2d(xd, seeds=seeds)
+    err, w = 0.0, min(1024, r)
+    for r0 in (0, r - w):
+        x = xd[:, r0:r0 + w].cpu()
+        pq, ps = ref.quantize_2d(x, philox_rows(seeds.cpu(), r0, r0 + w, c))
+        t0 = r0 // ref.BT
+        qs, ss = q[:, r0:r0 + w].cpu(), s[:, t0:t0 + w // ref.BT].cpu()
+        check(same(qs, pq) and same(ss, ps),
+              f"quantize_philox {list(shape)} rows {r0}..{r0 + w} == "
+              "plain on the CPU fed the same Philox tiles")
+        err = max(err, max_abs(qs, ss, pq, ps))
+    del q, s
+    elems, tiles = n * r * c, n * -(-r // ref.BT) * -(-c // ref.BC)
+    io = elems * (4 + 1) + tiles * 4 + n * 8
+    ops = 8 * elems + (2 * elems + (elems // 4) * 10 * 10) \
+        * FP32_OPS / INT32_OPS
+    run = lambda: qk.quantize_2d(xd, seeds=seeds)       # noqa: E731
+    rec = record("quantize_philox", launches, err,
+                 graph_ms(run, reps=5, inner=5),
+                 event_ms(run, reps=5, inner=5, warm=2), None, io, ops,
+                 FP32_OPS, shape=list(shape),
+                 launches_path="qwen3-0.6b cse_fsl through the CLI, int8 "
+                               "model sync (phase 26), a replayed "
+                               "aggregating round: the clients' leaves "
+                               "up (the average goes down at [1, R, C])")
+    print(f"  [model-sync leaf {list(shape)}] quantize_philox: "
+          f"{rec['ms'] * 1e3:.3f} us/launch on device (graph replay), "
+          f"{rec['eager_ms'] * 1e3:.3f} us per wrapper call, bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}), plain not "
+          f"timed, {launches} launches a round", flush=True)
+    del xd
+    return rec
+
+
+def check_cli_qwen3(dev, out, remat_runs):
+    """Phase 26 (a): the CLI's Qwen3 run (``run_compiled``, chunk 3)
+    bitwise a direct ``run_compiled`` built the same way; the CLI's own
+    replays profiled (ReplayWatch): a replayed round launching phase 22's
+    kernels with remat, no wrapper call, the warm-up and captures calling
+    the layer kernels 3 rounds' worth; the model-sync leaves' K2 shapes in
+    the captured aggregating round, whose K2 calls add up to the replayed
+    round's K2 launches; K2 timed at the largest leaf, with its launches
+    a round from that count."""
+    lab = "[cli-qwen3]"
+    cfg = get_config("qwen3-0.6b").with_(use_pallas=True)
+    release(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with ReplayWatch(dev, shapes=True) as watch:
+        state, hist, js, secs = cli(["--arch", "qwen3-0.6b", "--size",
+                                     "full"] + CLI_LM
+                                    + ["--rounds", str(CLI_ROUNDS),
+                                       "--chunk", str(CLI_ROUNDS)])
+    at_cap = {k: v for k, v in watch.at_capture.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    copy = state_on_cpu(state)
+    del state
+    release(dev)
+    print(f"  {lab} the CLI: {CLI_ROUNDS} rounds (warm-up, two captures, "
+          f"replays) in {secs:.3f} s, {watch.added_s:.3f} s of it the "
+          f"replays' profiling; peak {peak / 2**30:.3f} GiB; wrapper "
+          f"launches {at_cap}", flush=True)
+    check(all(math.isfinite(r[k]) for r in hist for k in metric_keys(r)),
+          f"{lab} losses finite: {[round(r['client_loss'], 6) for r in hist]}")
+
+    bundle = lm_bundle(cfg, dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8",
+                    model_codec="int8")
+    tr = Trainer(bundle, fsl)
+    nm = len(tr.method.model_sync_specs(bundle, fsl))
+    expect = lm_launches(cfg, "cse_fsl", tr.units_per_round + 2 * nm)
+    at_capture_ok(lab, at_cap, expect)
+    per = watch.per_round()
+    want = (remat_runs or {}).get("qwen3-cse_fsl", {}).get(
+        "remat", {}).get("kernels_per_round")
+    check(watch.replay_calls == 0 and watch.flags == [True] * CLI_ROUNDS
+          and (want is None or per == want)
+          and per.get("quantize_philox_kernel") == expect["quantize_philox"]
+          and per.get("swa_tc_kernel") == expect["swa_attention_tc"]
+          and per.get("ce_combine_kernel") == expect["fused_ce_fwd"],
+          f"{lab} the CLI's {len(watch.flags)} replayed rounds "
+          f"(aggregating: {watch.flags}) launch {per} a round: phase 22's "
+          f"Qwen3 round with remat (K2 {expect['quantize_philox']}, K3/K4 "
+          f"{expect['fused_ce_fwd']}, K6 {expect['swa_attention_tc']}, its "
+          f"backward {expect['swa_attention_bwd_dkdv']}), no wrapper call")
+    agg = watch.k2_shapes[True]
+    leaves = sorted(agg, key=lambda s: -math.prod(s))
+    check(sum(agg.values()) == per.get("quantize_philox_kernel"),
+          f"{lab} K2's calls in the captured aggregating round "
+          f"({sum(agg.values())}, by shape) == its launches a replayed "
+          "round")
+    print(f"  {lab} K2's shapes in the captured aggregating round (calls): "
+          f"{ {s: agg[s] for s in leaves[:6]} } ...", flush=True)
+
+    fed = build_data(cfg, fsl, LM_S, LM_SAMPLES, False)
+    cm = CostModel(n=LM_N, q=bundle.smashed_bytes_per_sample * LM_S,
+                   d_local=LM_SAMPLES,
+                   w_client=bytes_of(bundle.specs["client"]),
+                   w_server=bytes_of(bundle.specs["server"]),
+                   aux=bytes_of(bundle.specs["aux"]))
+    meter, batcher = CommMeter(), LMBatcher(cfg, fed, LM_B, LM_H)
+    state, dhist = tr.run_compiled(tr.init(), batcher, CLI_ROUNDS,
+                                   chunk=CLI_ROUNDS, log_every=1,
+                                   meter=meter, cost_model=cm)
+    check(len(copy) == len(state_leaves(state))
+          and all(same(a, b) for a, b in zip(state_leaves(state), copy))
+          and dhist == hist and js["comm"] == meter.as_dict()
+          and js["history"] == hist,
+          f"{lab} the CLI's state, {len(hist)} history rows and meter "
+          f"({meter.total:,} B) == a direct run_compiled's, bitwise")
+    del state, copy
+    out["cli-qwen3"] = {"seconds": secs, "profiling_s": watch.added_s,
+                        "peak_bytes": peak, "kernels_per_round": per,
+                        "k2_shapes": len(agg)}
+    del tr
+    release(dev)
+    # the largest model-sync leaf, [n, V, d]: the clients' embeddings on the
+    # uplink of an aggregating round (the average goes down at [1, V, d])
+    big = (LM_N, cfg.vocab_size, cfg.d_model)
+    check(big in agg and math.prod(big) == math.prod(leaves[0]),
+          f"{lab} the embedding's {big} is the largest K2 shape, "
+          f"{agg.get(big)} launches a replayed round")
+    out["k2_leaf"] = time_k2_leaf(big, agg.get(big, 0), dev)
+    release(dev)
+
+
+def check_cli_population(dev, out):
+    """Phase 26 (b): the CLI's population mode on full-width Qwen3, N =
+    10^6, C = 4 stratified on the tiered network."""
+    lab = "[cli-qwen3-population]"
+    cfg = get_config("qwen3-0.6b").with_(use_pallas=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    state, hist, js, secs = cli(
+        ["--arch", "qwen3-0.6b", "--size", "full"] + CLI_LM
+        + ["--rounds", str(CLI_POP_ROUNDS), "--chunk", str(CLI_POP_ROUNDS),
+           "--population", str(CLI_POP), "--cohort", str(LM_N),
+           "--sampler", "stratified", "--network", "tiered"])
+    at_cap = {k: v for k, v in counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    mem, pop = js["memory"], js["population"]
+    check(len(hist) == CLI_POP_ROUNDS and all(
+        math.isfinite(r[k]) for r in hist for k in metric_keys(r))
+        and pop["windows"] == CLI_POP_ROUNDS
+        and mem["population"] == CLI_POP
+        and mem["engine_total"] * 1000 < mem["dense_extrapolated"],
+        f"{lab} {len(hist)} rounds, losses finite, {pop['windows']} "
+        f"windows of {pop['unique_clients']} clients, engine "
+        f"{mem['engine_total']:,} B against {mem['dense_extrapolated']:.3g} "
+        "B dense")
+    nm = len(get_method("cse_fsl").model_sync_specs(lm_bundle(cfg, dev),
+                                                     FSLConfig(
+                                                         num_clients=LM_N)))
+    at_capture_ok(lab, at_cap, lm_launches(cfg, "cse_fsl", 1 + 2 * nm))
+    out["cli-qwen3-population"] = {"seconds": secs, "peak_bytes": peak,
+                                   "engine_total": mem["engine_total"]}
+    print(f"  {lab} {secs:.3f} s, peak {peak / 2**30:.3f} GiB", flush=True)
+    release(dev)
+
+
+def chunk_spans_ms(trace_path) -> list:
+    """The ``chunk/execute`` host spans' durations (ms) in a Chrome
+    trace the CLI wrote (``--trace``)."""
+    with open(trace_path) as f:
+        ev = json.load(f)["traceEvents"]
+    return [e["dur"] / 1e3 for e in ev if e.get("name") == "chunk/execute"]
+
+
+def check_cli_qwen2(dev, out):
+    """Phase 26 (c): qwen2-1.5b at full width (28 layers) through the CLI
+    at chunk 1, its parameters drawn on the card (card_bundle): K6 at a
+    GQA group of 6, round 1's losses near ln V, the
+    peak and the compiled ms a round (the second chunk's execute span: a
+    replayed round and its metrics' fetch)."""
+    lab = "[cli-qwen2-1.5b]"
+    cfg = get_config("qwen2-1.5b").with_(use_pallas=True)
+    trace = os.path.join(tempfile.mkdtemp(), "trace.json")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    state, hist, js, secs = cli(
+        ["--arch", "qwen2-1.5b", "--size", "full"] + CLI_LM
+        + ["--rounds", str(CLI_QWEN2_ROUNDS), "--chunk", "1", "--trace",
+           trace], draw_on_card=True)
+    at_cap = {k: v for k, v in counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    lnv = math.log(cfg.vocab_size)
+    r1 = hist[0]
+    check(all(math.isfinite(r[k]) for r in hist for k in metric_keys(r))
+          and all(abs(r1[k] - lnv) < 1.5 for k in metric_keys(r1)),
+          f"{lab} {cfg.num_layers} layers, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads}: round 1 losses "
+          f"{ {k: round(r1[k], 4) for k in metric_keys(r1)} } within 1.5 of "
+          f"ln V = {lnv:.4f}, all finite")
+    nm = len(get_method("cse_fsl").model_sync_specs(card_bundle(cfg, dev),
+                                                     FSLConfig(
+                                                         num_clients=LM_N)))
+    expect = lm_launches(cfg, "cse_fsl", 1 + 2 * nm)
+    at_capture_ok(lab, at_cap, expect)
+    check(swa.kernel_for(torch.bfloat16, cfg.resolved_head_dim)
+          == "swa_attention_tc" and cfg.num_heads // cfg.num_kv_heads == 6,
+          f"{lab} K6 on the tensor cores at hd {cfg.resolved_head_dim}, "
+          "a GQA group of 6")
+    ms = chunk_spans_ms(trace)
+    out["cli-qwen2-1.5b"] = {"seconds": secs, "peak_bytes": peak,
+                             "chunk_execute_ms": ms, "round1": r1}
+    print(f"  {lab} {secs:.3f} s for {CLI_QWEN2_ROUNDS} rounds; peak "
+          f"{peak / 2**30:.3f} GiB; chunk/execute spans {ms} ms (the first "
+          "captures; the second is one replayed round)", flush=True)
+    release(dev)
+
+
+def check_cli_reduced(dev, out):
+    """Phase 26 (d): glm4-9b and qwen2-72b reduced (bf16, 2 layers), the
+    CLI on the card against the same run on the CPU: the host sections
+    exactly, the losses at CLI_REDUCED_RTOL, the kernels launched."""
+    for arch in ("glm4-9b", "qwen2-72b"):
+        lab = f"[cli-{arch}-reduced]"
+        reset_counts()
+        st, hist, js, secs = cli(["--arch", arch, "--device", "cuda"]
+                                 + CLI_REDUCED)
+        launched = {k: v for k, v in counts().items() if v}
+        del st
+        _, chist, cjs, csecs = cli(["--arch", arch, "--device", "cpu"]
+                                   + CLI_REDUCED)
+        check(all(js[k] == cjs[k] for k in CLI_HOST)
+              and [r["aggregated"] for r in hist]
+              == [r["aggregated"] for r in chist],
+              f"{lab} comm, record and the other host sections == the CPU "
+              "run's")
+        for r, c in zip(hist, chist):
+            for k in metric_keys(r):
+                check(math.isclose(r[k], c[k], rel_tol=CLI_REDUCED_RTOL),
+                      f"{lab} round {r['round']} {k} {r[k]:.5f} == the "
+                      f"CPU's {c[k]:.5f} at rtol {CLI_REDUCED_RTOL}")
+        check(launched.get("swa_attention_tc", 0) > 0
+              and launched.get("fused_ce_fwd", 0) > 0,
+              f"{lab} the card launched K6 (tensor cores) and K3: "
+              f"{launched}")
+        out[f"cli-{arch}-reduced"] = {"seconds": secs, "cpu_seconds": csecs,
+                                      "launches": launched}
+    release(dev)
+
+
+def check_perf_bench(dev, out):
+    """Phase 26 (e): ``perf_bench --smoke`` on the card with its two bars
+    (compiled >= 2x the loop's steps/s on the smoke CNN at h = 1; the
+    recorder's steps/s at least 0.95 of the no-op's)."""
+    from repro_torch.benchmarks import perf_bench
+    t = time.perf_counter()
+    rows, tele = perf_bench.main(smoke=True, device=dev)
+    secs = time.perf_counter() - t
+    check(all(r["speedup"] >= 2.0 for r in rows)
+          and tele["telemetry_overhead_ratio"] >= 0.95,
+          f"perf_bench --smoke: speed-ups {[r['speedup'] for r in rows]} "
+          f">= 2.0, telemetry ratio {tele['telemetry_overhead_ratio']} >= "
+          f"0.95 ({secs:.3f} s)")
+    # the telemetry row's two protocols side by side on this machine: the
+    # JAX driver's order (no-op side, then recorder, best of 3) and
+    # perf_bench's turns (best of 5), three times each, alternating
+    protocols = []
+    for turns in (False, True) * TELE_PROTOCOL_RUNS:
+        r = perf_bench.bench_telemetry_overhead(
+            80, 20, device=dev, turns=turns, repeats=5 if turns else 3)
+        protocols.append(r)
+        print(f"  [perf_bench telemetry, {'turns' if turns else 'JAX order'}"
+              f"] ratio {r['telemetry_overhead_ratio']}; ms a call off "
+              f"{[round(x * 1e3, 3) for x in r['telemetry_off_calls_s']]}, "
+              f"on {[round(x * 1e3, 3) for x in r['telemetry_on_calls_s']]}",
+              flush=True)
+    out["perf_bench"] = {"rows": rows, "telemetry": tele, "seconds": secs,
+                         "telemetry_protocols": protocols}
+    release(dev)
+
+
+def check_trainer_resume(dev, out):
+    """Phase 26 (f): ``run_compiled`` on the CNN path under lossy faults,
+    saved after round 3 (mid-window), restored into a fresh Trainer from a
+    ``meta`` template and continued: bitwise the uninterrupted run, the
+    window's cohort included (the trace drops client 2 in round 3 alone,
+    so a restarted window would admit it)."""
+    lab = "[cnn-resume]"
+    fed = make_data()
+
+    def trainer():
+        bundle, fsl, tp, cm = pop_parts("cnn", "cse_fsl", dev,
+                                        agg_every=2 * H)
+        return Trainer(bundle, fsl, transport=tp, faults=make_fault(
+            "lossy", **RESUME_FAULTS)), cm
+
+    tr, cm = trainer()
+    m0 = CommMeter()
+    state, whist = tr.run_compiled(tr.init(0), FederatedBatcher(
+        fed, B, H, seed=0), RESUME_ROUNDS, chunk=2, log_every=1, meter=m0,
+        cost_model=cm)
+    want = state_on_cpu(state)
+    del tr, state
+    tr, _ = trainer()
+    batcher = FederatedBatcher(fed, B, H, seed=0)
+    state, h1 = tr.run_compiled(tr.init(0), batcher, RESUME_SPLIT, chunk=2,
+                                log_every=1)
+    path = tr.save(os.path.join(tempfile.mkdtemp(), "trainer"), state)
+    del tr, state
+    fresh, _ = trainer()
+    state = fresh.restore(path)
+    batcher = FederatedBatcher(fed, B, H, seed=0)
+    for _ in range(RESUME_SPLIT):
+        batcher.next_round()
+    state, h2 = fresh.run_compiled(state, batcher,
+                                   RESUME_ROUNDS - RESUME_SPLIT, chunk=2,
+                                   log_every=1)
+    got = state_on_cpu(state)
+    cohorts = [(r["round"], r["participants"]) for r in whist
+               if r["aggregated"]]
+    check(min(p for _, p in cohorts) < N
+          and [(r["round"], r.get("participants")) for r in h1 + h2
+               if r["aggregated"]] == cohorts
+          and all(same(a, b) for a, b in zip(got, want))
+          and [r["client_loss"] for r in h1 + h2]
+          == [r["client_loss"] for r in whist],
+          f"{lab} saved after round {RESUME_SPLIT} (mid-window), restored "
+          f"into a fresh Trainer: cohorts {cohorts}, losses and state "
+          "bitwise the uninterrupted run's")
+    out["cnn-resume"] = {"cohorts": cohorts}
+    del fresh, state
+    release(dev)
+
+
+def check_mamba_population(dev, out):
+    """Phase 26 (g): falcon-mamba (phase 12's cut, S = 2048) with remat
+    through ``Population`` at C == N over a FederatedPool, bitwise
+    ``run_compiled`` on the same data (state, rows, meter), the launches
+    of its warm-up and captures, and the default row untouched by the
+    replays."""
+    lab = "[mamba-population]"
+    cfg = path_cfg("mamba", remat=True)
+    bundle = lm_bundle(cfg, dev)
+    tp = make_transport("int8", "none", model_sync="int8")
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1)
+    fed = lm_data(cfg, fsl, MB_S)
+    cm = cost_model(bundle, LM_N, LM_SAMPLES)
+    meters = [CommMeter(), CommMeter()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(bundle, fsl, transport=tp)
+    nm = len(tr.method.model_sync_specs(bundle, fsl))
+    expect = lm_launches(cfg, "cse_fsl", tr.units_per_round + 2 * nm)
+    t = time.perf_counter()
+    state, hist = tr.run_compiled(tr.init(0), LMBatcher(cfg, fed, LM_B, LM_H,
+                                                        seed=0),
+                                  MB_POP_ROUNDS, chunk=MB_POP_ROUNDS,
+                                  log_every=1, meter=meters[0],
+                                  cost_model=cm)
+    sync(dev)
+    c_s = time.perf_counter() - t
+    want = state_leaves(state)      # kept on the card (11 GB), no copy
+    del tr, state
+    release(dev)
+    pop = Population(bundle, fsl, population=LM_N, transport=tp,
+                     data=LMPool(cfg, FederatedPool(fed, LM_B, LM_H,
+                                                    seed=0))).init(0)
+    default0 = [x.cpu() for x in tree_leaves(pop._default)]
+    reset_counts()
+    t = time.perf_counter()
+    state, phist = pop.run(MB_POP_ROUNDS, chunk=MB_POP_ROUNDS, log_every=1,
+                           meter=meters[1], cost_model=cm)
+    sync(dev)
+    p_s = time.perf_counter() - t
+    at_cap = {k: v for k, v in counts().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = state_leaves(state)
+    check(len(got) == len(want) and all(same(a, b)
+                                        for a, b in zip(got, want))
+          and phist == hist and meters[1].counts == meters[0].counts,
+          f"{lab} Population.run (C == N = {LM_N}, remat) == "
+          f"Trainer.run_compiled, bitwise (state, {len(hist)} rows, meter "
+          f"{meters[1].total:,} B)")
+    check(all(same(a, b) for a, b in zip(
+        [x.cpu() for x in tree_leaves(pop._default)], default0)),
+        f"{lab} the default row is untouched by the replays (a copy, not a "
+        "view of the replayed state)")
+    at_capture_ok(lab, at_cap, expect)
+    out["mamba-population"] = {"run_compiled_s": c_s, "population_s": p_s,
+                               "peak_bytes": peak}
+    print(f"  {lab} run_compiled {c_s:.3f} s, Population {p_s:.3f} s for "
+          f"{MB_POP_ROUNDS} rounds each (warm-up, captures, replays); peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    del pop, state, got, want
+    release(dev)
+
+
+def check_mamba_engine(dev, out):
+    """Phase 26 (h): falcon-mamba (phase 12's cut, remat) through the event
+    engine at zero latency for one round against ``Trainer.run`` from the
+    same state: the schedule and meter equal, losses at rtol 1e-3, each
+    state key's update within UNIT_RTOL (the initial state kept on the
+    host, the two runs' on the card, compared 2^26 elements at a time:
+    a whole leaf in fp64 ran the card out of memory), launches as
+    engine_lm_launches states them."""
+    lab = "[mamba-engine]"
+    cfg = path_cfg("mamba", remat=True)
+    tr, make_batcher, cm, _ = compiled_trainer("mamba", "cse_fsl", dev,
+                                               remat=True)
+    eng = AsyncTrainer(tr.bundle, tr.fsl, transport=tr.transport,
+                       latency=ConstantLatency(0.0, 0.0, 0.0))
+    nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
+    want = engine_lm_launches(cfg, LM_N + 2 * nm)
+    state0 = tr.init(0)
+    before = tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, state0)
+    runs = []
+    for t in (tr, eng):
+        st = state0 if t is eng else tree_map(
+            lambda x: x.clone() if torch.is_tensor(x) else x, state0)
+        meter, after = CommMeter(), []
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        st, hist = t.run(st, make_batcher(), MB_ENGINE_ROUNDS, log_every=1,
+                         meter=meter, cost_model=cm,
+                         callback=lambda *_: after.append(counts()))
+        sync(dev)
+        secs = time.perf_counter() - t0
+        runs.append((st, hist, meter, after[-1], secs))
+        del st
+        release(dev)
+    del state0
+    (s_sync, h_sync, m_sync, _, sync_s), (s_eng, h_eng, m_eng, c_eng,
+                                          eng_s) = runs
+    check(c_eng == want, f"{lab} the engine's round launches "
+          f"{ {k: v for k, v in c_eng.items() if v} } == expected")
+    check([x["aggregated"] for x in h_eng] == [x["aggregated"]
+                                              for x in h_sync]
+          and m_eng.counts == m_sync.counts,
+          f"{lab} aggregation schedule and meter {m_eng.counts} == "
+          "Trainer.run's")
+    for re, rs in zip(h_eng, h_sync):
+        for k in metric_keys(rs):
+            check(math.isclose(re[k], rs[k], rel_tol=1e-3),
+                  f"{lab} round {rs['round']} {k} {re[k]:.6f} == "
+                  f"Trainer.run's {rs[k]:.6f} at rtol 1e-3")
+    del eng, tr
+    release(dev)
+    errs = {}
+    for k in s_sync:                # 2^26 elements at a time on the card
+        if k != "round":
+            num = den = 0.0
+            for g, w, b in zip(*(tree_leaves(s[k]["params"])
+                                 for s in (s_eng, s_sync, before))):
+                g, w, b = (x.reshape(-1) for x in (g, w, b))
+                for i in range(0, w.numel(), 1 << 26):
+                    n_, d_ = rel_sums([g[i:i + (1 << 26)]],
+                                      [w[i:i + (1 << 26)]],
+                                      [b[i:i + (1 << 26)].to(dev)])
+                    num, den = num + n_, den + d_
+            check(den > 0, f"{lab} Trainer.run moved {k}")
+            errs[k] = (num / den) ** 0.5
+    release(dev)
+    check(max(errs.values()) <= UNIT_RTOL,
+          f"{lab} each key's update within {UNIT_RTOL} of Trainer.run's "
+          f"(relative 2-norm: { {k: round(v, 5) for k, v in errs.items()} })")
+    out["mamba-engine"] = {"engine_s": eng_s, "loop_s": sync_s,
+                           "update_rel_err": errs}
+    print(f"  {lab} engine {eng_s:.3f} s a round | Trainer.run {sync_s:.3f} "
+          "s (host clock, the first round of each)", flush=True)
+    del runs, s_sync, s_eng, before
+    release(dev)
+
+
+def phase_cli(dev, remat_runs=None, parts=("qwen3", "dense", "bench",
+                                           "resume", "mamba")):
+    """Phase 26: the entry points on the card, the ``parts`` of it (the
+    CLI's Qwen3 and population runs; qwen2-1.5b and the reduced dense
+    configs; perf_bench; Trainer resume; falcon-mamba through both
+    engines).  ``remat_runs``: phase 22's numbers, whose Qwen3 replayed
+    round the CLI's must launch.  Returns the phase's numbers."""
+    t0 = phase("26 entry points: the training CLI (Qwen3, population mode, "
+               "qwen2-1.5b, glm4-9b and qwen2-72b reduced), perf_bench, "
+               "Trainer resume, falcon-mamba through both engines")
+    release(dev)
+    out, secs = {}, {}
+    steps = (("qwen3", check_cli_qwen3, (dev, out, remat_runs)),
+             ("qwen3", check_cli_population, (dev, out)),
+             ("dense", check_cli_qwen2, (dev, out)),
+             ("dense", check_cli_reduced, (dev, out)),
+             ("resume", check_trainer_resume, (dev, out)),
+             ("mamba", check_mamba_population, (dev, out)),
+             ("mamba", check_mamba_engine, (dev, out)))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for part, fn, args in steps:
+            if part in parts:
+                t = time.perf_counter()
+                fn(*args)
+                secs[fn.__name__] = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if "bench" in parts:
+        t = time.perf_counter()
+        check_perf_bench(dev, out)
+        secs["perf_bench"] = time.perf_counter() - t
+    out["seconds"] = secs
+    print(f"  seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -4539,13 +5329,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_lm = ("mamba-cse_fsl", "qwen3-cse_fsl")
     compiled = phase_compiled(dev, keep=main_lm)
-    scheduled = phase_sched(dev)
+    scheduled = phase_sched(dev, plain=compiled)
     remat = phase_remat(dev, plain={t: compiled[t] for t in main_lm})
     for t in main_lm:
         del compiled[t]["loop_run"]
     figures, known = phase_figures(dev)
     engine = phase_engine(dev, fed)
     population, telemetry = phase_population(dev, fed, compiled=compiled)
+    cli_out = phase_cli(dev, remat)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -4555,6 +5346,9 @@ def main() -> int:
             r_["sched_launches_per_round"] = {
                 tag: c["k2_per_round"] for tag, c in scheduled.items()}
             r_["population_launches_per_round"] = population["k2_per_round"]
+            r_["model_sync_leaf"] = {k: cli_out["k2_leaf"][k] for k in (
+                "shape", "launches", "launches_path", "max_abs_err", "ms",
+                "eager_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
@@ -4563,6 +5357,8 @@ def main() -> int:
                       "sched": scheduled, "remat": remat,
                       "figures": figures, "engine": engine,
                       "population": population, "telemetry": telemetry,
+                      "cli": {k: v for k, v in cli_out.items()
+                              if k != "k2_leaf"},
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,29 @@
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_config(name).reduced()`` is the CPU smoke variant.  The other
-families join as their slices are ported.
+families (MoE, hybrid, VLM, audio) join as their slices are ported
+(ROADMAP Queue 1 item 4); asking for any other name raises a ``KeyError``
+that says so.
 """
 from __future__ import annotations
 
-from repro_torch.configs import falcon_mamba_7b, qwen3_0_6b
+from repro_torch.configs import falcon_mamba_7b, glm4_9b, qwen2_1_5b, \
+    qwen2_72b, qwen3_0_6b
 
 ARCHS = {
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
+    "qwen2-72b": qwen2_72b.CONFIG,
     "falcon-mamba-7b": falcon_mamba_7b.CONFIG,
+    "qwen2-1.5b": qwen2_1_5b.CONFIG,
+    "glm4-9b": glm4_9b.CONFIG,
 }
 
 
 def get_config(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"{name!r} is not in the port, which has "
+                       f"{arch_names()}; the other families join as their "
+                       "slices are ported (ROADMAP Queue 1 item 4)")
     return ARCHS[name]
 
 

@@ -32,6 +32,15 @@ last one; the average is renormalized over those clients, an empty
 cohort is a warned no-op, and retransmissions are billed to the byte.
 With ``wait_all`` and no faults (the defaults) none of this is built.
 
+A window that a call ends inside is kept under faults: the next call that
+continues the state (its round counter where the last call stopped), or
+the state :meth:`Trainer.restore` brings back from a checkpoint
+:meth:`Trainer.save` wrote, starts from that window's AND, so a run split
+or restored mid-window admits to the window's FedAvg only the clients
+that survived every round of it, as the uninterrupted run does.  (The JAX
+package starts each call's window afresh; with a scheduler and no faults
+the port does too, and a split run keeps the reference's results.)
+
 Observability: a ``telemetry`` recorder (``repro_torch.telemetry``) folds
 every round into its record stream (engine ``"loop"`` or ``"compiled"``),
 times each chunk's host staging and execution as host spans, and ends a
@@ -57,6 +66,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.common import tree_leaves, tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core import graphs
@@ -112,8 +122,9 @@ def _host_metrics(rounds: list) -> list:
 class _Participation:
     """The masked engines' host bookkeeping for one call of ``run`` or
     ``run_compiled``, a round at a time: the window's AND of the plan
-    since the last aggregation (``part``, all True at the call's start,
-    mid-window too, as in the JAX package), its scheduler-only mirror
+    since the last aggregation (``part``: all True at the call's start, or
+    under faults the window the Trainer kept from the call before, see
+    :meth:`Trainer._enter_window`), its scheduler-only mirror
     (which attributes drops to the policy in ``FaultStats``), the dropped
     updates, the fault billing and the rows' participation fields.  Both
     engines drive this one object, so their rows, meters and stats
@@ -255,6 +266,9 @@ class Trainer:
         self._wire_leaves = self._model_leaves = None   # see _seed_leaves
         self._captured = None       # graphs.CapturedChunk on the card
         self._stream = None         # the captures' side stream
+        # under faults: (round, part, part_s) of the window the last call
+        # ended in, for the call that continues it (_enter_window)
+        self._window = None
 
     # -- public per-round API -------------------------------------------------
     def init(self, seed: int = 0):
@@ -409,6 +423,84 @@ class Trainer:
             down_bytes=down_bytes, blocking=m.downloads_gradients,
             compute=compute, server_time=server_time, agg_events=aggs,
             model_up_bytes=ms_up, model_down_bytes=ms_down)
+
+    # -- the window across calls, and the checkpoint --------------------------
+    def _enter_window(self, book: Optional[_Participation], rnd0: int):
+        """Under faults, start ``book`` from the window the last call ended
+        in when this call continues it (starts at its round)."""
+        w = self._window
+        if book is None or not book.fault_active or w is None \
+                or w[0] != rnd0:
+            return
+        book.part = w[1].copy()
+        if book.part_s is not None and w[2] is not None:
+            book.part_s = w[2].copy()
+
+    def _leave_window(self, book: Optional[_Participation], rnd: int):
+        """Keep the window a call ended in (faults only), at round ``rnd``."""
+        if book is not None and book.fault_active:
+            self._window = (rnd, book.part.copy(), None
+                            if book.part_s is None else book.part_s.copy())
+
+    def save(self, path: str, state):
+        """Write ``state`` (and, under faults, the window it stands in) as
+        a ``repro_torch.checkpoint``: an ``.npz`` and its JSON manifest.
+
+        Under a scheduler with no faults the window is not kept: the
+        reference restarts it at every call, and so does this Trainer
+        (``tests/test_torch_sched.py`` holds split calls to the
+        reference).  Saving such a run mid-window warns: a run restored
+        from the file restarts the window, so its next aggregation may
+        admit clients the scheduler dropped before the save, where the
+        uninterrupted run would not (ROADMAP Queue 3)."""
+        rnd = self.method.batches_trained(self.fsl, state) // self.fsl.h
+        fsl = self.fsl
+        C = fsl.resolved_agg_every
+        if not self.scheduler.is_wait_all and self.faults.is_null \
+                and rnd > 0 and (rnd * fsl.h) // C == ((rnd - 1) * fsl.h) // C:
+            warnings.warn(
+                f"checkpoint at round {rnd} is mid-window under scheduler "
+                f"{self.scheduler.name!r} with no faults: the window is not "
+                "saved, so a run restored from it restarts the window and "
+                "may differ from the uninterrupted run")
+        tree, w = {"state": state}, self._window
+        if w is not None and w[0] == rnd:
+            tree["window"] = {"part": w[1]}
+            if w[2] is not None:
+                tree["window"]["part_s"] = w[2]
+        ckpt.save(path, tree, step=rnd,
+                  extra={"method": self.method.name,
+                         "num_clients": self.fsl.num_clients,
+                         "window": sorted(tree.get("window", {}))})
+        return path
+
+    def restore(self, path: str, like=None):
+        """The state :meth:`save` wrote, on this trainer's device; a window
+        saved with it (under faults) is the one the next call continues,
+        and without one the next call starts a fresh window (see
+        :meth:`save` for the scheduler-only case).  ``like`` is the
+        template (default: the method's state on ``meta`` tensors, so no
+        parameters are drawn)."""
+        extra = ckpt.manifest(path)["extra"]
+        if extra["method"] != self.method.name \
+                or extra["num_clients"] != self.fsl.num_clients:
+            raise ValueError(
+                f"checkpoint is for {extra['method']} with "
+                f"{extra['num_clients']} clients; the trainer runs "
+                f"{self.method.name} with {self.fsl.num_clients}")
+        if like is None:
+            like = self.method.meta_state(self.bundle, self.fsl)
+        tmpl = {"state": like}
+        n = self.fsl.num_clients
+        if extra["window"]:
+            tmpl["window"] = {k: np.ones(n, bool) for k in extra["window"]}
+        tree = ckpt.restore(path, tmpl, device=self.device)
+        state = tree["state"]
+        rnd = self.method.batches_trained(self.fsl, state) // self.fsl.h
+        w = tree.get("window")
+        self._window = None if w is None else (rnd, w["part"],
+                                               w.get("part_s"))
+        return state
 
     # -- participation: the scheduler's plan and the fault trace --------------
     def _plan_schedule(self, batch, horizon: int) -> np.ndarray:
@@ -583,6 +675,7 @@ class Trainer:
         profile = None
         book = _Participation(self, rnd0 + num_rounds) if self.masked \
             else None
+        self._enter_window(book, rnd0)
         pending = []                # records waiting for a fetch
         for rnd in range(rnd0, rnd0 + num_rounds):
             batch = self.to_device(batcher.next_round())
@@ -612,6 +705,7 @@ class Trainer:
                             wire_bytes=wire, pending=pending,
                             device_metrics=metrics)
         self._fold_pending(pending)
+        self._leave_window(book, rnd0 + num_rounds)
         if self.telemetry.enabled:
             self.telemetry.run_summary(
                 "loop", comm=meter, participation=self.participation_summary())
@@ -685,8 +779,11 @@ class Trainer:
         history, profile, done = [], None, 0
         book = _Participation(self, rnd0 + num_rounds) if self.masked \
             else None
-        # the chunks' participation carry (the JAX chunk's ``part``)
-        carry = np.ones(self.fsl.num_clients, np.float32)
+        self._enter_window(book, rnd0)
+        # the chunks' participation carry (the JAX chunk's ``part``): the
+        # window's AND so far, as the host's ``book.part``
+        carry = np.ones(self.fsl.num_clients, np.float32) if book is None \
+            else book.part.astype(np.float32)
         pooled = (device_data and hasattr(batcher, "device_pool")
                   and hasattr(batcher, "next_round_indices"))
         pool = batcher.device_pool(self.device) if pooled else None
@@ -735,6 +832,7 @@ class Trainer:
                     extra=extra, model_sync_bytes=ms_bytes, wire_bytes=wire,
                     engine="compiled")
             done += r
+        self._leave_window(book, rnd0 + num_rounds)
         if tele.enabled:
             tele.run_summary("compiled", comm=meter,
                              participation=self.participation_summary())

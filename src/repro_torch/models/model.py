@@ -93,6 +93,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         return init_params(cfg, None, device="meta")
 
 
+# the JAX package's name for the params' shapes, nothing allocated
+abstract_params = param_specs
+
+
 def aux_logits_fn(cfg: ModelConfig, ap) -> Callable:
     def f(x):
         xn = L.rmsnorm(x, ap["ln"])
