@@ -3,8 +3,10 @@
 topk tie check (phase 15), the compiled runner's (phase 19), the masked
 runner's (phase 21), the layer recompute's (phase 22), the event
 engine's (phase 24), the population engine's and telemetry's (phase
-25) and the entry points' (phase 26: the CLI's Qwen3 run, Trainer
-resume, falcon-mamba through the population engine) can fail.  Run from the repo root on a machine with
+25), the entry points' (phase 26: the CLI's Qwen3 run, Trainer
+resume, falcon-mamba through the population engine) and the serving
+path's (phase 27: the windowed Qwen3 prefill and decode, falcon-mamba's
+decode) can fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py [--only PHASE ...]
@@ -15,17 +17,19 @@ them.)
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
 (its qwen3-cse_fsl path), 24 and 25 (their CNN paths) and 26 (its
-qwen3, resume and mamba parts) of ``chip_smoke.py`` in a fresh process, with every check reported instead
+qwen3, resume and mamba parts) and 27 (its qwen3 and mamba parts) of
+``chip_smoke.py`` in a fresh process, with every check reported instead
 of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
 K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
-(the masked round), 22 (the recomputed layer), 24 (the event engine) and
-25 (the population engine, telemetry) or 26 (the CLI, the Trainer's
-checkpoint, the Mamba population run) that holds its fault.  A mutant is
+(the masked round), 22 (the recomputed layer), 24 (the event engine),
+25 (the population engine, telemetry), 26 (the CLI, the Trainer's
+checkpoint, the Mamba population run) or 27 (the ring, the conv window,
+the captured decode) that holds its fault.  A mutant is
 one deliberate fault in a kernel source, in the compiled runner, in the
 masked aggregate, in the topk codec, in the layer recompute, in the
 per-client coding, in the checksum frame, in the arrival heap, in the
 population engine's rows, in the cohort or shard draws, in telemetry,
-in the CLI or in the Trainer's checkpoint,
+in the CLI, in the Trainer's checkpoint or in the serving path,
 made in a copy of the checkout
 under a temporary directory; the checkout itself is never changed.  The script exits non-zero unless the tree passes
 every check and each mutant fails a bound of its phase at a main-path
@@ -56,6 +60,9 @@ POOL = "src/repro_torch/population/data.py"
 COHORT = "src/repro_torch/sched/cohort.py"
 TRAINER = "src/repro_torch/core/trainer.py"
 CLI = "src/repro_torch/launch/train.py"
+BLOCKS = "src/repro_torch/models/blocks.py"
+LAYERS = "src/repro_torch/models/layers.py"
+SERVE = "src/repro_torch/launch/serve.py"
 COMPILED = "[cnn-cse_fsl] run_compiled's state == run's, bitwise"
 REMAT = "[qwen3-cse_fsl] run with remat == run without, bitwise"
 # name -> (edits (file, old, new), a check that must fail[, the phase to
@@ -223,6 +230,18 @@ MUTANTS = {
         [(POPULATION, "    return tree_map(lambda x: x[0].clone(), tree)",
           "    return tree_map(lambda x: x[0], tree)")],
         "[mamba-population] the default row is untouched", "26m"),
+    "decode writes the ring slot one late": (
+        [(BLOCKS, "slot = (pos % clen).reshape(1)",
+          "slot = ((pos + 1) % clen).reshape(1)")],
+        "[qwen3-serve-window] layer 0's ring", "27q"),
+    "the Mamba decode does not shift the conv window": (
+        [(LAYERS, "    state.copy_(full[:, 1:])",
+          "    state.copy_(full[:, :-1])")],
+        "[mamba-serve] layer 0's conv window", "27m"),
+    "the captured decode replays with a stale pos": (
+        [(SERVE, "        self._set_pos(pos)\n        self.graph.replay()",
+          "        self.graph.replay()")],
+        "[qwen3-serve-window] the captured decode == eager", "27q"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -249,7 +268,9 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
                 'parts=("cnn",))\n',
           "26q": 'cs.phase_cli(torch.device("cuda"), parts=("qwen3",))\n',
           "26r": 'cs.phase_cli(torch.device("cuda"), parts=("resume",))\n',
-          "26m": 'cs.phase_cli(torch.device("cuda"), parts=("mamba",))\n'}
+          "26m": 'cs.phase_cli(torch.device("cuda"), parts=("mamba",))\n',
+          "27q": 'cs.phase_serve(torch.device("cuda"), parts=("qwen3",))\n',
+          "27m": 'cs.phase_serve(torch.device("cuda"), parts=("mamba",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -260,7 +281,7 @@ def phase_of(path: str) -> str:
 
 
 ALL_PHASES = ("7", "11", "15", "19", "21", "22", "24", "25", "26q", "26r",
-              "26m")
+              "26m", "27q", "27m")
 
 
 def run(where: str, phases=ALL_PHASES) -> list:

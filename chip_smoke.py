@@ -171,15 +171,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    default row untouched by the replays, a checkpoint saved mid-window
    and restored into a fresh engine resuming bitwise, ``engine_total`` the
    same at N = 10^4; the lossy and crashy presets against the same engine
-   on the CPU (participants, drops, retries, wire bytes); full-width
-   Qwen3-0.6B through ``LMPool(VirtualPool)`` at N = 10^6 for 3 rounds
-   (launches, ms a round, peak memory, the memory report and the
-   population summary); telemetry on and off in ``run``,
+   on the CPU (participants, drops, retries, wire bytes); telemetry on
+   and off in ``run``,
    ``run_compiled``, ``AsyncTrainer.run`` and ``Population.run``: bitwise,
    the same number of synchronizing calls, every exported record valid,
    and ``run`` at ``log_every=0``: its records those of a run logging
    every round, one synchronizing call added (the one fetch at its end);
-   then ``fig_population`` at its own settings, its three claims asserted;
+   then ``fig_population`` at its own settings, its three claims
+   asserted.  Its Qwen3 fleet (full-width Qwen3-0.6B through
+   ``LMPool(VirtualPool)`` at N = 10^6 for 3 rounds: launches, ms a round,
+   peak, the memory report and the population summary) runs when asked
+   for (``parts=("lm",)``): phase 26's CLI population run drives the same
+   engine on Qwen3 at N = 10^6;
 26. the entry points, called in this process: the training CLI
    (``repro_torch.launch.train.main``) on full-width Qwen3-0.6B at phase
    20's flags (int8 uplink and model sync, chunk 3; the config's remat
@@ -201,32 +204,52 @@ Phases, in order; any failure raises and the script exits non-zero:
    cut, remat) through ``Population`` at C == N, bitwise
    ``run_compiled``, the default row untouched, and through the event
    engine for a round against ``Trainer.run`` within UNIT_RTOL; then
-   ``perf_bench --smoke`` with its two bars.
+   ``perf_bench --smoke`` with its two bars;
+27. serving the merged model at full depth (``models.model.prefill``,
+   ``decode_step``, ``launch.serve``): full-width Qwen3-0.6B's prefill of
+   4 x 4,096 tokens at window 4,096, K6 launched once a layer and its
+   plain version never, against the plain attention's prefill (logits and
+   caches within SERVE_BOUND); 64 decode steps past the ring's wrap, the
+   captured decode (``make_serving_fns``) bitwise the eager one, in place,
+   no kernel launched, the last logits against ``full_forward`` on the
+   4,160 tokens and layer 0's ring against that layer's k and v of the
+   decoded tokens; the ``long_500k`` decode (B = 1, pos 524,287); the
+   serving CLI at its defaults; falcon-mamba-7b at 64 layers (drawn on
+   the card): its prefill of 4 x 2,048 with no K5 launch, 32 captured
+   steps bitwise eager, the last logits against ``full_forward`` (K5),
+   layer 0's conv window against its last inputs, the CLI; the reduced
+   configs' card against the CPU; the serving example; prefill ms, decode
+   ms a token, tokens/s and peaks.
 
 Phases 18 (5 timed CNN rounds, 2 LM), 19 and 21 (one timed LM round or
 chunk) and 24 (``fig_sched`` and ``fig_wallclock`` at their own
-``--smoke`` settings) cut repetition to make room for phase 26; so do
+``--smoke`` settings) cut repetition to make room for phase 26; for
+phase 27, phase 24 runs ``fig6_async_order`` at its ``--smoke`` 30 rounds
+and phase 25 leaves out its Qwen3 fleet (the CLI's population run in
+phase 26 drives that engine on Qwen3); so do
 phases 19 and 22 (a path's kernels a replayed round read from its
 ``run_compiled``'s own replays, not from one more profiled chunk), 21
 (its timed paths' unmasked twins are phase 19's runs) and 26 (qwen2-1.5b
 drawn on the card; the CLI's own replays profiled, not a second run).
-No check, kernel comparison or path went.
+No check or kernel comparison went, and every path is still driven.
 
 Phases 7-21 pin ``remat=False``, which the Qwen3 and falcon-mamba configs
 now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
 ``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
-``"telemetry"``, ``"cli"`` and ``"known_reference_failures"``: phases
-21-26's numbers), the
+``"telemetry"``, ``"cli"``, ``"serve"`` and ``"known_reference_failures"``:
+phases 21-27's numbers; K6's record adds ``serve_prefill_launches``), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -254,7 +277,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.common import bytes_of, tree_leaves, tree_map  # noqa: E402
-from repro_torch.configs.base import FSLConfig  # noqa: E402
+from repro_torch.configs.base import SHAPES, FSLConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import async_trainer  # noqa: E402
 from repro_torch.core.accounting import CommMeter, CostModel  # noqa: E402
@@ -277,9 +300,14 @@ from repro_torch.kernels import fused_ce as ce  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm  # noqa: E402
 from repro_torch.kernels import swa_attention as swa  # noqa: E402
+from repro_torch.examples import serve_split_model  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import LMBatcher, LMPool, build_data  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import model as tf_mod  # noqa: E402
+from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
 from repro_torch.network import TieredNetwork  # noqa: E402
 from repro_torch.population import (FederatedPool, Population,  # noqa: E402
@@ -3370,7 +3398,7 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
         with cuda_profile() as prof:
             cap.step.zero_()
             cap.graphs[aggregated].replay()
-            sync(dev)
+            close_profile(dev)      # the profiler can lose a tail kernel
         k2[aggregated] = kernel_counts(cuda_events(prof))[
             "quantize_philox_kernel"]
         check(sum(counts().values()) == 0, f"[{tag}] the replay called no "
@@ -3446,7 +3474,7 @@ def check_empty_window(tag, tr, make_batcher, dev, k2_plain):
         warnings.simplefilter("always")
         state, hist = tr.run_compiled(state, batcher, 1, chunk=2,
                                       log_every=1)
-        sync(dev)
+        close_profile(dev)
     n_k2 = kernel_counts(cuda_events(prof))["quantize_philox_kernel"]
     lb = make_batcher()
     ref_state, _ = tr.run(tr.init(0), lb, 2)
@@ -3717,8 +3745,10 @@ ENGINE_FAULTS = dict(loss_rate=0.5, seed=0)
 ENGINE_DRIVERS = ("fig6_async_order", "fig_sched", "fig_wallclock")
 # fig_sched and fig_wallclock at their own ``--smoke`` settings (4 rounds;
 # the tiered network with wait_all and deadline, and 4g with none and
-# int8), which assert the same claims: room for phase 26
-DRIVER_KW = {"fig_sched": dict(rounds=4, nets=("tiered",),
+# int8), which assert the same claims: room for phase 26; fig6_async_order
+# at its ``--smoke`` 30 rounds, converged as at 50: room for phase 27
+DRIVER_KW = {"fig6_async_order": dict(rounds=30),
+             "fig_sched": dict(rounds=4, nets=("tiered",),
                                policies=("wait_all", "deadline")),
              "fig_wallclock": dict(rounds=4, tiers=("4g",),
                                    codecs=("none", "int8"))}
@@ -4153,9 +4183,10 @@ def phase_engine(dev, fed, parts=("cnn", "lm", "drivers")):
 #   engine; the same fleet at N = 10^4 for the memory report;
 # - cnn-lossy, cnn-crashy: the presets on that fleet with refresh=True, 4
 #   rounds, against the same engine on the CPU;
-# - qwen3-fleet: full-width Qwen3-0.6B through LMPool(VirtualPool), N =
-#   10^6, C = 4, h = 2, B = 1, S = 4096, CSE-FSL, stratified on the tiered
-#   network, 3 rounds;
+# - qwen3-fleet (part "lm", which main() leaves out: phase 26's CLI
+#   population run drives the engine on Qwen3): full-width Qwen3-0.6B
+#   through LMPool(VirtualPool), N = 10^6, C = 4, h = 2, B = 1, S = 4096,
+#   CSE-FSL, stratified on the tiered network, 3 rounds;
 # - telemetry: CSE-FSL on the CNN through run, run_compiled, AsyncTrainer
 #   and Population with a recorder and without, 3 rounds each.
 POP_N, POP_SMALL_N = 10**6, 10**4
@@ -4699,13 +4730,8 @@ def card_bundle(cfg, device):
     draw took about 20 of qwen2-1.5b's 33 s in phase 26 (H100 80GB HBM3,
     700.00 W)."""
     bundle = transformer_bundle(cfg, device=device)
-    dev = bundle.device
-
-    def init(gen):
-        g = torch.Generator(device=dev).manual_seed(gen.initial_seed())
-        with torch.device(dev):
-            return tf_mod.init_params(cfg, g, device=dev)
-    return dataclasses.replace(bundle, init=init)
+    return dataclasses.replace(bundle, init=lambda gen: serve_mod.draw_params(
+        cfg, gen.initial_seed(), bundle.device))
 
 
 def cli(argv, draw_on_card: bool = False):
@@ -5281,6 +5307,435 @@ def phase_cli(dev, remat_runs=None, parts=("qwen3", "dense", "bench",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving: prefill, the captured decode, the serving CLI and the example
+# ---------------------------------------------------------------------------
+
+# Phase 27 serves the merged model (paper Step 4) at full depth: serving
+# keeps no gradient or optimizer state.
+# - qwen3-serve-window: Qwen3-0.6B (bf16, the kernels on), a prefill of 4
+#   prompts of 4,096 tokens at window 4,096 (K6 once a layer) against the
+#   same prefill on the plain attention; 64 decode steps at positions
+#   4,096-4,159 (the ring wraps at the first), eager and captured, against
+#   the merged model on the 4,160 tokens (teacher-forced); layer 0's ring
+#   against that layer's k and v of the decoded tokens;
+# - qwen3-long: decode_specs(long_500k): B = 1, a ring of 4,096 slots,
+#   pos 524,287, 16 steps eager and captured;
+# - qwen3-cli: python -m repro_torch.launch.serve at its defaults (B 4,
+#   prompt 64, gen 32, 3 batches, window 0, caches padded);
+# - mamba-serve: falcon-mamba-7b at 64 layers drawn on the card, a prefill
+#   of 4 x 2,048 (the plain scan: K5 no launch), 32 steps eager and
+#   captured, against the merged model on the 2,080 tokens (through K5);
+#   layer 0's conv window against its last 3 inputs; then the CLI;
+# - reduced: both archs reduced, the card's prefill and captured decode
+#   against the CPU's prefill and eager decode (8 steps); the example.
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LONG_STEPS = 4, 4096, 64, 16
+MB_SERVE_S, MB_SERVE_STEPS, SERVE_REDUCED_STEPS = 2048, 32, 8
+SERVE_SEED = 0
+# Two paths that compute the same function with other kernels and shapes
+# (K6 against the plain attention; a one-token decode against the whole
+# sequence) differ by bf16 rounding.  Each rounds the residual stream's
+# inputs about 16 times a layer (projections, norms, RoPE, the attention or
+# the scan, the MLP, the adds); independent roundings of unit roundoff
+# u = 2^-9 add up as a random walk, so the relative 2-norm error after L
+# layers is about u sqrt(16 L): 0.041 at Qwen3's 28 layers, 0.0625 at
+# falcon-mamba's 64.  The logits and the cache leaves are held at twice
+# that (SERVE_BOUND).  Where both paths take the same inputs through the
+# same few ops (layer 0's k, v and conv inputs, the card against the CPU on
+# the reduced configs), each element within SERVE_ELEM: a few bf16 ulps
+# (rtol 2e-2 and atol 2^-4, as tests/test_torch_serve.py holds the port
+# against the reference).
+SERVE_ELEM = dict(rtol=2e-2, atol=2.0 ** -4)
+
+
+def serve_bound(layers: int) -> float:
+    return 2 * 2.0 ** -9 * math.sqrt(16 * layers)
+
+
+def within(got, want, rtol, atol) -> bool:
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def serve_counted(plain_calls: list):
+    """``ref.swa_attention_fwd`` (K6's plain version, which the wrapper
+    takes on the CPU) counting its calls into ``plain_calls``; returns the
+    original."""
+    plain = ref.swa_attention_fwd
+
+    def counted(*a, **kw):
+        plain_calls.append(1)
+        return plain(*a, **kw)
+    ref.swa_attention_fwd = counted
+    return plain
+
+
+def decode_pair(lab, cfg, params, caches, tokens, pos0, window, dev):
+    """``tokens.shape[1]`` decode steps from ``caches``: eager
+    (``decode_step`` on a copy) and captured (``make_serving_fns``' decode
+    on ``caches`` themselves).  Checks each step's logits bitwise, the
+    caches bitwise at the end, every step in place and no kernel launched.
+    Returns ``(last logits, caches, eager ms a token, captured ms a
+    token)``."""
+    steps = tokens.shape[1]
+    eager = tree_map(torch.clone, caches)
+    ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+    eptrs = [t.data_ptr() for t in tree_leaves(eager)]
+    _, decode = serve_mod.make_serving_fns(cfg, window=window, device=dev)
+    reset_counts()
+    sync(dev)
+    t = time.perf_counter()
+    want = []
+    for i in range(steps):
+        lg, eager = tf_mod.decode_step(cfg, params, tokens[:, i], pos0 + i,
+                                       eager, window=window)
+        want.append(lg)
+    sync(dev)
+    eager_ms = (time.perf_counter() - t) * 1e3 / steps
+    got = []
+    lg, caches = decode(params, tokens[:, 0], pos0, caches)    # captures
+    got.append(lg)
+    sync(dev)
+    t = time.perf_counter()
+    for i in range(1, steps):
+        lg, caches = decode(params, tokens[:, i], pos0 + i, caches)
+        got.append(lg)
+    sync(dev)
+    graph_ms = (time.perf_counter() - t) * 1e3 / (steps - 1)
+    check(counts() == only(), f"{lab} decode launched no kernel (eager and "
+          "captured): the plain attention and scan steps")
+    check(len(decode.graphs) == 1 and [t.data_ptr() for t in tree_leaves(
+        caches)] == ptrs and [t.data_ptr() for t in tree_leaves(eager)]
+          == eptrs, f"{lab} one capture; every step updated the caches in "
+          "place (no step copied a cache)")
+    check(all(torch.equal(a, b) for a, b in zip(want, got))
+          and all(torch.equal(a, b) for a, b in zip(tree_leaves(eager),
+                                                    tree_leaves(caches))),
+          f"{lab} the captured decode == eager decode, bitwise ({steps} "
+          "steps' logits and the caches)")
+    check(all(torch.isfinite(g.float()).all() for g in got),
+          f"{lab} logits finite at every step")
+    del eager
+    return got[-1], caches, eager_ms, graph_ms
+
+
+def serve_times(lab, out, prefill_ms, eager_ms, graph_ms, batch, peak,
+                card):
+    out.update(prefill_ms=prefill_ms, decode_eager_ms=eager_ms,
+               decode_ms=graph_ms, tokens_per_s=batch * 1e3 / graph_ms,
+               peak_bytes=peak, card=card)
+    pre = "no prefill" if prefill_ms is None \
+        else f"prefill {prefill_ms:.3f} ms"
+    print(f"  {lab} {pre}; decode {graph_ms:.3f} ms a "
+          f"token captured ({eager_ms:.3f} eager), "
+          f"{batch * 1e3 / graph_ms:.1f} tokens/s; peak "
+          f"{peak / 2**30:.3f} GiB ({card})", flush=True)
+
+
+def serve_tokens(vocab: int, b: int, s: int, dev, seed=SERVE_SEED):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (b, s),
+                                         dtype=np.int32)).to(dev)
+
+
+def layer0(params):
+    return tree_map(lambda t: t[0], params["client"]["blocks_stage"]
+                    ["blocks"])
+
+
+def check_serve_qwen3(dev, out, card):
+    """Phase 27 (a): full-width Qwen3-0.6B, the windowed prefill through
+    K6, the captured decode past the ring's wrap, the merged model."""
+    lab = "[qwen3-serve-window]"
+    cfg = lm_cfg()
+    params = lm_bundle(cfg, dev).init(torch.Generator().manual_seed(
+        SERVE_SEED))
+    win, L = cfg.swa_window, cfg.num_layers
+    toks = serve_tokens(cfg.vocab_size, SERVE_B, SERVE_S + SERVE_STEPS, dev)
+    prompt = {"tokens": toks[:, :SERVE_S]}
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_calls = []
+    plain = serve_counted(plain_calls)
+    try:
+        ms = []
+        for _ in range(2):              # the second call is timed
+            reset_counts()
+            sync(dev)
+            t = time.perf_counter()
+            logits, caches = tf_mod.prefill(cfg, params, prompt, window=win)
+            sync(dev)
+            ms.append((time.perf_counter() - t) * 1e3)
+            launched = counts()
+    finally:
+        ref.swa_attention_fwd = plain
+    check(launched == only(swa_attention_tc=L) and not plain_calls,
+          f"{lab} prefill [{SERVE_B}, {SERVE_S}] at window {win}: K6 "
+          f"launched {launched['swa_attention_tc']} == {L} times (once a "
+          f"layer), its plain version {len(plain_calls)} times, nothing else")
+    pcfg = cfg.with_(use_pallas=False)
+    plogits, pcaches = tf_mod.prefill(pcfg, params, prompt, window=win)
+    bound = serve_bound(L)
+    errs = {"logits": rel_error(logits, plogits)}
+    for st in ("client", "server"):
+        for k in ("k", "v"):
+            errs[f"{st}.{k}"] = rel_error(caches[st]["blocks"][k],
+                                     pcaches[st]["blocks"][k])
+    same0 = all(torch.equal(caches["client"]["blocks"][k][0],
+                            pcaches["client"]["blocks"][k][0])
+                for k in ("k", "v"))
+    check(all(e <= bound for e in errs.values()) and same0,
+          f"{lab} K6's prefill against the plain attention's: logits and "
+          f"each cache stack within relative 2-norm {bound:.4f} "
+          f"{ {k: round(v, 6) for k, v in errs.items()} }; layer 0's k and "
+          "v bitwise (computed before any attention)")
+    del plogits, pcaches
+    check(caches["server"]["blocks"]["k"].shape
+          == (L - cfg.resolved_cut, SERVE_B, win, cfg.num_kv_heads,
+              cfg.resolved_head_dim), f"{lab} the ring holds the window "
+          f"({win} slots a layer)")
+    last, caches, eager_ms, graph_ms = decode_pair(
+        lab, cfg, params, caches, toks[:, SERVE_S:], SERVE_S, win, dev)
+    with torch.no_grad():
+        x = tf_mod.full_forward(cfg, params, {"tokens": toks},
+                                Ctx(cfg, "train", window=win))
+        full = tf_mod.server_logits_fn(cfg, params["server"])(
+            x[:, -1:])[:, 0]
+        del x
+        p0 = layer0(params)["attn"]
+        xd = tf_mod.embed_inputs(cfg, params["client"],
+                                 {"tokens": toks[:, SERVE_S:]})
+        _, kv = blocks.attn_apply(cfg, p0, xd, Ctx(cfg, "prefill",
+                                                   pos=SERVE_S), None)
+    e = rel_error(last, full)
+    agree = float((last.argmax(-1) == full.argmax(-1)).float().mean())
+    ref_frac = float(((last.float() - full.float()).abs() <= 2e-2 + 2e-2
+                      * full.float().abs()).float().mean())
+    check(e <= bound, f"{lab} the last step's logits (position "
+          f"{SERVE_S + SERVE_STEPS - 1}) against full_forward on "
+          f"{SERVE_S + SERVE_STEPS} tokens at window {win}: relative 2-norm "
+          f"{e:.6f} <= {bound:.4f} (max |diff| {diff(last, full):.4f}, "
+          f"argmax agreement {agree}, {ref_frac:.6f} of the logits within "
+          "the reference test's rtol = atol = 2e-2)")
+    slots = [(SERVE_S + i) % win for i in range(SERVE_STEPS)]
+    ring = {k: caches["client"]["blocks"][k][0][:, slots] for k in kv}
+    check(all(within(ring[k], kv[k], **SERVE_ELEM) for k in kv),
+          f"{lab} layer 0's ring after {SERVE_STEPS} steps: slots "
+          f"{slots[0]}-{slots[-1]} hold the k and v of positions "
+          f"{SERVE_S}-{SERVE_S + SERVE_STEPS - 1} (that layer run on the "
+          f"decoded tokens), each element within {SERVE_ELEM}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["qwen3_window"] = {"k6_launches": launched["swa_attention_tc"],
+                           "k6_plain_calls": len(plain_calls),
+                           "prefill_cold_ms": ms[0], "errors": errs,
+                           "full_forward_rel2": e, "bound": bound,
+                           "argmax_agreement": agree,
+                           "within_2e-2": ref_frac}
+    serve_times(lab, out["qwen3_window"], ms[1], eager_ms, graph_ms,
+                SERVE_B, peak, card)
+    del params, caches
+    release(dev)
+
+
+def check_serve_long(dev, out, card):
+    """Phase 27 (b): the long_500k decode (B = 1, a ring of the window,
+    pos 524,287) on full-width Qwen3-0.6B."""
+    lab = "[qwen3-long]"
+    cfg = lm_cfg()
+    params = lm_bundle(cfg, dev).init(torch.Generator().manual_seed(
+        SERVE_SEED))
+    token, pos, caches, window = specs_mod.decode_specs(
+        cfg, SHAPES["long_500k"], as_spec=False, seed=SERVE_SEED,
+        device=dev)
+    check(window == cfg.swa_window and int(pos) == 524_287
+          and caches["client"]["blocks"]["k"].shape[2] == window
+          and token.shape == (1,), f"{lab} B = 1, a ring of {window} "
+          "slots, pos 524,287")
+    toks = torch.cat([token[:, None], serve_tokens(
+        cfg.vocab_size, 1, SERVE_LONG_STEPS - 1, dev)], 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, caches, eager_ms, graph_ms = decode_pair(lab, cfg, params, caches,
+                                                toks, pos, window, dev)
+    out["qwen3_long"] = {"steps": SERVE_LONG_STEPS, "pos0": int(pos)}
+    serve_times(lab, out["qwen3_long"], None, eager_ms, graph_ms, 1,
+                torch.cuda.max_memory_allocated(dev), card)
+    del params, caches
+    release(dev)
+
+
+def serve_cli(lab, argv, dev, out, card):
+    """``repro_torch.launch.serve.main(argv)`` in this process: its lines,
+    its tokens/s, its peak."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        toks = serve_mod.main(argv)
+    secs = time.perf_counter() - t
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"  {lab} | {line}")
+    lines = [ln for ln in text.splitlines() if ln]
+    m = re.fullmatch(r"total: (\d+) tokens, ([\d.]+) tok/s", lines[-1])
+    check(len(lines) == 4 and all(re.fullmatch(
+        rf"batch {i}: 128 tokens in [\d.]+s \([\d.]+ tok/s\)", lines[i])
+        for i in range(3)) and m and int(m.group(1)) == 384
+          and toks.shape == (4, 32) and toks.device.type == "cuda",
+          f"{lab} the reference's lines: 3 batches of 4 x 32 tokens, the "
+          "total")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out[lab.strip("[]")] = {"tokens_per_s": float(m.group(2)),
+                            "seconds": secs, "peak_bytes": peak,
+                            "card": card}
+    print(f"  {lab} {float(m.group(2)):.1f} tokens/s over the run; "
+          f"{secs:.3f} s; peak {peak / 2**30:.3f} GiB ({card})", flush=True)
+    del toks
+    release(dev)
+
+
+def check_serve_mamba(dev, out, card):
+    """Phase 27 (d): falcon-mamba-7b at 64 layers, drawn on the card."""
+    lab = "[mamba-serve]"
+    cfg = get_config("falcon-mamba-7b").with_(use_pallas=True, remat=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = serve_mod.draw_params(cfg, SERVE_SEED, dev)
+    sync(dev)
+    draw_s = time.perf_counter() - t
+    n = sum(x.numel() for x in tree_leaves(params))
+    toks = serve_tokens(cfg.vocab_size, SERVE_B, MB_SERVE_S + MB_SERVE_STEPS,
+                        dev)
+    reset_counts()
+    sync(dev)
+    t = time.perf_counter()
+    logits, caches = tf_mod.prefill(cfg, params,
+                                    {"tokens": toks[:, :MB_SERVE_S]})
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    check(counts() == only() and cfg.num_layers == 64,
+          f"{lab} {cfg.num_layers} layers, {n:,} parameters: prefill "
+          f"[{SERVE_B}, {MB_SERVE_S}] launched no kernel (K5 0 times: the "
+          "reference's prefill takes the plain scan with its state)")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{lab} the prefill's logits are finite")
+    last, caches, eager_ms, graph_ms = decode_pair(
+        lab, cfg, params, caches, toks[:, MB_SERVE_S:], MB_SERVE_S, 0, dev)
+    reset_counts()
+    with torch.no_grad():
+        x = tf_mod.full_forward(cfg, params, {"tokens": toks},
+                                Ctx(cfg, "train"))
+        full = tf_mod.server_logits_fn(cfg, params["server"])(
+            x[:, -1:])[:, 0]
+        del x
+        k5 = counts()["ssm_scan"]
+        kc = cfg.ssm_conv - 1
+        s1 = MB_SERVE_S + MB_SERVE_STEPS
+        xd = tf_mod.embed_inputs(cfg, params["client"],
+                                 {"tokens": toks[:, s1 - kc:]})
+        _, c0, _ = blocks.mamba1_apply(cfg, layer0(params), xd,
+                                       Ctx(cfg, "prefill"), None)
+    bound = serve_bound(cfg.num_layers)
+    e = rel_error(last, full)
+    agree = float((last.argmax(-1) == full.argmax(-1)).float().mean())
+    check(e <= bound and k5 == cfg.num_layers,
+          f"{lab} the last step's logits against full_forward on {s1} "
+          f"tokens (through K5, {k5} launches): relative 2-norm {e:.6f} <= "
+          f"{bound:.4f} (max |diff| {diff(last, full):.4f}, argmax "
+          f"agreement {agree})")
+    conv = caches["client"]["blocks"]["conv"][0]
+    check(within(conv, c0["conv"], **SERVE_ELEM),
+          f"{lab} layer 0's conv window after {MB_SERVE_STEPS} steps holds "
+          f"the inputs of positions {s1 - kc}-{s1 - 1} (that layer run on "
+          f"the last {kc} tokens), each element within {SERVE_ELEM}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["mamba"] = {"layers": cfg.num_layers, "parameters": n,
+                    "draw_s": draw_s, "full_forward_rel2": e,
+                    "bound": bound, "argmax_agreement": agree,
+                    "k5_prefill_launches": 0}
+    serve_times(lab, out["mamba"], prefill_ms, eager_ms, graph_ms, SERVE_B,
+                peak, card)
+    del params, caches, logits, last, full
+    release(dev)
+
+
+def check_serve_reduced(dev, out):
+    """Phase 27 (e): both archs reduced (bf16, 2 layers): the card's
+    prefill and captured decode against the CPU's prefill and eager decode;
+    then the example on the card."""
+    res = {}
+    for arch in ("qwen3-0.6b", "falcon-mamba-7b"):
+        lab = f"[{arch}-reduced]"
+        cfg = get_config(arch).reduced()
+        cpu = serve_mod.draw_params(cfg, SERVE_SEED, "cpu")
+        params = tree_map(lambda t: t.to(dev), cpu)
+        toks = serve_tokens(cfg.vocab_size, SERVE_B,
+                            32 + SERVE_REDUCED_STEPS, "cpu")
+        prefill, decode = serve_mod.make_serving_fns(cfg, device=dev,
+                                                     cache_len=40)
+        want, cw = tf_mod.prefill(cfg, cpu, {"tokens": toks[:, :32]},
+                                  cache_len=40)
+        got, cg = prefill(params, {"tokens": toks[:, :32].to(dev)})
+        ok = [within(got.cpu(), want, **SERVE_ELEM)]
+        worst = diff(got.cpu(), want)
+        for i in range(SERVE_REDUCED_STEPS):
+            want, cw = tf_mod.decode_step(cfg, cpu, toks[:, 32 + i], 32 + i,
+                                          cw)
+            got, cg = decode(params, toks[:, 32 + i].to(dev), 32 + i, cg)
+            ok.append(within(got.cpu(), want, **SERVE_ELEM))
+            worst = max(worst, diff(got.cpu(), want))
+        ok += [within(a.cpu(), b, **SERVE_ELEM)
+               for a, b in zip(tree_leaves(cg), tree_leaves(cw))]
+        check(all(ok) and len(decode.graphs) == 1,
+              f"{lab} prefill and {SERVE_REDUCED_STEPS} captured decode "
+              f"steps on the card against the CPU's: logits and caches "
+              f"within {SERVE_ELEM} (max |diff| {worst:.4f})")
+        res[arch] = worst
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        toks = serve_split_model.main(["--batch", "4", "--prompt-len", "32",
+                                       "--gen", "16"])
+    for line in buf.getvalue().splitlines():
+        print(f"  [example] | {line}")
+    check(set(toks) == {"qwen3-0.6b", "falcon-mamba-7b"} and all(
+        t.shape == (4, 16) and t.device.type == "cuda"
+        for t in toks.values()), "[example] serve_split_model on the card: "
+          "both archs, 4 x 16 tokens each")
+    out["reduced_max_abs_diff"] = res
+    release(dev)
+
+
+def phase_serve(dev, card="", parts=("qwen3", "long", "cli", "mamba",
+                                     "reduced")):
+    """Phase 27: the serving path on the card, the ``parts`` of it (the
+    windowed Qwen3 prefill and decode, the long_500k decode, the CLI,
+    falcon-mamba at 64 layers, the reduced configs and the example).
+    Returns the phase's numbers."""
+    t0 = phase("27 serving: prefill (K6 in the windowed Qwen3 prefill), the "
+               "captured decode with KV and SSM caches, serve.main, the "
+               "example, on full-width Qwen3-0.6B and falcon-mamba-7b")
+    release(dev)
+    out, secs = {}, {}
+    steps = (("qwen3", check_serve_qwen3, (dev, out, card)),
+             ("long", check_serve_long, (dev, out, card)),
+             ("cli", serve_cli, ("[qwen3-cli]", ["--arch", "qwen3-0.6b",
+                                                 "--size", "full"], dev,
+                                 out, card)),
+             ("mamba", check_serve_mamba, (dev, out, card)),
+             ("mamba", serve_cli, ("[mamba-cli]", [
+                 "--arch", "falcon-mamba-7b", "--size", "full"], dev, out,
+                 card)),
+             ("reduced", check_serve_reduced, (dev, out)))
+    for part, fn, args in steps:
+        if part in parts:
+            t = time.perf_counter()
+            fn(*args)
+            secs[f"{part}:{fn.__name__}"] = time.perf_counter() - t
+    out["seconds"] = secs
+    print(f"  seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -5335,8 +5790,11 @@ def main() -> int:
         del compiled[t]["loop_run"]
     figures, known = phase_figures(dev)
     engine = phase_engine(dev, fed)
-    population, telemetry = phase_population(dev, fed, compiled=compiled)
+    population, telemetry = phase_population(dev, fed, parts=("cnn",
+                                                              "drivers"),
+                                             compiled=compiled)
     cli_out = phase_cli(dev, remat)
+    serve = phase_serve(dev, card)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -5349,6 +5807,10 @@ def main() -> int:
             r_["model_sync_leaf"] = {k: cli_out["k2_leaf"][k] for k in (
                 "shape", "launches", "launches_path", "max_abs_err", "ms",
                 "eager_ms", "plain_ms", "bound_ms", "bound_by", "bytes")}
+    for r_ in lm_records:           # K6 in the windowed Qwen3 prefill
+        if r_["name"] == "swa_attention_tc":
+            r_["serve_prefill_launches"] = serve["qwen3_window"][
+                "k6_launches"]
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
@@ -5358,7 +5820,7 @@ def main() -> int:
                       "figures": figures, "engine": engine,
                       "population": population, "telemetry": telemetry,
                       "cli": {k: v for k, v in cli_out.items()
-                              if k != "k2_leaf"},
+                              if k != "k2_leaf"}, "serve": serve,
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

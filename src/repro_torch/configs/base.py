@@ -1,5 +1,6 @@
 """Config schema, mirroring ``repro.configs.base``: the transformer
-``ModelConfig`` and the FSL protocol config (the paper's knobs).
+``ModelConfig``, the FSL protocol config (the paper's knobs) and the
+input shapes (``ShapeConfig``, ``SHAPES``) the serving specs read.
 
 Only the fields this port reads are here.  ``ModelConfig`` carries the
 dense and Mamba-1 (``ssm``) families' fields; MoE, hybrid and modality
@@ -59,7 +60,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (have {FAMILIES})")
+                f"family {self.family!r} is not ported yet (have "
+                f"{FAMILIES}; ROADMAP Queue 1 item 4)")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -122,3 +124,27 @@ class FSLConfig:
     @property
     def resolved_agg_every(self) -> int:
         return self.agg_every if self.agg_every else self.h
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_config(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -12,6 +12,10 @@ the dtype moves (numpy has no bf16: ``ml_dtypes`` bf16 arrays cross as
 their uint16 bit patterns).  A leading stacked-client dim, where present,
 is carried through.
 
+Serving caches (``prefill``, ``decode_step``) keep the reference's tree
+too, ``{"client", "server"}`` stage caches with their stacked ``[L, B,
+...]`` leaves, and cross leaf for leaf (:func:`caches_from_numpy`).
+
 Reference state (``repro`` ``Trainer.init``) -> port state, CSE-FSL::
 
   {"clients": {"params": {"params": C, "aux": A}, "opt": O(C, A)},
@@ -192,3 +196,14 @@ def params_from_numpy(params, device="cuda") -> Dict[str, Any]:
 def params_to_numpy(params) -> Dict[str, Any]:
     """Inverse of :func:`params_from_numpy`."""
     return {k: _to_numpy(v) for k, v in params.items()}
+
+
+def caches_from_numpy(caches, device="cuda") -> Dict[str, Any]:
+    """Reference decode caches (``prefill``'s or ``init_decode_caches``',
+    as numpy arrays) -> the port's, leaf for leaf, bit for bit."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), caches)
+
+
+def caches_to_numpy(caches) -> Dict[str, Any]:
+    """Inverse of :func:`caches_from_numpy` (bf16 -> ``ml_dtypes``)."""
+    return tree_map(tensor_to_numpy, caches)

@@ -32,14 +32,14 @@ last one; the average is renormalized over those clients, an empty
 cohort is a warned no-op, and retransmissions are billed to the byte.
 With ``wait_all`` and no faults (the defaults) none of this is built.
 
-A window that a call ends inside is kept under faults: the next call that
-continues the state (its round counter where the last call stopped), or
-the state :meth:`Trainer.restore` brings back from a checkpoint
-:meth:`Trainer.save` wrote, starts from that window's AND, so a run split
-or restored mid-window admits to the window's FedAvg only the clients
-that survived every round of it, as the uninterrupted run does.  (The JAX
-package starts each call's window afresh; with a scheduler and no faults
-the port does too, and a split run keeps the reference's results.)
+A window that a call ends inside is kept, under a scheduler or faults:
+the next call that continues the state (its round counter where the last
+call stopped), or the state :meth:`Trainer.restore` brings back from a
+checkpoint :meth:`Trainer.save` wrote, starts from that window's AND, so
+a run split or restored mid-window admits to the window's FedAvg only the
+clients the plan admitted and that survived every round of it, as the
+uninterrupted run does.  (The JAX package starts each call's window
+afresh, so its split runs differ from its uninterrupted ones.)
 
 Observability: a ``telemetry`` recorder (``repro_torch.telemetry``) folds
 every round into its record stream (engine ``"loop"`` or ``"compiled"``),
@@ -123,7 +123,7 @@ class _Participation:
     """The masked engines' host bookkeeping for one call of ``run`` or
     ``run_compiled``, a round at a time: the window's AND of the plan
     since the last aggregation (``part``: all True at the call's start, or
-    under faults the window the Trainer kept from the call before, see
+    the window the Trainer kept from the call before, see
     :meth:`Trainer._enter_window`), its scheduler-only mirror
     (which attributes drops to the policy in ``FaultStats``), the dropped
     updates, the fault billing and the rows' participation fields.  Both
@@ -266,7 +266,7 @@ class Trainer:
         self._wire_leaves = self._model_leaves = None   # see _seed_leaves
         self._captured = None       # graphs.CapturedChunk on the card
         self._stream = None         # the captures' side stream
-        # under faults: (round, part, part_s) of the window the last call
+        # masked runs: (round, part, part_s) of the window the last call
         # ended in, for the call that continues it (_enter_window)
         self._window = None
 
@@ -426,43 +426,26 @@ class Trainer:
 
     # -- the window across calls, and the checkpoint --------------------------
     def _enter_window(self, book: Optional[_Participation], rnd0: int):
-        """Under faults, start ``book`` from the window the last call ended
-        in when this call continues it (starts at its round)."""
+        """Start ``book`` from the window the last call ended in when this
+        call continues it (starts at its round)."""
         w = self._window
-        if book is None or not book.fault_active or w is None \
-                or w[0] != rnd0:
+        if book is None or w is None or w[0] != rnd0:
             return
         book.part = w[1].copy()
         if book.part_s is not None and w[2] is not None:
             book.part_s = w[2].copy()
 
     def _leave_window(self, book: Optional[_Participation], rnd: int):
-        """Keep the window a call ended in (faults only), at round ``rnd``."""
-        if book is not None and book.fault_active:
+        """Keep the window a call ended in, at round ``rnd``."""
+        if book is not None:
             self._window = (rnd, book.part.copy(), None
                             if book.part_s is None else book.part_s.copy())
 
     def save(self, path: str, state):
-        """Write ``state`` (and, under faults, the window it stands in) as
-        a ``repro_torch.checkpoint``: an ``.npz`` and its JSON manifest.
-
-        Under a scheduler with no faults the window is not kept: the
-        reference restarts it at every call, and so does this Trainer
-        (``tests/test_torch_sched.py`` holds split calls to the
-        reference).  Saving such a run mid-window warns: a run restored
-        from the file restarts the window, so its next aggregation may
-        admit clients the scheduler dropped before the save, where the
-        uninterrupted run would not (ROADMAP Queue 3)."""
+        """Write ``state`` (and, under a scheduler or faults, the window it
+        stands in) as a ``repro_torch.checkpoint``: an ``.npz`` and its
+        JSON manifest."""
         rnd = self.method.batches_trained(self.fsl, state) // self.fsl.h
-        fsl = self.fsl
-        C = fsl.resolved_agg_every
-        if not self.scheduler.is_wait_all and self.faults.is_null \
-                and rnd > 0 and (rnd * fsl.h) // C == ((rnd - 1) * fsl.h) // C:
-            warnings.warn(
-                f"checkpoint at round {rnd} is mid-window under scheduler "
-                f"{self.scheduler.name!r} with no faults: the window is not "
-                "saved, so a run restored from it restarts the window and "
-                "may differ from the uninterrupted run")
         tree, w = {"state": state}, self._window
         if w is not None and w[0] == rnd:
             tree["window"] = {"part": w[1]}
@@ -476,9 +459,9 @@ class Trainer:
 
     def restore(self, path: str, like=None):
         """The state :meth:`save` wrote, on this trainer's device; a window
-        saved with it (under faults) is the one the next call continues,
-        and without one the next call starts a fresh window (see
-        :meth:`save` for the scheduler-only case).  ``like`` is the
+        saved with it (under a scheduler or faults) is the one the next
+        call continues, and without one the next call starts a fresh
+        window.  ``like`` is the
         template (default: the method's state on ``meta`` tensors, so no
         parameters are drawn)."""
         extra = ckpt.manifest(path)["extra"]

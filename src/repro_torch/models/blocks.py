@@ -1,14 +1,18 @@
 """Per-layer blocks, init + apply (``repro.models.blocks``), for the dense
-and Mamba-1 kinds in training mode.
+and Mamba-1 kinds, in training, prefill and decode mode.
 
 A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
 Depth comes from params stacked on a leading layer axis (``model.py``).
-The MoE, Mamba-2 and hybrid kinds, and the prefill/decode cache branches,
-come with the slices that port them.
+Prefill emits each layer's cache; decode updates the cache it is given in
+place and returns it (the attention's ring slot, the conv window, the SSM
+state), where the reference returns new arrays that its ``jax.jit``
+donates.  The MoE, Mamba-2 and hybrid kinds come with the slices that
+port them (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -19,9 +23,14 @@ from repro_torch.models import layers as L
 @dataclasses.dataclass
 class Ctx:
     cfg: ModelConfig
-    mode: str                      # "train" (the only mode ported)
-    pos: int = 0                   # q offset
+    mode: str                      # "train" | "prefill" | "decode"
+    pos: Any = 0                   # q offset; decode: the write position
+                                   # (an int or a 0-d device tensor)
     window: int = 0                # sliding window (0 = full)
+    cache_len: int = 0             # allocated cache slots (decode)
+
+
+NOT_PORTED = "ROADMAP Queue 1 item 4"
 
 
 def _init(gen, shape, scale, dtype):
@@ -56,9 +65,6 @@ def attn_init(cfg: ModelConfig, gen, dtype, lead=()):
 
 
 def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, cache):
-    if ctx.mode != "train":
-        raise NotImplementedError("the prefill/decode cache branches are "
-                                  "not ported yet")
     b, s, d = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     xn = L.rmsnorm(x, p["ln"])
@@ -76,16 +82,47 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, cache):
     pos_ids = (torch.arange(s, device=x.device) + ctx.pos)[None].expand(b, s)
     q = L.apply_rope(q, pos_ids, cfg.rope_theta)
     k = L.apply_rope(k, pos_ids, cfg.rope_theta)
-    # the reference's gate for the sliding-window kernel (K6)
-    if (cfg.use_pallas and ctx.window and not cfg.encoder_only
-            and s % 128 == 0):
-        from repro_torch.kernels import ops
-        out = ops.swa_attention(q, k, v, ctx.window)
+    new_cache = None
+    if ctx.mode == "decode":
+        # cache {"k"/"v": [B, cache_len, KH, hd]}: a ring buffer where the
+        # allocated length is a sliding window shorter than the context
+        ck, cv = cache["k"], cache["v"]
+        clen = ck.shape[1]
+        pos = torch.as_tensor(ctx.pos, device=x.device).long()
+        slot = (pos % clen).reshape(1)
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        out = L.attention(q, ck, cv, causal=False,
+                          kv_len=torch.clamp(pos + 1, max=clen))
+        new_cache = cache
     else:
-        out = L.attention(q, k, v, causal=not cfg.encoder_only,
-                          window=ctx.window, q_offset=ctx.pos)
+        # the reference's gate for the sliding-window kernel (K6)
+        if (cfg.use_pallas and ctx.window and not cfg.encoder_only
+                and s % 128 == 0):
+            from repro_torch.kernels import ops
+            out = ops.swa_attention(q, k, v, ctx.window)
+        else:
+            out = L.attention(q, k, v, causal=not cfg.encoder_only,
+                              window=ctx.window, q_offset=ctx.pos)
+        if ctx.mode == "prefill":
+            if ctx.window:          # keep only the trailing window
+                w = min(ctx.window, s)
+                # decode writes position p at slot p % w, so slot i holds
+                # the kept position (s-w .. s-1) with p % w == i
+                shift = (s - w) % w
+                new_cache = {"k": torch.roll(k[:, s - w:], shift, 1),
+                             "v": torch.roll(v[:, s - w:], shift, 1)}
+            else:
+                new_cache = {"k": k, "v": v}
     y = out.reshape(b, s, h * hd) @ p["wo"]
-    return x + y, None
+    return x + y, new_cache
+
+
+def attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, dtype):
+    """One layer's k/v cache as ``meta`` tensors."""
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
 
 
 # ---------------------------------------------------------------------------
@@ -166,22 +203,47 @@ def _mamba1_inner(cfg, p, xc):
 
 
 def mamba1_apply(cfg, p, x, ctx: Ctx, cache):
-    if ctx.mode != "train":
-        raise NotImplementedError("the prefill/decode cache branches are "
-                                  "not ported yet")
+    s = x.shape[1]
     xn = L.rmsnorm(x, p["ln"])
     xin, z = torch.chunk(xn @ p["in_proj"], 2, dim=-1)
-    xc0 = L.causal_conv1d(xin, p["conv_w"], p["conv_b"])
-    xc, dt, a, b_mat, c_mat = _mamba1_inner(cfg, p, xc0)
-    # the reference's gate for the selective-scan kernel (K5)
-    if cfg.use_pallas and cfg.d_inner % 128 == 0:
-        from repro_torch.kernels import ops
-        y = ops.ssm_scan(xc, dt, a, b_mat, c_mat, p["d_skip"], cfg.ssm_chunk)
+    new_cache = None
+    if ctx.mode == "decode":
+        xc1, conv = L.conv1d_decode(xin[:, 0], cache["conv"], p["conv_w"],
+                                    p["conv_b"])
+        xc, dt, a, b_mat, c_mat = _mamba1_inner(cfg, p, xc1[:, None])
+        y, h = L.selective_scan_decode(xc[:, 0], dt[:, 0], a, b_mat[:, 0],
+                                       c_mat[:, 0], p["d_skip"],
+                                       cache["ssm"])
+        y = y[:, None]
+        new_cache = {"conv": conv, "ssm": h}
     else:
-        y = L.selective_scan(xc, dt, a, b_mat, c_mat, p["d_skip"],
-                             chunk=cfg.ssm_chunk)
+        xc0 = L.causal_conv1d(xin, p["conv_w"], p["conv_b"])
+        xc, dt, a, b_mat, c_mat = _mamba1_inner(cfg, p, xc0)
+        if ctx.mode == "prefill":
+            # the reference's prefill takes the plain scan with its state
+            y, h = L.selective_scan(xc, dt, a, b_mat, c_mat, p["d_skip"],
+                                    chunk=cfg.ssm_chunk, return_state=True)
+            kc = cfg.ssm_conv - 1
+            new_cache = {"conv": xin[:, s - kc:].contiguous(), "ssm": h}
+        # the reference's gate for the selective-scan kernel (K5)
+        elif cfg.use_pallas and cfg.d_inner % 128 == 0:
+            from repro_torch.kernels import ops
+            y = ops.ssm_scan(xc, dt, a, b_mat, c_mat, p["d_skip"],
+                             cfg.ssm_chunk)
+        else:
+            y = L.selective_scan(xc, dt, a, b_mat, c_mat, p["d_skip"],
+                                 chunk=cfg.ssm_chunk)
     y = y * L.silu(z)
-    return x + y @ p["out_proj"], None, 0.0
+    return x + y @ p["out_proj"], new_cache, 0.0
+
+
+def mamba1_cache_spec(cfg, batch, dtype):
+    """One layer's conv window and SSM state as ``meta`` tensors."""
+    din, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {"conv": torch.empty((batch, k - 1, din), dtype=dtype,
+                                device="meta"),
+            "ssm": torch.empty((batch, din, n), dtype=torch.float32,
+                               device="meta")}
 
 
 BLOCKS = {
@@ -200,3 +262,14 @@ def block_kind(cfg: ModelConfig) -> str:
     raise NotImplementedError(f"block kind of family {cfg.family!r} "
                               f"({cfg.ssm_variant or 'default'}) is not "
                               "ported yet")
+
+
+def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                     dtype):
+    """One layer's decode cache of block ``kind`` as ``meta`` tensors."""
+    if kind == "dense":
+        return attn_cache_spec(cfg, batch, cache_len, dtype)
+    if kind == "mamba1":
+        return mamba1_cache_spec(cfg, batch, dtype)
+    raise NotImplementedError(f"the {kind!r} block and its decode cache are "
+                              f"not ported yet ({NOT_PORTED})")

@@ -89,13 +89,16 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor):
     return e / (e.sum(-1, keepdim=True) + 1e-30)
 
 
-def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
-              chunk: int = 512):
+def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
+              kv_len=None, chunk: int = 512):
     """Multi-head attention with GQA, causal and sliding-window masks.
 
     q: [B,Sq,H,hd]; k,v: [B,Skv,KH,hd].  ``q_offset`` is the absolute
-    position of q[0].  Long sequences run over q in chunks of ``chunk`` so
-    the score matrix never materializes at [Sq, Skv].
+    position of q[0].  ``kv_len`` (an int, a 0-d device tensor or None)
+    masks out the cache slots at and past it (decode).  Long sequences run
+    over q in chunks of ``chunk`` so the score matrix never materializes
+    at [Sq, Skv]; a shorter last chunk takes the rows left (the reference
+    asserts ``Sq % chunk == 0``: each row's arithmetic is the same).
     """
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -113,13 +116,13 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
             mask &= kv_pos[None, :] <= q_pos[:, None]
         if window:
             mask &= kv_pos[None, :] > q_pos[:, None] - window
+        if kv_len is not None:
+            mask &= kv_pos[None, :] < kv_len
         w = _masked_softmax(scores, mask[None, None])
         return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)
 
     if sq <= chunk:
         return block(q, q_offset)
-    if sq % chunk:
-        raise ValueError(f"sequence {sq} is not a multiple of chunk {chunk}")
     return torch.cat([block(q[:, i:i + chunk], q_offset + i)
                       for i in range(0, sq, chunk)], dim=1)
 
@@ -136,6 +139,17 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     out = F.conv1d(x.transpose(1, 2), w[:, None, :], padding=k - 1,
                    groups=x.shape[-1])
     return out[..., :s].transpose(1, 2) + b
+
+
+def conv1d_decode(x: torch.Tensor, state: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor):
+    """One step of the depthwise conv.  x: [B,C]; state: [B,K-1,C], the
+    last K-1 inputs, oldest first -> ``(out [B,C], state)``.  ``state`` is
+    shifted in place (the oldest input out, x in) and returned."""
+    full = torch.cat([state, x[:, None, :]], dim=1)            # [B,K,C]
+    out = torch.einsum("bkc,ck->bc", full, w) + b
+    state.copy_(full[:, 1:])
+    return out, state
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +170,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def selective_scan(u, dt, a, b_mat, c_mat, d_vec, *, chunk: int = 128):
+def selective_scan(u, dt, a, b_mat, c_mat, d_vec, *, chunk: int = 128,
+                   h0=None, return_state: bool = False):
     """Mamba-1 scan.  u,dt: [B,S,D]; a: [D,N]; b_mat,c_mat: [B,S,N];
-    d_vec: [D] -> y [B,S,D] in u's dtype.
+    d_vec: [D] -> y [B,S,D] in u's dtype (and, with ``return_state``, the
+    fp32 state after the last step, [B,D,N]).  ``h0``: the state before
+    the first step (default zeros).
 
     h_t = exp(dt_t a) h_{t-1} + dt_t b_t u_t;  y_t = c_t . h_t + d u_t.
     Chunked: a loop over chunks carries h, a doubling scan runs within a
@@ -170,7 +187,7 @@ def selective_scan(u, dt, a, b_mat, c_mat, d_vec, *, chunk: int = 128):
     dtf, uf = dt.float(), u.float()
     bm, cm = b_mat.float(), c_mat.float()
     h = torch.zeros((bsz, dim, a.shape[-1]), dtype=torch.float32,
-                    device=u.device)
+                    device=u.device) if h0 is None else h0
     ys = []
     for i in range(0, s, chunk):
         dt_c, u_c = dtf[:, i:i + chunk], uf[:, i:i + chunk]
@@ -180,5 +197,18 @@ def selective_scan(u, dt, a, b_mat, c_mat, d_vec, *, chunk: int = 128):
         h_t = acc_a * h[:, None] + acc_b
         ys.append(torch.einsum("bldn,bln->bld", h_t, cm[:, i:i + chunk]))
         h = h_t[:, -1]
-    y = torch.cat(ys, 1) + uf * d_vec
-    return y.to(u.dtype)
+    y = (torch.cat(ys, 1) + uf * d_vec).to(u.dtype)
+    # h is a view of the last chunk's [B,L,D,N] states: keep only its row
+    return (y, h.contiguous()) if return_state else y
+
+
+def selective_scan_decode(u, dt, a, b_mat, c_mat, d_vec, h):
+    """One step.  u,dt: [B,D]; b_mat,c_mat: [B,N]; h: [B,D,N] fp32 ->
+    ``(y [B,D] in u's dtype, h)``, in the reference's fp32 order; ``h`` is
+    updated in place and returned."""
+    dtf, uf = dt.float(), u.float()
+    da = torch.exp(dtf[..., None] * a)                          # [B,D,N]
+    h.mul_(da).add_(dtf[..., None] * b_mat.float()[:, None, :]
+                    * uf[..., None])
+    y = torch.einsum("bdn,bn->bd", h, c_mat.float()) + uf * d_vec
+    return y.to(u.dtype), h

@@ -1,6 +1,7 @@
 """Split model: client stage | cut | server stage (+ aux head)
 (``repro.models.model``), for the dense and non-hybrid ssm (Mamba-1)
-families in training mode.
+families: training, and serving the merged model (``prefill``,
+``decode_step``, ``full_forward``).
 
 The *client stage* owns the embedding and the first ``cut`` blocks; the
 *server stage* owns the remaining blocks, the final norm and the LM head.
@@ -19,10 +20,11 @@ from typing import Any, Callable, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import dtype_of, tree_leaves, tree_map
+from repro_torch.common import dtype_of, tree_leaves, tree_map, tree_stack
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import BLOCKS, Ctx, block_kind
+from repro_torch.models.blocks import (BLOCKS, Ctx, block_cache_spec,
+                                       block_kind)
 
 MOE_AUX_COEF = 0.01
 
@@ -208,9 +210,13 @@ def _remat_layer(cfg: ModelConfig, apply_fn, p, ctx: Ctx):
     return layer
 
 
-def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx):
-    """Run a stage's stacked blocks in order.  Returns ``(x, aux, None)``
-    (no caches in training mode).
+def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx,
+                caches=None):
+    """Run a stage's stacked blocks in order.  Returns ``(x, aux, cache)``:
+    in training mode ``cache`` is None; in prefill mode the blocks emit
+    their caches, stacked into the stage cache ``{"blocks": [L, B, ...]}``
+    (the reference's layout); in decode mode ``caches`` (that layout) is
+    updated in place, a layer's view at a time, and returned.
 
     The stacked params are split with one ``unbind`` per leaf, whose
     backward stacks the layers' grads once.  Indexing ``a[i]`` per layer
@@ -225,13 +231,22 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx):
     aux loss, so the stage's aux stays 0."""
     _, apply_fn = BLOCKS[plan.kind]
     aux = 0.0
-    for p in _unstack(sp["blocks"]):
+    layers = _unstack(sp["blocks"])
+    given = _unstack(caches["blocks"]) if ctx.mode == "decode" \
+        else [None] * len(layers)
+    emitted = []
+    for p, c in zip(layers, given):
         if cfg.remat and ctx.mode == "train":
             x = Remat.apply(_remat_layer(cfg, apply_fn, p, ctx), x,
                             *tree_leaves(p))
             continue
-        x, _, a = apply_fn(cfg, p, x, ctx, None)
+        x, nc, a = apply_fn(cfg, p, x, ctx, c)
         aux = aux + a
+        emitted.append(nc)
+    if ctx.mode == "prefill":
+        return x, aux, {"blocks": tree_stack(emitted)}
+    if ctx.mode == "decode":
+        return x, aux, caches
     return x, aux, None
 
 
@@ -321,3 +336,105 @@ def server_loss(cfg: ModelConfig, sp, smashed, labels, ctx: Ctx):
     x, moe_aux, _ = server_forward(cfg, sp, smashed, ctx)
     loss = head_ce(cfg, L.rmsnorm(x, sp["ln_f"]), sp["head"], labels)
     return loss + MOE_AUX_COEF * moe_aux
+
+
+def full_forward(cfg: ModelConfig, params, inputs, ctx: Ctx):
+    """The merged inference model (the aggregated client stage, then the
+    server stage): the final hidden states ``[B, S, d]`` before ``ln_f``."""
+    smashed, _, _ = client_forward(cfg, params["client"], inputs, ctx)
+    x, _, _ = server_forward(cfg, params["server"], smashed, ctx)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill / decode with split caches
+# ---------------------------------------------------------------------------
+
+
+def _stage_cache_spec(cfg, plan: StagePlan, batch, cache_len, dtype):
+    return {"blocks": tree_map(
+        lambda t: torch.empty((plan.n_layers,) + tuple(t.shape),
+                              dtype=t.dtype, device="meta"),
+        block_cache_spec(cfg, plan.kind, batch, cache_len, dtype))}
+
+
+def decode_cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
+    """``{"client", "server"}`` stage caches as ``meta`` tensors."""
+    dtype = dtype_of(cfg.dtype)
+    cplan, splan = stage_plans(cfg)
+    return {"client": _stage_cache_spec(cfg, cplan, batch, cache_len, dtype),
+            "server": _stage_cache_spec(cfg, splan, batch, cache_len, dtype)}
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                       device="cuda"):
+    """Zero caches of :func:`decode_cache_specs`' shapes on ``device``."""
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device=device),
+                    decode_cache_specs(cfg, batch, cache_len))
+
+
+def _pad_attn_caches(caches, cache_len: int):
+    """Grow the k/v caches' sequence dim (stacked layout [L,B,S,KH,hd]) to
+    ``cache_len``, zeros after the prompt, so decode appends up to
+    ``cache_len - S`` tokens before the ring buffer wraps."""
+    def walk(tree):
+        out = {}
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[name] = walk(leaf)
+            elif name in ("k", "v") and leaf.dim() >= 4 \
+                    and leaf.shape[2] < cache_len:
+                out[name] = F.pad(leaf, (0, 0) * (leaf.dim() - 3)
+                                  + (0, cache_len - leaf.shape[2]))
+            else:
+                out[name] = leaf
+        return out
+    return walk(caches)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, inputs, *, window: int = 0,
+            cache_len: int = 0):
+    """Full-sequence forward producing the caches and the last token's
+    logits ``[B, V]``.
+
+    ``cache_len``: if longer than the prompt (and no window), the
+    attention caches are padded so decode can append ``cache_len - S``
+    tokens before the ring buffer wraps."""
+    ctx = Ctx(cfg, "prefill", pos=0, window=window)
+    cplan, splan = stage_plans(cfg)
+    x = embed_inputs(cfg, params["client"], inputs)
+    x, _, ccache = stage_apply(cfg, cplan, params["client"]["blocks_stage"],
+                               x, ctx)
+    y, _, scache = stage_apply(cfg, splan, params["server"]["blocks_stage"],
+                               x, ctx)
+    logits = server_logits_fn(cfg, params["server"])(y[:, -1:, :])
+    caches = {"client": ccache, "server": scache}
+    if cache_len and not window:
+        caches = _pad_attn_caches(caches, cache_len)
+    return logits[:, 0], caches
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token, pos, caches, *,
+                window: int = 0):
+    """One-token decode through the split model -> ``(logits [B, V],
+    caches)``.
+
+    token: [B] int; pos: the current absolute position (an int or a 0-d
+    integer tensor; a device tensor keeps the step free of host values, as
+    a captured step needs); caches: as from :func:`init_decode_caches` or
+    :func:`prefill`, updated in place and returned (the reference's
+    ``jax.jit`` donates them)."""
+    dev = token.device
+    ctx = Ctx(cfg, "decode", pos=torch.as_tensor(pos, device=dev),
+              window=window)
+    cplan, splan = stage_plans(cfg)
+    x = embed_inputs(cfg, params["client"], {"tokens": token[:, None]})
+    x, _, ncc = stage_apply(cfg, cplan, params["client"]["blocks_stage"], x,
+                            ctx, caches["client"])
+    x, _, nsc = stage_apply(cfg, splan, params["server"]["blocks_stage"], x,
+                            ctx, caches["server"])
+    logits = server_logits_fn(cfg, params["server"])(x)[:, 0]
+    return logits, {"client": ncc, "server": nsc}

@@ -118,9 +118,18 @@ def test_block_matches_reference(use_pallas):
                                       JCtx(jcfg, "train"), None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        blocks.mamba1_apply(cfg, tbp, torch.from_numpy(x),
-                            Ctx(cfg, "prefill"), None)
+    # prefill: the same output, and the cache (the conv window, the scan's
+    # state) the reference's prefill branch emits
+    got, cache, _ = blocks.mamba1_apply(cfg, tbp, torch.from_numpy(x),
+                                        Ctx(cfg, "prefill"), None)
+    want, jcache, _ = jblocks.mamba1_apply(jcfg, bp, jnp.asarray(x),
+                                           JCtx(jcfg, "prefill"), None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert set(cache) == set(jcache) == {"conv", "ssm"}
+    for k in cache:
+        np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

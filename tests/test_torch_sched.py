@@ -23,8 +23,10 @@ package.
   ``tests/test_torch_baselines.py`` states).
 - The port's ``run_compiled`` bitwise equal to its ``run`` under each
   policy (int8 on every channel, the model sync included), staged and
-  pooled, with a trailing partial chunk; a resume mid-window against the
-  reference's; the empty-cohort warning and no-op in both engines.
+  pooled, with a trailing partial chunk; a run resumed mid-window bitwise
+  the uninterrupted run (the port keeps the window across calls; the
+  reference restarts it, pinned); the empty-cohort warning and no-op in
+  both engines.
 
 The CNN is ``tests/test_torch_baselines.py``'s narrow one at n = 3.
 """
@@ -511,14 +513,32 @@ def test_trainer_run_matches_reference(method, policy):
 
 @pytest.mark.parametrize("policy", ["bandwidth_h", "stratified"])
 def test_trainer_run_windows_match_reference(policy):
-    """h = 2, C = 4: windows of two rounds, the AND of the plan over both,
-    and a resume in the middle of a window (2 + 2 rounds), where the
-    window's AND restarts from all clients in both packages."""
+    """h = 2, C = 4: windows of two rounds, the AND of the plan over both;
+    then windows of three rounds (C = 6) with a resume in the middle of
+    the first (2 + 3 rounds).  The port keeps the window across calls, so
+    its split run is bitwise its uninterrupted run, which matches the
+    reference's uninterrupted run; the reference restarts the window's
+    AND at its second call, and admits the plan's round-3 row alone."""
     got, want = _run_pair("cse_fsl", policy, rounds=4, h=2, c=4)
     _check_pair(got, want, "cse_fsl")
     assert [r["aggregated"] for r in got[0]] == [False, True] * 2
-    got, want = _run_pair("cse_fsl", policy, rounds=5, h=2, c=6, resume=2)
-    _check_pair(got, want, "cse_fsl")
+    whole, jwhole = _run_pair("cse_fsl", policy, rounds=5, h=2, c=6)
+    _check_pair(whole, jwhole, "cse_fsl")
+    split, jsplit = _run_pair("cse_fsl", policy, rounds=5, h=2, c=6,
+                              resume=2)
+    for x, y in zip(state_leaves(whole[2]), state_leaves(split[2])):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert split[2]["round"] == whole[2]["round"]
+    drop = ("dropped_updates",)     # counted from each call's start
+    assert [{k: v for k, v in r.items() if k not in drop} for r in split[0]] \
+        == [{k: v for k, v in r.items() if k not in drop} for r in whole[0]]
+    assert split[1].as_dict() == whole[1].as_dict()
+    masks = whole[3]._sched_masks
+    cohorts = [(r["round"], r["participants"]) for r in whole[0]
+               if r["aggregated"]]
+    assert cohorts == [(3, int(masks[:3].all(0).sum()))]
+    assert [(r["round"], r["participants"]) for r in jsplit[0]
+            if r["aggregated"]] == [(3, int(masks[2].sum()))]
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,14 @@ through ``repro_torch.checkpoint`` (``Trainer.save`` / ``Trainer.restore``).
   lossy faults.  The rows' cumulative ``dropped_updates``,
   ``fault_retries`` and ``fault_drops`` count from each call's start, as
   in the JAX package, and are left out.
-- Under a scheduler with no faults the window is not kept (the JAX
-  package's restart, which ``tests/test_torch_sched.py`` pins for split
-  calls), so ``Trainer.save`` mid-window warns; at a window's end or under
-  faults it does not.
+- Under a scheduler with no faults the window is kept too.  ROADMAP's
+  input (the narrow CNN at n = 6, h = 2, ``agg_every`` 4,
+  ``StratifiedPolicy(seed=0)`` on ``TieredNetwork()``): 3 + 3 rounds on
+  one Trainer, and a save after round 3 restored into a fresh one, are
+  bitwise 6 uninterrupted rounds in both engines (the round-4 aggregation
+  admits 2 clients; a restarted window admitted 4).  ``Trainer.save``
+  writes the window under a scheduler with or without faults, mid-window
+  or at a window's end, and warns nothing.
 - A checkpoint the JAX package wrote mid-run restores in the port (read
   through ``repro_torch.checkpoint``, converted with
   ``repro_torch.convert``), and the port's continuation agrees with the
@@ -211,22 +215,80 @@ def test_checkpoint_resume_bitwise(compiled, k, masked, tmp_path):
 
 @pytest.mark.parametrize("lossy", [False, True], ids=["sched", "sched-lossy"])
 @pytest.mark.parametrize("k", [2, 3], ids=["boundary", "mid-window"])
-def test_save_warns_when_the_window_is_lost(k, lossy, tmp_path):
-    """Under a scheduler with no faults the window is not saved, so a save
-    mid-window (round 3 of windows of 2 rounds) warns; at a window's end,
-    or under faults (the window saved with the state), it does not."""
-    b, fed = _bundle(), _fed(data)
-    tr = _trainer(b, "deadline")
-    if not lossy:
-        tr = Trainer(b, tr.fsl, scheduler=tr.scheduler, network=tr.network)
-    st, _ = tr.run(tr.init(0), data.FederatedBatcher(fed, B, H), k)
+def test_save_keeps_the_window_under_a_scheduler(k, lossy, tmp_path):
+    """A deadline on the tiered network, with and without lossy faults:
+    a save after round k (k = 3 is mid-window, windows of 2 rounds) writes
+    the window with the state and warns nothing, and the run restored
+    into a fresh Trainer continues bitwise the uninterrupted one."""
+    b, fed, rounds = _bundle(), _fed(data), 6
+
+    def make():
+        tr = _trainer(b, "deadline")
+        if not lossy:
+            tr = Trainer(b, tr.fsl, scheduler=tr.scheduler,
+                         network=tr.network)
+        return tr
+
+    tr = make()
+    want, whist = tr.run(tr.init(0), data.FederatedBatcher(fed, B, H),
+                         rounds, log_every=1)
+    tr = make()
+    st, h1 = tr.run(tr.init(0), data.FederatedBatcher(fed, B, H), k,
+                    log_every=1)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         path = tr.save(os.path.join(tmp_path, "t"), st)
-    lost = [x for x in w if "mid-window" in str(x.message)]
-    assert len(lost) == (1 if k == 3 and not lossy else 0), \
-        [str(x.message) for x in w]
-    assert (ckpt.manifest(path)["extra"]["window"] != []) == lossy
+    assert not w, [str(x.message) for x in w]
+    assert ckpt.manifest(path)["extra"]["window"] == (
+        ["part", "part_s"] if lossy else ["part"])
+    fresh = make()
+    batcher = data.FederatedBatcher(fed, B, H)
+    for _ in range(k):
+        batcher.next_round()
+    got, h2 = fresh.run(fresh.restore(path), batcher, rounds - k,
+                        log_every=1)
+    _same_state(want, got)
+    assert _rows(whist) == _rows(h1 + h2)
+
+
+def _stratified(bundle):
+    """ROADMAP Queue 3's input: n = 6, h = 2, windows of 2 rounds,
+    StratifiedPolicy(seed=0) on TieredNetwork(), no faults."""
+    fsl = FSLConfig(num_clients=6, h=H, agg_every=2 * H, lr=0.05)
+    return Trainer(bundle, fsl, scheduler=sched.StratifiedPolicy(seed=0),
+                   network=network.TieredNetwork())
+
+
+@pytest.mark.parametrize("compiled", [False, True], ids=["run", "compiled"])
+def test_scheduler_only_window_survives_split_and_restore(compiled,
+                                                          tmp_path):
+    """3 + 3 rounds on one Trainer, and 3 rounds saved and restored into a
+    fresh Trainer then 3 more, bitwise 6 uninterrupted rounds: the
+    round-4 aggregation admits the window's AND (2 clients), not the
+    restarted window's 4."""
+    b = _bundle()
+    x, y = data.synthetic_classification(120, NARROW["in_shape"], 10,
+                                         seed=0, signal=12.0)
+    fed = data.partition_iid(x, y, 6, seed=0)
+    tr = _stratified(b)
+    want, whist = _go(tr, tr.init(0), data.FederatedBatcher(fed, B, H), 6,
+                      compiled, None, None)
+    assert [p for r, p in _cohorts(whist) if r == 4] == [2]
+    tr = _stratified(b)
+    batcher = data.FederatedBatcher(fed, B, H)
+    st, h1 = _go(tr, tr.init(0), batcher, 3, compiled, None, None)
+    path = tr.save(os.path.join(tmp_path, "s"), st)
+    st, h2 = _go(tr, st, batcher, 3, compiled, None, None)
+    _same_state(want, st)
+    assert _rows(whist) == _rows(h1 + h2)
+    fresh = _stratified(b)
+    batcher = data.FederatedBatcher(fed, B, H)
+    for _ in range(3):
+        batcher.next_round()
+    got, h3 = _go(fresh, fresh.restore(path), batcher, 3, compiled, None,
+                  None)
+    _same_state(want, got)
+    assert _rows(whist) == _rows(h1 + h3)
 
 
 def test_restore_refuses_another_trainer(tmp_path):
