@@ -6,7 +6,8 @@ engine's (phase 24), the population engine's and telemetry's (phase
 25), the entry points' (phase 26: the CLI's Qwen3 run, Trainer
 resume, falcon-mamba through the population engine) and the serving
 path's (phase 27: the windowed Qwen3 prefill and decode, falcon-mamba's
-decode) can fail.  Run from the repo root on a machine with
+decode) and the MoE layer's (phase 28: one olmoe block with and without
+recompute) can fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py [--only PHASE ...]
@@ -17,14 +18,15 @@ them.)
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
 (its qwen3-cse_fsl path), 24 and 25 (their CNN paths) and 26 (its
-qwen3, resume and mamba parts) and 27 (its qwen3 and mamba parts) of
-``chip_smoke.py`` in a fresh process, with every check reported instead
+qwen3, resume and mamba parts), 27 (its qwen3 and mamba parts) and 28
+(its layer part) of ``chip_smoke.py`` in a fresh process, with every check reported instead
 of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
 K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
 (the masked round), 22 (the recomputed layer), 24 (the event engine),
 25 (the population engine, telemetry), 26 (the CLI, the Trainer's
-checkpoint, the Mamba population run) or 27 (the ring, the conv window,
-the captured decode) that holds its fault.  A mutant is
+checkpoint, the Mamba population run), 27 (the ring, the conv window,
+the captured decode) or 28 (the recomputed MoE block) that holds its
+fault.  A mutant is
 one deliberate fault in a kernel source, in the compiled runner, in the
 masked aggregate, in the topk codec, in the layer recompute, in the
 per-client coding, in the checksum frame, in the arrival heap, in the
@@ -172,10 +174,15 @@ MUTANTS = {
           "        ctx.save_for_backward(output, *leaves)")],
         REMAT, "22"),
     "recompute drops the parameter leaves' gradients": (
-        [(MODEL, "        return vjp_fn(g)\n",
-          "        dx, *_ = vjp_fn(g)\n"
+        [(MODEL, "        return vjp_fn(gs[0] if ng == 1 else tuple(gs))\n",
+          "        dx, *_ = vjp_fn(gs[0] if ng == 1 else tuple(gs))\n"
           "        return (dx, *(torch.zeros_like(t) for t in leaves))\n")],
         REMAT, "22"),
+    "recompute drops the aux loss's gradient (MoE)": (
+        [(MODEL, "        return vjp_fn(gs[0] if ng == 1 else tuple(gs))\n",
+          "        return vjp_fn(gs[0] if ng == 1 else\n"
+          "                      (gs[0], torch.zeros_like(gs[1])))\n")],
+        "[olmoe-layer] the block (", "28"),
     "per-client coding with client 0's seeds for every client": (
         [(TRANSPORT, "s = seeds[i][client:client + 1] if one else seeds[i]",
           "s = seeds[i][0:1] if one else seeds[i]")],
@@ -270,7 +277,8 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "26r": 'cs.phase_cli(torch.device("cuda"), parts=("resume",))\n',
           "26m": 'cs.phase_cli(torch.device("cuda"), parts=("mamba",))\n',
           "27q": 'cs.phase_serve(torch.device("cuda"), parts=("qwen3",))\n',
-          "27m": 'cs.phase_serve(torch.device("cuda"), parts=("mamba",))\n'}
+          "27m": 'cs.phase_serve(torch.device("cuda"), parts=("mamba",))\n',
+          "28": 'cs.phase_moe(torch.device("cuda"), parts=("layer",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -281,7 +289,7 @@ def phase_of(path: str) -> str:
 
 
 ALL_PHASES = ("7", "11", "15", "19", "21", "22", "24", "25", "26q", "26r",
-              "26m", "27q", "27m")
+              "26m", "27q", "27m", "28")
 
 
 def run(where: str, phases=ALL_PHASES) -> list:

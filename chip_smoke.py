@@ -209,24 +209,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``decode_step``, ``launch.serve``): full-width Qwen3-0.6B's prefill of
    4 x 4,096 tokens at window 4,096, K6 launched once a layer and its
    plain version never, against the plain attention's prefill (logits and
-   caches within SERVE_BOUND); 64 decode steps past the ring's wrap, the
+   caches within SERVE_BOUND); 32 decode steps past the ring's wrap, the
    captured decode (``make_serving_fns``) bitwise the eager one, in place,
    no kernel launched, the last logits against ``full_forward`` on the
-   4,160 tokens and layer 0's ring against that layer's k and v of the
+   4,128 tokens and layer 0's ring against that layer's k and v of the
    decoded tokens; the ``long_500k`` decode (B = 1, pos 524,287); the
    serving CLI at its defaults; falcon-mamba-7b at 64 layers (drawn on
-   the card): its prefill of 4 x 2,048 with no K5 launch, 32 captured
+   the card): its prefill of 4 x 2,048 with no K5 launch, 16 captured
    steps bitwise eager, the last logits against ``full_forward`` (K5),
    layer 0's conv window against its last inputs, the CLI; the reduced
    configs' card against the CPU; the serving example; prefill ms, decode
-   ms a token, tokens/s and peaks.
+   ms a token, tokens/s and peaks;
+28. the MoE family (``models.layers.moe_*``, the ``moe`` block, the aux
+   loss through ``Remat``): K3/K4 and K6 (and its backward) at
+   olmoe-1b-7b's shapes against their plain versions; CSE-FSL on
+   full-width olmoe-1b-7b (16 layers, d 2048, 64 experts top 8, V 50,304,
+   bf16, remat as configured, its parameters drawn on the card) through
+   phase 19's checks (a loop round and a replayed round bitwise, launches
+   a round as stated before the run, the meter CommProfile's, the trained
+   model's aux losses finite and > 0, ms a round in both engines, idle and
+   peak); one MoE layer on 1,024 tokens against the host CPU from the
+   card's router probabilities (expert ids, slots and kept flags equal, a
+   zero row to experts 0..7, the output within MOE_LAYER_BOUND) and the
+   block with remat bitwise without it (output, aux loss, gradients);
+   serving: the windowed prefill of 4 x 2,048 (K6 once a layer, layer 0's
+   drops at the config's factor counted), 32 captured decode steps
+   bitwise eager and the last against ``full_forward`` with drops
+   disabled; phi3.5-moe reduced: a round and a captured decode.
 
-Phases 18 (5 timed CNN rounds, 2 LM), 19 and 21 (one timed LM round or
+Phases 18 (5 timed CNN rounds, 1 LM), 19 and 21 (one timed LM round or
 chunk) and 24 (``fig_sched`` and ``fig_wallclock`` at their own
 ``--smoke`` settings) cut repetition to make room for phase 26; for
 phase 27, phase 24 runs ``fig6_async_order`` at its ``--smoke`` 30 rounds
 and phase 25 leaves out its Qwen3 fleet (the CLI's population run in
-phase 26 drives that engine on Qwen3); so do
+phase 26 drives that engine on Qwen3); for phase 28, phase 22 times no
+loop round, phase 18 one LM round a path (two before), phase 26 runs
+perf_bench's telemetry protocols once each (three before) and phase 27
+decodes 32 Qwen3 and 16 Mamba steps (64 and 32 before); so do
 phases 19 and 22 (a path's kernels a replayed round read from its
 ``run_compiled``'s own replays, not from one more profiled chunk), 21
 (its timed paths' unmasked twins are phase 19's runs) and 26 (qwen2-1.5b
@@ -238,8 +257,10 @@ now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
 ``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
-``"telemetry"``, ``"cli"``, ``"serve"`` and ``"known_reference_failures"``:
-phases 21-27's numbers; K6's record adds ``serve_prefill_launches``), the
+``"telemetry"``, ``"cli"``, ``"serve"``, ``"moe"`` and
+``"known_reference_failures"``: phases 21-28's numbers; K6's record adds
+``serve_prefill_launches``, and the records of the kernels the MoE path
+runs ``olmoe_launches_per_round`` and ``olmoe_max_abs_err``), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -306,6 +327,7 @@ from repro_torch.launch import specs as specs_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.train import LMBatcher, LMPool, build_data  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import layers as tf_layers  # noqa: E402
 from repro_torch.models import model as tf_mod  # noqa: E402
 from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
@@ -1018,6 +1040,48 @@ def check_ce(cases, err, dev):
 
 
 
+def check_swa(cases, err, dev, seed=100):
+    """K6's forward at ``cases`` against its plain version (phase 7's
+    bounds, see ``phase_lm_kernels``); the largest differences go into
+    ``err``."""
+    for k, ((b, s, h, kh, hd, win), dtype) in enumerate(cases):
+        q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, seed + k, dev)
+        name = swa.kernel_for(dtype, hd)
+        tag = f"[{b}, {s}, {h}, {kh}, {hd}] W={win} {str(dtype)[6:]}"
+        reset_counts()
+        got, lse = swa.swa_attention_fwd(q, kk, vv, win)
+        sync(dev)
+        check(counts() == only(**{name: 1}), f"{name} {tag} launched "
+              f"(kernel_for)")
+        want, wlse = ref.swa_attention_fwd(q, kk, vv, win)
+        tol = 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels
+        e = diff(got, want)
+        err[name] = max(err[name], e)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"{name} {tag} == plain at {tol:g} (max |diff| {e:.3g})")
+        ltol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        check(lse.shape == wlse.shape and diff(lse, wlse) <= ltol,
+              f"{name} {tag} lse (base 2) == plain within {ltol:g} (max "
+              f"|diff| {diff(lse, wlse):.3g})")
+        if dtype == torch.bfloat16:
+            again = swa.swa_attention_fwd(q, kk, vv, win)
+            sync(dev)
+            check(same(got, again[0]) and same(lse, again[1]),
+                  f"{name} {tag} bitwise equal o and lse on two calls")
+            del want, again
+            want = ref.swa_attention(q.float(), kk, vv, win)
+            bound = ref.swa_attention(q.float(), kk, vv.abs(), win)
+            bound.mul_(2.0 ** -7 + 2.0 ** -10).add_(want.abs(),
+                                                     alpha=2.0 ** -7)
+            r = worst_ratio(got, want, bound)
+            check(r <= 1.0, f"{name} {tag} per element within 2^-7 "
+                  f"|plain fp32| + (2^-7 + 2^-10) sum w|v| (worst "
+                  f"|diff|/bound {r:.3g})")
+            del bound
+        del q, kk, vv, got, want, lse, wlse
+        torch.cuda.empty_cache()
+
+
 def phase_lm_kernels(dev):
     """Phase 7: K3/K4a/K4b/K6 against their plain versions on the card.
     Returns the largest difference seen per kernel.
@@ -1099,42 +1163,7 @@ def phase_lm_kernels(dev):
            "fused_ce_bwd": 0.0, "swa_attention": 0.0, "swa_attention_tc": 0.0,
            **{n: 0.0 for n in swa.BWD_KERNELS}}
     check_ce(CE_CASES, err, dev)
-    for k, ((b, s, h, kh, hd, win), dtype) in enumerate(SWA_CASES):
-        q, kk, vv = swa_inputs(b, s, h, kh, hd, dtype, 100 + k, dev)
-        name = swa.kernel_for(dtype, hd)
-        tag = f"[{b}, {s}, {h}, {kh}, {hd}] W={win} {str(dtype)[6:]}"
-        reset_counts()
-        got, lse = swa.swa_attention_fwd(q, kk, vv, win)
-        sync(dev)
-        check(counts() == only(**{name: 1}), f"{name} {tag} launched "
-              f"(kernel_for)")
-        want, wlse = ref.swa_attention_fwd(q, kk, vv, win)
-        tol = 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels
-        e = diff(got, want)
-        err[name] = max(err[name], e)
-        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"{name} {tag} == plain at {tol:g} (max |diff| {e:.3g})")
-        ltol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-        check(lse.shape == wlse.shape and diff(lse, wlse) <= ltol,
-              f"{name} {tag} lse (base 2) == plain within {ltol:g} (max "
-              f"|diff| {diff(lse, wlse):.3g})")
-        if dtype == torch.bfloat16:
-            again = swa.swa_attention_fwd(q, kk, vv, win)
-            sync(dev)
-            check(same(got, again[0]) and same(lse, again[1]),
-                  f"{name} {tag} bitwise equal o and lse on two calls")
-            del want, again
-            want = ref.swa_attention(q.float(), kk, vv, win)
-            bound = ref.swa_attention(q.float(), kk, vv.abs(), win)
-            bound.mul_(2.0 ** -7 + 2.0 ** -10).add_(want.abs(),
-                                                     alpha=2.0 ** -7)
-            r = worst_ratio(got, want, bound)
-            check(r <= 1.0, f"{name} {tag} per element within 2^-7 "
-                  f"|plain fp32| + (2^-7 + 2^-10) sum w|v| (worst "
-                  f"|diff|/bound {r:.3g})")
-            del bound
-        del q, kk, vv, got, want, lse, wlse
-        torch.cuda.empty_cache()
+    check_swa(SWA_CASES, err, dev)
     check_swa_bwd(SWA_BWD_CASES, err, dev)
     done(t0)
     return err
@@ -2409,7 +2438,8 @@ def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
         batch = tr.to_device(LMBatcher(p["cfg"], p["fed"], LM_B, LM_H,
                                        seed=1).next_round())
         torch.cuda.empty_cache()
-        out[tag] = {**timed(tag, tr, tr.init(0), batch, LM_LR, 2, 1, 1),
+        # one timed LM round (two until phase 28 took the room)
+        out[tag] = {**timed(tag, tr, tr.init(0), batch, LM_LR, 1, 1, 1),
                     "peak_bytes": p["peak_bytes"],
                     "launches_per_round": {k: v for k, v in
                                            p["per_round"].items() if v}}
@@ -2638,10 +2668,16 @@ class ReplayWatch:
 
 
 def path_cfg(model, remat=False, layers=None):
-    """The LM path's config: phase 8's Qwen3 or phase 12's Mamba cut, with
-    ``remat`` and at depth ``layers`` (None: the path's own)."""
-    cfg = (lm_cfg() if model == "qwen3" else mb_cfg()).with_(remat=remat)
+    """The LM path's config: phase 8's Qwen3, phase 12's Mamba cut or
+    phase 28's olmoe, with ``remat`` and at depth ``layers`` (None: the
+    path's own)."""
+    cfg = {"qwen3": lm_cfg, "mamba": mb_cfg, "olmoe": moe_cfg}[model]().with_(
+        remat=remat)
     return cfg if layers is None else cfg.with_(num_layers=layers)
+
+
+def path_seq(model) -> int:
+    return MB_S if model == "mamba" else LM_S
 
 
 def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
@@ -2659,8 +2695,11 @@ def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
                 lambda: FederatedBatcher(fed, B, H, seed=0),
                 cost_model(bundle, N, SAMPLES // N), B)
     cfg = path_cfg(model, remat, layers)
-    s = seq or (LM_S if model == "qwen3" else MB_S)
-    bundle = lm_bundle(cfg, dev)
+    s = seq or path_seq(model)
+    # olmoe's 6.9 B parameters are drawn on the card (a host draw would
+    # take minutes)
+    bundle = card_bundle(cfg, dev) if model == "olmoe" \
+        else lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
                     method=method)
     fed = lm_data(cfg, fsl, s)
@@ -2685,6 +2724,34 @@ def events_ms(fn, reps: int, per: int) -> list:
 
 def state_on_cpu(state) -> list:
     return [t.cpu() for t in state_leaves(state)]
+
+
+def bits_digest(t: torch.Tensor) -> int:
+    """A 64-bit digest of ``t``'s bits, computed on its device: its bytes as
+    int64 words (zero-padded), each times its own odd weight (a splitmix64
+    hash of its index), summed modulo 2^64.  An odd weight is invertible
+    modulo 2^64, so a change in any one word always changes the digest;
+    changes in several words cancel with probability about 2^-64."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    b = torch.cat([b, b.new_zeros((-b.numel()) % 8)]).view(torch.int64)
+    total, step = 0, 1 << 26
+    for i in range(0, b.numel(), step):
+        z = torch.arange(i, min(i + step, b.numel()), dtype=torch.int64,
+                         device=b.device) * -7046029254386353131   # golden
+        z = (z ^ ((z >> 30) & 0x3FFFFFFFF)) * -4658895280553007687
+        z = (z ^ ((z >> 27) & 0x1FFFFFFFFF)) * -7723592293110705685
+        z = z ^ ((z >> 31) & 0x1FFFFFFFF)
+        total += int((b[i:i + step] * (z | 1)).sum())
+    return total % 2 ** 64
+
+
+def state_digests(state) -> list:
+    """``bits_digest`` of every state leaf: a state compared without a
+    copy of it (olmoe's 19.6 GB state: two copies to the host and a host
+    comparison took about 17 of phase 28's seconds on an H100 80GB HBM3
+    at 700 W)."""
+    return [(tuple(t.shape), t.dtype, bits_digest(t))
+            for t in state_leaves(state)]
 
 
 class Laps:
@@ -2757,7 +2824,8 @@ def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
 
 def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                         remat=False, seq=None, layers=None, want=None,
-                        reps=None, staged=False):
+                        reps=None, staged=False, time_loop=True,
+                        after_loop=None, digest=False):
     """Phase 19 for one path, with the measurements phase 20 prints; phase
     22 runs its paths through it with ``remat`` (at sequence ``seq`` and
     depth ``layers``).
@@ -2779,7 +2847,15 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     22.  ``reps``: the loop rounds and compiled chunks timed (default 5 on
     the CNN, 2 on an LM path; one LM round or chunk since phase 26 made
     room, PERF.md §7).  With ``staged``, last, the same rounds through the
-    staged data path (check_staged)."""
+    staged data path (check_staged).  Without ``time_loop`` no loop round
+    is timed (phase 22, whose ratios PERF.md quotes from the compiled
+    rounds): ``loop_ms`` and ``loop_idle`` are None.  ``after_loop(tr,
+    state, batcher)`` runs on the loop's final state before it is
+    freed (phase 28's aux losses).  With ``digest`` the loop's state is
+    kept as its leaves' ``bits_digest`` on the card instead of a host copy,
+    and run_compiled's state is held to those (phase 28; not with
+    ``keep``, ``want`` or ``staged``, which need the copy)."""
+    assert not (digest and (keep or want is not None or staged))
     lab = f"[{tag}{' remat' if remat else ''}]"
     print(f"  {lab} at the start: "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated",
@@ -2794,7 +2870,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     lcfg = None if model == "cnn" else path_cfg(model, remat, layers)
     expect = None if lcfg is None else lm_launches(lcfg, method, k2)
     if lcfg is not None:
-        seq = seq or (LM_S if model == "qwen3" else MB_S)
+        seq = seq or path_seq(model)
         print(f"  {lab} S {seq}, {lcfg.num_layers} layers; expected "
               f"launches a round { {k: v for k, v in expect.items() if v} }",
               flush=True)
@@ -2830,7 +2906,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     check(all(math.isfinite(row[k]) for row in lhist
               for k in metric_keys(row)), f"{lab} losses finite: "
           f"{[round(row[k], 6) for row in lhist for k in metric_keys(row)]}")
-    copy = state_on_cpu(state)
+    copy = state_digests(state) if digest else state_on_cpu(state)
     loop_run = {"state": copy, "hist": lhist, "meter": dict(meters[0].counts)}
     if want is not None:
         check(all(same(a, b) for a, b in zip(copy, want["state"]))
@@ -2838,12 +2914,15 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
               and meters[0].counts == want["meter"],
               f"[{tag}] run with remat == run without, bitwise (state, "
               "losses, meter)")
+    if after_loop is not None:
+        after_loop(tr, state, batcher)
+        lap("after the loop")
     box = {"state": state}
 
     def loop_round():
         box["state"], _ = tr.run(box["state"], batcher, 1)
 
-    loop_ms = events_ms(loop_round, reps, 1)
+    loop_ms = events_ms(loop_round, reps, 1) if time_loop else []
     loop_peak = torch.cuda.max_memory_allocated(dev)
     lap("loop timed rounds")
     del state, box
@@ -2867,18 +2946,21 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     first_s = time.perf_counter() - t - watch.added_s
     lap("run_compiled (warm-up, captures, replays profiled)")
     at_capture = {k: v for k, v in watch.at_capture.items() if v}
-    got = state_leaves(state)
-    bitwise = len(got) == len(copy) and all(
-        same(g, w) for g, w in zip(got, copy))
-    worst = 0.0 if bitwise else max(diff(g.cpu(), w)
-                                    for g, w in zip(got, copy))
+    if digest:
+        bitwise, worst = state_digests(state) == copy, float("nan")
+    else:
+        got = state_leaves(state)
+        bitwise = len(got) == len(copy) and all(
+            same(g, w) for g, w in zip(got, copy))
+        worst = 0.0 if bitwise else max(diff(g.cpu(), w)
+                                        for g, w in zip(got, copy))
     print(f"  {lab} run: {rounds} rounds in {loop_s:.3f} s (profiled); "
           f"run_compiled (warm-up, two captures, {rounds} replays at chunk "
           f"{chunk}): {first_s:.3f} s, less the {watch.added_s:.3f} s its "
           f"replays' profiling added; wrapper launches at warm-up and "
           f"capture {at_capture}")
     check(bitwise, f"{lab} run_compiled's state == run's, bitwise, under "
-          f"deterministic algorithms (worst |diff| {worst:.3g})")
+          f"deterministic algorithms ({f'{len(copy)} leaves, 64-bit digests of their bits' if digest else f'worst |diff| {worst:.3g}'})")
     check(chist == lhist, f"{lab} history rows (losses, aggregated, "
           "comm_bytes) == run's, bitwise")
     prof_ = tr.comm_profile(cm, bsz, batch=make_batcher().next_round())
@@ -2940,18 +3022,19 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     lap("compiled timed rounds")
     out = {"rounds": rounds, "chunk": chunk, "remat": remat,
            "seq": seq, "layers": lcfg and lcfg.num_layers,
-           "loop_ms": statistics.median(loop_ms), "loop_rounds_ms": loop_ms,
+           "loop_ms": statistics.median(loop_ms) if loop_ms else None,
+           "loop_rounds_ms": loop_ms,
            "compiled_ms": statistics.median(compiled_ms),
            "compiled_rounds_ms": compiled_ms, "loop_device_ms": loop_dev,
            "compiled_device_ms": replay_dev,
            "replay_ms": statistics.median(graph_ms_),
            "loop_peak_bytes": loop_peak, "compiled_peak_bytes": peak,
            "kernels_per_round": per_replay, "model_leaves": nm,
-           "run_compiled_first_s": first_s}
+           "run_compiled_first_s": first_s, "launches_per_round": expect}
     # idle: the loop's from its kernel time; the compiled round's from one
     # replayed round alone (inside a graph the profiler's kernel times can
     # add up to more than the replay: short kernels read long there)
-    out["loop_idle"] = 1 - loop_dev / out["loop_ms"]
+    out["loop_idle"] = 1 - loop_dev / out["loop_ms"] if loop_ms else None
     out["compiled_idle"] = 1 - out["replay_ms"] / out["compiled_ms"]
     if keep:
         out["loop_run"] = loop_run
@@ -3557,14 +3640,16 @@ REMAT_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", (MB_S,), None),
                 None),
                ("qwen3-fsl_mc-28L", "qwen3", "fsl_mc", (LM_S,), (28, 24)))
 REMAT_ROUNDS = 2
-# Phase 22 times one loop round and one compiled chunk a path (phase 19
-# times two): the room phase 25 takes in the script's time limit.
+# Phase 22 times one compiled chunk a path (phase 19 times two) and no loop
+# round (PERF.md quotes its compiled ratios): the room phases 25 and 28
+# take in the script's time limit.
 REMAT_REPS = 1
 
 
 def remat_line(tag, r) -> str:
-    return (f"[{tag} remat={r['remat']}] loop {r['loop_ms']:.3f} ms/round "
-            f"of {[round(x, 3) for x in r['loop_rounds_ms']]}, peak "
+    loop = "not timed" if r["loop_ms"] is None else \
+        f"{r['loop_ms']:.3f} ms/round"
+    return (f"[{tag} remat={r['remat']}] loop {loop}, peak "
             f"{r['loop_peak_bytes'] / 2**30:.3f} GiB | compiled "
             f"{r['compiled_ms']:.3f} ms/round of "
             f"{[round(x, 3) for x in r['compiled_rounds_ms']]}, peak "
@@ -3589,19 +3674,19 @@ def phase_remat(dev, paths=None, plain=None):
             continue
         if len(seqs) == 1 and depths is None:
             base = (plain or {}).get(tag) or check_compiled_path(
-                tag, model, method, r, r, dev, keep=True, seq=seqs[0])
+                tag, model, method, r, r, dev, keep=True, seq=seqs[0],
+                time_loop=False)
             print("  " + remat_line(tag, base) + (
                 " (phase 19's run)" if plain and tag in plain else ""))
             release(dev)
             withr = check_compiled_path(tag, model, method, r, r, dev,
                                         remat=True, seq=seqs[0],
                                         want=base["loop_run"],
-                                        reps=REMAT_REPS)
+                                        reps=REMAT_REPS, time_loop=False)
             print("  " + remat_line(tag, withr), flush=True)
             out[tag] = {"plain": {k: v for k, v in base.items()
                                   if k != "loop_run"}, "remat": withr}
             print(f"  [{tag}] remat costs "
-                  f"{withr['loop_ms'] / base['loop_ms']:.3f}x loop, "
                   f"{withr['compiled_ms'] / base['compiled_ms']:.3f}x "
                   f"compiled; peak {base['loop_peak_bytes'] / 2**30:.3f} -> "
                   f"{withr['loop_peak_bytes'] / 2**30:.3f} GiB loop, "
@@ -3615,7 +3700,8 @@ def phase_remat(dev, paths=None, plain=None):
                 try:
                     res = check_compiled_path(tag, model, method, r, r, dev,
                                               remat=True, seq=seq,
-                                              layers=layers, reps=REMAT_REPS)
+                                              layers=layers, reps=REMAT_REPS,
+                                              time_loop=False)
                 except torch.OutOfMemoryError:
                     res = {"seq": seq, "fits": False,
                            "layers": path_cfg(model, True, layers).num_layers,
@@ -4720,7 +4806,9 @@ CLI_HOST = ("comm", "participation", "faults", "population", "memory",
 RESUME_FAULTS = dict(loss_rate=0.4, max_retries=1, seed=1)
 RESUME_ROUNDS, RESUME_SPLIT = 6, 3
 MB_ENGINE_ROUNDS, MB_POP_ROUNDS = 1, 2
-TELE_PROTOCOL_RUNS = 3
+# perf_bench's telemetry row in each protocol once (three times each until
+# phase 28 took the room)
+TELE_PROTOCOL_RUNS = 1
 
 
 def card_bundle(cfg, device):
@@ -5058,7 +5146,8 @@ def check_perf_bench(dev, out):
           f"0.95 ({secs:.3f} s)")
     # the telemetry row's two protocols side by side on this machine: the
     # JAX driver's order (no-op side, then recorder, best of 3) and
-    # perf_bench's turns (best of 5), three times each, alternating
+    # perf_bench's turns (best of 5), TELE_PROTOCOL_RUNS times each,
+    # alternating
     protocols = []
     for turns in (False, True) * TELE_PROTOCOL_RUNS:
         r = perf_bench.bench_telemetry_overhead(
@@ -5315,22 +5404,24 @@ def phase_cli(dev, remat_runs=None, parts=("qwen3", "dense", "bench",
 # keeps no gradient or optimizer state.
 # - qwen3-serve-window: Qwen3-0.6B (bf16, the kernels on), a prefill of 4
 #   prompts of 4,096 tokens at window 4,096 (K6 once a layer) against the
-#   same prefill on the plain attention; 64 decode steps at positions
-#   4,096-4,159 (the ring wraps at the first), eager and captured, against
-#   the merged model on the 4,160 tokens (teacher-forced); layer 0's ring
+#   same prefill on the plain attention; 32 decode steps at positions
+#   4,096-4,127 (the ring wraps at the first), eager and captured, against
+#   the merged model on the 4,128 tokens (teacher-forced); layer 0's ring
 #   against that layer's k and v of the decoded tokens;
 # - qwen3-long: decode_specs(long_500k): B = 1, a ring of 4,096 slots,
 #   pos 524,287, 16 steps eager and captured;
 # - qwen3-cli: python -m repro_torch.launch.serve at its defaults (B 4,
 #   prompt 64, gen 32, 3 batches, window 0, caches padded);
 # - mamba-serve: falcon-mamba-7b at 64 layers drawn on the card, a prefill
-#   of 4 x 2,048 (the plain scan: K5 no launch), 32 steps eager and
-#   captured, against the merged model on the 2,080 tokens (through K5);
+#   of 4 x 2,048 (the plain scan: K5 no launch), 16 steps eager and
+#   captured, against the merged model on the 2,064 tokens (through K5);
 #   layer 0's conv window against its last 3 inputs; then the CLI;
 # - reduced: both archs reduced, the card's prefill and captured decode
 #   against the CPU's prefill and eager decode (8 steps); the example.
-SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LONG_STEPS = 4, 4096, 64, 16
-MB_SERVE_S, MB_SERVE_STEPS, SERVE_REDUCED_STEPS = 2048, 32, 8
+# The Qwen3 and Mamba decodes took 64 and 32 steps until phase 28 took
+# their host-bound eager steps' seconds.
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_LONG_STEPS = 4, 4096, 32, 16
+MB_SERVE_S, MB_SERVE_STEPS, SERVE_REDUCED_STEPS = 2048, 16, 8
 SERVE_SEED = 0
 # Two paths that compute the same function with other kernels and shapes
 # (K6 against the plain attention; a one-token decode against the whole
@@ -5736,6 +5827,346 @@ def phase_serve(dev, card="", parts=("qwen3", "long", "cli", "mamba",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the MoE family (olmoe-1b-7b at full width, phi3.5-moe reduced)
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b (configs/olmoe_1b_7b.py) at full width: 16 layers cut at 2,
+# d 2048, 16 heads over 16 kv heads (hd 128), 64 experts top 8 (d_ff 1024),
+# V 50,304, bf16, the kernels on, remat as the config sets it; CSE-FSL at
+# the LM path's n, h, B, S, lr, int8 uplink and model sync, one round.
+# Its parameters (6.92 B; 9.78 B with the four clients' copies of the cut)
+# are drawn on the card (card_bundle).
+MOE_ROUNDS = 1
+# K3/K4 at olmoe's heads (G, T, d, V): the server's and the 4 folded aux
+# heads'; K6 at its heads (B, S, H, KH, hd, W), the 4 folded clients, and
+# its backward at one server sequence.
+MOE_CE_CASES = [((1, 4096, 2048, 50304), torch.bfloat16),
+                ((4, 4096, 128, 50304), torch.bfloat16)]
+MOE_SWA_CASES = [((4, 4096, 16, 16, 128, 4096), torch.bfloat16)]
+MOE_SWA_BWD_CASES = [((1, 4096, 16, 16, 128, 4096), torch.bfloat16)]
+# One MoE layer on one group of 1,024 tokens, the card (bf16) against the
+# host CPU (fp32) from the card's router probabilities.  The routing is a
+# function of the probabilities, so the expert ids, slots and kept flags
+# must be equal.  On the card the output passes five bf16 roundings (h and
+# hg, their gated product, the expert output, the combine weight, y), each
+# within 2^-8 of its value, so its relative 2-norm error stays within
+# 5 x 2^-8; a token sent to a wrong expert moves it by about 1.
+MOE_GROUP, MOE_LAYER_BOUND = 1024, 5 * 2.0 ** -8
+# Serving: prefill [4, 2048] at window 4096 (K6 once a layer), 32 captured
+# decode steps.  phi3.5-moe reduced (2 layers, d 256, 4 experts top 2):
+# one round at S 512, then prefill [4, 512] and 4 captured decode steps.
+MOE_SERVE_S, MOE_SERVE_STEPS = 2048, 32
+PHI_S, PHI_STEPS = 512, 4
+
+
+def moe_cfg():
+    return get_config("olmoe-1b-7b").with_(use_pallas=True)
+
+
+def no_drops(cfg):
+    """``cfg`` at the capacity factor E / k: an expert's capacity is the
+    whole group, so no choice drops."""
+    return cfg.with_(moe_capacity_factor=cfg.num_experts
+                     / cfg.num_experts_per_tok)
+
+
+def moe_kernels(dev, out):
+    """Phase 28 (a): K3/K4 and K6 (forward and backward) at olmoe's
+    shapes against their plain versions, phase 7's bounds."""
+    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "fused_ce_bwd": 0.0, "swa_attention": 0.0, "swa_attention_tc": 0.0,
+           **{n: 0.0 for n in swa.BWD_KERNELS}}
+    check_ce(MOE_CE_CASES, err, dev)
+    check_swa(MOE_SWA_CASES, err, dev, seed=600)
+    check_swa_bwd(MOE_SWA_BWD_CASES, err, dev)
+    out["kernel_max_abs_err"] = {k: v for k, v in err.items() if v}
+    release(dev)
+
+
+def moe_aux_losses(out):
+    """``after_loop`` of phase 28's training path: client 0's and the
+    server's summed aux losses on one sequence, from the trained state."""
+    def after(tr, state, batcher):
+        cfg = moe_cfg().with_(remat=True)
+        ctx = Ctx(cfg, "train", window=cfg.swa_window)
+        toks = serve_tokens(cfg.vocab_size, 1, LM_S, state_leaves(
+            state)[0].device)
+        with torch.no_grad():
+            cp = tree_map(lambda t: t[0], state["clients"]["params"]
+                          ["client"])
+            sm, caux, _ = tf_mod.client_forward(cfg, cp, {"tokens": toks},
+                                                ctx)
+            _, saux, _ = tf_mod.server_forward(
+                cfg, state["server"]["params"], sm, ctx)
+        caux, saux = float(caux), float(saux)
+        check(all(math.isfinite(a) and a > 0 for a in (caux, saux)),
+              f"[olmoe-cse_fsl] the trained model's aux losses finite and "
+              f"> 0: client stage {caux:.6f} (2 layers), server stage "
+              f"{saux:.6f} (14 layers; 1.0 a layer is a uniform load)")
+        out["aux_losses"] = {"client": caux, "server": saux}
+    return after
+
+
+def moe_train(dev, out):
+    """Phase 28 (b): CSE-FSL on full-width olmoe through phase 19's checks
+    (check_compiled_path, remat on): a loop round and a replayed round
+    bitwise, launches a round as lm_launches states, losses finite, the
+    meter CommProfile's, ms a round in both engines, idle and peak."""
+    out["train"] = check_compiled_path(
+        "olmoe-cse_fsl", "olmoe", "cse_fsl", MOE_ROUNDS, MOE_ROUNDS, dev,
+        remat=True, reps=1, after_loop=moe_aux_losses(out), digest=True)
+    r = out["train"]
+    print(f"  [olmoe-cse_fsl] loop {r['loop_ms']:.3f} ms/round (device "
+          f"{r['loop_device_ms']:.3f} ms, idle {r['loop_idle']:.4f}), peak "
+          f"{r['loop_peak_bytes'] / 2**30:.3f} GiB | compiled "
+          f"{r['compiled_ms']:.3f} ms/round (replay {r['replay_ms']:.3f}, "
+          f"idle {r['compiled_idle']:.4f}), peak "
+          f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    release(dev)
+
+
+def moe_layer(dev, out):
+    """Phase 28 (c): one full-width MoE layer.  Its dispatch on one group
+    of 1,024 tokens against the host CPU's from the card's router
+    probabilities (expert ids, slots and kept flags equal; a zero row to
+    experts 0..7), its output against the CPU's fp32 experts
+    (MOE_LAYER_BOUND); then the whole block (attention and experts) as a
+    one-layer stage with remat against the same stage without it:
+    output, aux loss and every gradient bitwise, under deterministic
+    algorithms."""
+    lab = "[olmoe-layer]"
+    cfg = moe_cfg()
+    d, e, k = cfg.d_model, cfg.num_experts, cfg.num_experts_per_tok
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    with torch.device(dev):
+        p = blocks.moe_init(cfg, gen, torch.bfloat16)
+        xn = torch.randn((MOE_GROUP, d), generator=gen).to(torch.bfloat16)
+    xn[7] = 0.0
+    g, s, cap = tf_layers.moe_groups(MOE_GROUP, cfg.moe_group_size, e, k,
+                                     cfg.moe_capacity_factor)
+    probs = tf_layers.moe_router_probs(xn.reshape(g, s, d),
+                                       p["moe"]["router"])
+    idx, gates, slot, keep = tf_layers.moe_slots(probs, k, cap)
+    hidx, hgates, hslot, hkeep = tf_layers.moe_slots(probs.cpu(), k, cap)
+    kept = int(keep.sum())
+    check(torch.equal(idx.cpu(), hidx) and torch.equal(slot.cpu(), hslot)
+          and torch.equal(keep.cpu(), hkeep)
+          and torch.allclose(gates.cpu(), hgates, rtol=1e-6, atol=0),
+          f"{lab} dispatch of {g} x {s} tokens (capacity {cap}) == the "
+          f"host CPU's from the card's fp32 router probabilities: expert "
+          f"ids, slots and kept flags equal, gates within 1e-6 ({kept} of "
+          f"{g * s * k} choices kept)")
+    check(idx[0, 7].tolist() == list(range(k)),
+          f"{lab} a zero row's {e} equal probabilities route it to experts "
+          f"0..{k - 1}: {idx[0, 7].tolist()}")
+    y, aux = tf_layers.moe_ffn(xn, p["moe"], num_experts=e, k=k,
+                               capacity_factor=cfg.moe_capacity_factor,
+                               group_size=cfg.moe_group_size)
+    disp, comb, haux = tf_layers.moe_tables(probs.cpu(), k, cap)
+    hp = {n: p["moe"][n].float().cpu() for n in ("w1", "w2", "w3")}
+    want = tf_layers.moe_experts(xn.float().cpu(), disp, comb, hp, g, s)
+    err = rel_error(y, want)
+    check(err <= MOE_LAYER_BOUND and math.isclose(float(aux), float(haux),
+                                                  rel_tol=1e-5),
+          f"{lab} output against the host CPU's fp32 experts: relative "
+          f"2-norm {err:.6f} <= {MOE_LAYER_BOUND:.4f} (max |diff| "
+          f"{diff(y.cpu(), want):.4g}); aux loss {float(aux):.6f} == the "
+          f"CPU's {float(haux):.6f}")
+    del disp, comb, hp, want, y
+    out["layer"] = {"kept": kept, "choices": g * s * k, "capacity": cap,
+                    "rel2": err, "bound": MOE_LAYER_BOUND}
+
+    # the block as a one-layer stage, with and without remat
+    sp = {"blocks": tree_map(lambda t: t[None], p)}
+    plan = tf_mod.StagePlan("moe", 1)
+    with torch.device(dev):
+        x = torch.randn((1, MOE_GROUP, d), generator=gen).to(torch.bfloat16)
+        gy = torch.randn((1, MOE_GROUP, d), generator=gen)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    try:
+        for remat in (False, True):
+            c = cfg.with_(remat=remat)
+            xx = x.clone().requires_grad_(True)
+            leaves = [t.clone().requires_grad_(True)
+                      for t in tree_leaves(sp)]
+            it = iter(leaves)
+            spp = tree_map(lambda _: next(it), sp)
+            reset_counts()
+            xo, a, _ = tf_mod.stage_apply(c, plan, spp, xx, Ctx(
+                c, "train", window=c.swa_window))
+            loss = (xo.float() * gy).sum() + tf_mod.MOE_AUX_COEF * a
+            grads = torch.autograd.grad(loss, [xx, *leaves])
+            sync(dev)
+            runs[remat] = (xo.detach(), a.detach(), grads,
+                           {n: v for n, v in counts().items() if v})
+            del xx, leaves, spp, xo, a, loss, grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (x0, a0, g0, c0), (x1, a1, g1, c1) = runs[False], runs[True]
+    ri = 1 + len(tree_leaves(p["attn"])) + 1     # x, attn, moe's ln, router
+    check(same(x0, x1) and same(a0, a1) and len(g0) == len(g1)
+          and all(same(u, v) for u, v in zip(g0, g1)),
+          f"{lab} the block ([1, {MOE_GROUP}, {d}], attention and experts) "
+          f"with remat == without, bitwise: output, aux loss "
+          f"{float(a0):.6f} and all {len(g0)} gradients (the router's "
+          f"summed |.| {float(g0[ri].abs().sum()):.4g})")
+    check(c1.get("swa_attention_tc") == 2 * c0.get("swa_attention_tc", 0)
+          == 2, f"{lab} K6 once without remat, twice with it (the "
+          f"backward's rerun): {c0} -> {c1}")
+    out["layer"]["remat_launches"] = {"plain": c0, "remat": c1}
+    del runs, p, sp, x, gy, xn, probs
+    release(dev)
+
+
+def moe_serve(dev, out, card):
+    """Phase 28 (d): serving full-width olmoe: the windowed prefill of
+    [4, 2048] at the config's factor (K6 once a layer, timed; layer 0's
+    drops counted); then, with drops disabled (``no_drops``: a decode
+    step groups only its 4 tokens and drops nothing, full_forward groups
+    the sequence), the prefill, 32 captured decode steps bitwise the eager
+    ones, and the last step against full_forward."""
+    lab = "[olmoe-serve]"
+    cfg = moe_cfg()
+    nd = no_drops(cfg)
+    win, L, d = cfg.swa_window, cfg.num_layers, cfg.d_model
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = serve_mod.draw_params(cfg, SERVE_SEED, dev)
+    toks = serve_tokens(cfg.vocab_size, SERVE_B,
+                        MOE_SERVE_S + MOE_SERVE_STEPS, dev)
+    prompt = {"tokens": toks[:, :MOE_SERVE_S]}
+    ms = []
+    for _ in range(2):              # the second call is timed
+        reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        logits, caches = tf_mod.prefill(cfg, params, prompt, window=win)
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        launched = counts()
+    check(launched == only(swa_attention_tc=L)
+          and torch.isfinite(logits.float()).all(),
+          f"{lab} prefill [{SERVE_B}, {MOE_SERVE_S}] at window {win}: K6 "
+          f"launched {launched['swa_attention_tc']} == {L} times (once a "
+          f"layer), nothing else; logits finite ({ms[1]:.3f} ms)")
+    del caches, logits
+    p0 = layer0(params)
+    with torch.no_grad():
+        x0 = tf_mod.embed_inputs(cfg, params["client"], prompt)
+        x1, _ = blocks.attn_apply(cfg, p0["attn"], x0, Ctx(
+            cfg, "prefill", window=win), None)
+        xn = tf_layers.rmsnorm(x1, p0["moe"]["ln"]).reshape(-1, d)
+        t = xn.shape[0]
+        g, s, cap = tf_layers.moe_groups(t, min(cfg.moe_group_size, t), e,
+                                         k, cfg.moe_capacity_factor)
+        keep = tf_layers.moe_slots(tf_layers.moe_router_probs(
+            xn[: g * s].reshape(g, s, d), p0["moe"]["router"]), k, cap)[3]
+    dropped = g * s * k - int(keep.sum())
+    print(f"  {lab} at the config's factor {cfg.moe_capacity_factor} layer "
+          f"0's prefill drops {dropped} of {g * s * k} choices ({g} groups "
+          f"of {s}, capacity {cap}); a decode step of {SERVE_B} tokens has "
+          f"capacity {tf_layers.moe_groups(SERVE_B, SERVE_B, e, k, cfg.moe_capacity_factor)[2]} "
+          "and drops none", flush=True)
+    del x0, x1, xn, keep
+    _, caches = tf_mod.prefill(nd, params, prompt, window=win)
+    ring = min(win, MOE_SERVE_S)
+    last, caches, eager_ms, graph_ms = decode_pair(
+        lab, nd, params, caches, toks[:, MOE_SERVE_S:], MOE_SERVE_S, win,
+        dev)
+    del caches
+    with torch.no_grad():
+        # the ring holds min(window, prompt) = 2,048 slots, so each step
+        # attends to the last 2,048 positions: full_forward at that window
+        x = tf_mod.full_forward(nd, params, {"tokens": toks},
+                                Ctx(nd, "train", window=ring))
+        full = tf_mod.server_logits_fn(nd, params["server"])(
+            x[:, -1:])[:, 0]
+        del x
+    bound = serve_bound(L)
+    err = rel_error(last, full)
+    agree = float((last.argmax(-1) == full.argmax(-1)).float().mean())
+    check(err <= bound, f"{lab} drops disabled (capacity factor "
+          f"{nd.moe_capacity_factor}): the last step's logits (position "
+          f"{MOE_SERVE_S + MOE_SERVE_STEPS - 1}) against full_forward on "
+          f"{MOE_SERVE_S + MOE_SERVE_STEPS} tokens at window {ring}: "
+          f"relative 2-norm {err:.6f} <= {bound:.4f} (argmax agreement "
+          f"{agree})")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["serve"] = {"k6_launches": launched["swa_attention_tc"],
+                    "prefill_cold_ms": ms[0], "layer0_dropped": dropped,
+                    "layer0_choices": g * s * k, "full_forward_rel2": err,
+                    "bound": bound, "argmax_agreement": agree}
+    serve_times(lab, out["serve"], ms[1], eager_ms, graph_ms, SERVE_B, peak,
+                card)
+    del params
+    release(dev)
+
+
+def moe_phi(dev, out):
+    """Phase 28 (e): phi3.5-moe-42b-a6.6b reduced (its 42 B parameters do
+    not fit one card): one CSE-FSL round on the card (int8 uplink and
+    model sync) with the launches lm_launches states and finite losses,
+    then a prefill and captured decode steps bitwise the eager ones."""
+    lab = "[phi3.5-moe-reduced]"
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced().with_(use_pallas=True)
+    bundle = transformer_bundle(cfg, device=dev)
+    fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, codec="int8",
+                    model_codec="int8")
+    tr = Trainer(bundle, fsl)
+    nm = len(tr.method.model_sync_specs(bundle, fsl))
+    expect = lm_launches(cfg, "cse_fsl", tr.units_per_round + 2 * nm)
+    fed = build_data(cfg, fsl, PHI_S, LM_SAMPLES, False)
+    reset_counts()
+    state, hist = tr.run(tr.init(0), LMBatcher(cfg, fed, LM_B, LM_H), 1,
+                         log_every=1)
+    sync(dev)
+    got = counts()
+    check(got == expect and all(math.isfinite(r[m]) for r in hist
+                                for m in metric_keys(r)),
+          f"{lab} one round at S {PHI_S}: launches "
+          f"{ {n: v for n, v in got.items() if v} } == expected, losses "
+          f"{[round(r[m], 5) for r in hist for m in metric_keys(r)]} finite")
+    del state, tr
+    params = serve_mod.draw_params(cfg, SERVE_SEED, dev)
+    toks = serve_tokens(cfg.vocab_size, SERVE_B, PHI_S + PHI_STEPS, dev)
+    _, caches = tf_mod.prefill(cfg, params, {"tokens": toks[:, :PHI_S]},
+                               cache_len=PHI_S + PHI_STEPS)
+    decode_pair(lab, cfg, params, caches, toks[:, PHI_S:], PHI_S, 0, dev)
+    out["phi"] = {"losses": hist[0], "launches": {
+        n: v for n, v in got.items() if v}}
+    release(dev)
+
+
+def phase_moe(dev, card="", parts=("kernels", "train", "layer", "serve",
+                                   "phi")):
+    """Phase 28: the MoE family on the card, the ``parts`` of it: the
+    kernels at olmoe's shapes, CSE-FSL on full-width olmoe-1b-7b in both
+    engines, one layer against the host CPU and with remat, serving, and
+    phi3.5-moe reduced.  Returns the phase's numbers."""
+    t0 = phase("28 MoE: full-width olmoe-1b-7b (64 experts top 8, "
+               "capacity-limited dispatch, aux loss through remat) trained "
+               "in both engines and served; phi3.5-moe reduced")
+    release(dev)
+    out, secs = {}, {}
+    steps = (("kernels", moe_kernels, (dev, out)),
+             ("train", moe_train, (dev, out)),
+             ("layer", moe_layer, (dev, out)),
+             ("serve", moe_serve, (dev, out, card)),
+             ("phi", moe_phi, (dev, out)))
+    for part, fn, args in steps:
+        if part in parts:
+            t = time.perf_counter()
+            fn(*args)
+            secs[part] = time.perf_counter() - t
+    out["seconds"] = secs
+    print(f"  seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -5795,6 +6226,7 @@ def main() -> int:
                                              compiled=compiled)
     cli_out = phase_cli(dev, remat)
     serve = phase_serve(dev, card)
+    moe = phase_moe(dev, card)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -5811,6 +6243,16 @@ def main() -> int:
         if r_["name"] == "swa_attention_tc":
             r_["serve_prefill_launches"] = serve["qwen3_window"][
                 "k6_launches"]
+            r_["olmoe_serve_prefill_launches"] = moe["serve"]["k6_launches"]
+    # the MoE path (phase 28): launches a round at olmoe's shapes and the
+    # largest differences from the plain versions there
+    moe_launches = moe["train"]["launches_per_round"]
+    for r_ in records + lm_records:
+        key = "fused_ce_p" if r_["name"] == "fused_ce_bwd" else r_["name"]
+        if moe_launches.get(key):
+            r_["olmoe_launches_per_round"] = moe_launches[key]
+            r_["olmoe_max_abs_err"] = moe["kernel_max_abs_err"].get(
+                r_["name"])
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
@@ -5821,6 +6263,8 @@ def main() -> int:
                       "population": population, "telemetry": telemetry,
                       "cli": {k: v for k, v in cli_out.items()
                               if k != "k2_leaf"}, "serve": serve,
+                      "moe": {k: v for k, v in moe.items()
+                              if k != "kernel_max_abs_err"},
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

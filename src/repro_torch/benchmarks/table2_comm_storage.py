@@ -2,9 +2,9 @@
 global epoch (``benchmarks/table2_comm_storage.py``).
 
 Evaluates the Table II cost model with the byte sizes of the paper's
-CIFAR-10 CNN and of the transformer configs the port runs (qwen3-0.6b,
-falcon-mamba-7b; the MoE family is not ported yet), across h in {1, 5,
-10, 25, 50}, and asserts the paper's claim that CSE-FSL's uplink at period
+CIFAR-10 CNN and of a transformer config per family (qwen3-0.6b,
+olmoe-1b-7b, falcon-mamba-7b: the JAX script's), across h in {1, 5, 10,
+25, 50}, and asserts the paper's claim that CSE-FSL's uplink at period
 h is FSL_AN's divided by h.  Run from the repo root:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.table2_comm_storage
@@ -23,7 +23,7 @@ from repro_torch.models.cnn import CIFAR10
 
 METHODS = ("fsl_mc", "fsl_oc", "fsl_an", "cse_fsl")
 HS = (1, 5, 10, 25, 50)
-ARCHS = ("qwen3-0.6b", "falcon-mamba-7b")
+ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "falcon-mamba-7b")
 
 
 def cost_model_for(bundle, n: int, d_local: int, seq: int = 1) -> CostModel:
@@ -65,7 +65,7 @@ def main(device="cuda"):
     for h in HS:        # the paper's claim: CSE uplink at h == AN's / h
         cse = comm_one_epoch(cm, "cse_fsl", h=h)
         assert cse["uplink_smashed"] == an["uplink_smashed"] // h
-    # a transformer per ported family (512 tokens a sample)
+    # a transformer per family (512 tokens a sample)
     for arch in ARCHS:
         cmx = cost_model_for(transformer_bundle(get_config(arch),
                                                 device=device),

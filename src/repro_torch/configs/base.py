@@ -3,7 +3,7 @@
 input shapes (``ShapeConfig``, ``SHAPES``) the serving specs read.
 
 Only the fields this port reads are here.  ``ModelConfig`` carries the
-dense and Mamba-1 (``ssm``) families' fields; MoE, hybrid and modality
+dense, MoE and Mamba-1 (``ssm``) families' fields; hybrid and modality
 fields come with the slices that port those families.  ``remat`` recomputes
 each layer's activations in the backward (``models.model.Remat``, a
 layer-level ``torch.autograd.Function`` that composes with the client
@@ -16,7 +16,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclass(frozen=True)
@@ -38,6 +38,12 @@ class ModelConfig:
     rope_theta: float = 1e6
     encoder_only: bool = False
     swa_window: int = 0             # 0 = full attention; >0 = sliding window
+
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 1024      # token group size for capacity dispatch
 
     # SSM (mamba1: falcon-mamba)
     ssm_variant: str = ""           # "" | "mamba1"
@@ -89,8 +95,9 @@ class ModelConfig:
         return replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model<=256, no remat (the
-        reference's ``reduced`` on the dense and ssm families)."""
+        """Smoke-test variant: 2 layers, d_model<=256, <=4 experts top<=2,
+        no remat (the reference's ``reduced`` on the dense, moe and ssm
+        families)."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
@@ -100,7 +107,11 @@ class ModelConfig:
             num_layers=2, d_model=d, num_heads=heads, num_kv_heads=kv,
             head_dim=0, d_ff=min(self.d_ff, 512),
             vocab_size=min(self.vocab_size, 512), cut_layer=1,
-            aux_rank=min(self.aux_rank, 32), ssm_chunk=16, remat=False)
+            aux_rank=min(self.aux_rank, 32), moe_group_size=64,
+            ssm_chunk=16, remat=False)
+        if self.num_experts:
+            kw["num_experts"] = min(self.num_experts, 4)
+            kw["num_experts_per_tok"] = min(self.num_experts_per_tok, 2)
         if self.ssm_variant:
             kw["ssm_state"] = min(self.ssm_state, 16)
         return self.with_(**kw)

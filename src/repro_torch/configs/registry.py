@@ -1,22 +1,25 @@
 """Registry of the architectures the port runs (``repro.configs.registry``).
 
 ``get_config(name)`` returns the full-size ModelConfig;
-``get_config(name).reduced()`` is the CPU smoke variant.  The other
-families (MoE, hybrid, VLM, audio) join as their slices are ported
+``get_config(name).reduced()`` is the CPU smoke variant, in the
+reference's order.  The other families (hybrid, VLM, audio) join as their
+slices are ported
 (ROADMAP Queue 1 item 4); asking for any other name raises a ``KeyError``
 that says so.
 """
 from __future__ import annotations
 
-from repro_torch.configs import falcon_mamba_7b, glm4_9b, qwen2_1_5b, \
-    qwen2_72b, qwen3_0_6b
+from repro_torch.configs import falcon_mamba_7b, glm4_9b, olmoe_1b_7b, \
+    phi35_moe, qwen2_1_5b, qwen2_72b, qwen3_0_6b
 
 ARCHS = {
+    "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
     "qwen2-72b": qwen2_72b.CONFIG,
     "falcon-mamba-7b": falcon_mamba_7b.CONFIG,
     "qwen2-1.5b": qwen2_1_5b.CONFIG,
     "glm4-9b": glm4_9b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi35_moe.CONFIG,
 }
 
 

@@ -1,13 +1,14 @@
-"""Per-layer blocks, init + apply (``repro.models.blocks``), for the dense
-and Mamba-1 kinds, in training, prefill and decode mode.
+"""Per-layer blocks, init + apply (``repro.models.blocks``), for the dense,
+MoE and Mamba-1 kinds, in training, prefill and decode mode.
 
 A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
 Depth comes from params stacked on a leading layer axis (``model.py``).
 Prefill emits each layer's cache; decode updates the cache it is given in
 place and returns it (the attention's ring slot, the conv window, the SSM
 state), where the reference returns new arrays that its ``jax.jit``
-donates.  The MoE, Mamba-2 and hybrid kinds come with the slices that
-port them (ROADMAP Queue 1 item 4).
+donates.  The MoE block returns its load-balance loss as ``aux_loss`` (a
+0-d fp32 tensor; the others a Python 0.0).  The Mamba-2 and hybrid kinds
+come with the slices that port them (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -166,6 +167,40 @@ def dense_apply(cfg, p, x, ctx: Ctx, cache):
 
 
 # ---------------------------------------------------------------------------
+# MoE (olmoe, phi3.5-moe): the attention sub-block, then top-k experts
+# ---------------------------------------------------------------------------
+
+
+def moe_init(cfg, gen, dtype, lead=()):
+    """The router is drawn and kept in fp32 whatever ``dtype`` is."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    lead = tuple(lead)
+    return {
+        "attn": attn_init(cfg, gen, dtype, lead),
+        "moe": {
+            "ln": torch.ones(lead + (d,), dtype=dtype),
+            "router": _init(gen, lead + (d, e), d ** -0.5, torch.float32),
+            "w1": _init(gen, lead + (e, d, f), d ** -0.5, dtype),
+            "w3": _init(gen, lead + (e, d, f), d ** -0.5, dtype),
+            "w2": _init(gen, lead + (e, f, d), f ** -0.5, dtype),
+        },
+    }
+
+
+def moe_apply(cfg, p, x, ctx: Ctx, cache):
+    """The B*S tokens in groups of ``min(moe_group_size, B*S)``: a decode
+    step groups only its B tokens."""
+    x, new_cache = attn_apply(cfg, p["attn"], x, ctx, cache)
+    b, s, d = x.shape
+    xn = L.rmsnorm(x, p["moe"]["ln"]).reshape(b * s, d)
+    y, aux = L.moe_ffn(xn, p["moe"], num_experts=cfg.num_experts,
+                       k=cfg.num_experts_per_tok,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       group_size=min(cfg.moe_group_size, b * s))
+    return x + y.reshape(b, s, d), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
 # Mamba-1 (falcon-mamba)
 # ---------------------------------------------------------------------------
 
@@ -248,13 +283,16 @@ def mamba1_cache_spec(cfg, batch, dtype):
 
 BLOCKS = {
     "dense": (dense_init, dense_apply),
+    "moe": (moe_init, moe_apply),
     "mamba1": (mamba1_init, mamba1_apply),
 }
+# the kinds whose apply returns an aux loss (a tensor)
+AUX_KINDS = frozenset({"moe"})
 
 
 def block_kind(cfg: ModelConfig) -> str:
-    if cfg.family == "dense":
-        return "dense"
+    if cfg.family in ("dense", "moe"):
+        return cfg.family
     if cfg.family == "ssm":
         kind = cfg.ssm_variant or "mamba1"
         if kind in BLOCKS:
@@ -267,7 +305,7 @@ def block_kind(cfg: ModelConfig) -> str:
 def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                      dtype):
     """One layer's decode cache of block ``kind`` as ``meta`` tensors."""
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         return attn_cache_spec(cfg, batch, cache_len, dtype)
     if kind == "mamba1":
         return mamba1_cache_spec(cfg, batch, dtype)

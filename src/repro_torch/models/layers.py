@@ -128,6 +128,135 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
 
 
 # ---------------------------------------------------------------------------
+# MoE: top-k token-choice routing with capacity (mesh-TF style dispatch)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(probs: torch.Tensor, k: int):
+    """``lax.top_k(probs, k)``: the k largest router probabilities and their
+    experts, the lower expert first among equal ones (a stable descending
+    sort; ``torch.topk`` does not promise that order, and a token whose
+    normed input is all zeros has E equal probabilities: experts 0..k-1)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_groups(t: int, group_size: int, num_experts: int, k: int,
+               capacity_factor: float):
+    """``(G, S, C)`` of ``t`` tokens: ``G = max(1, t // group_size)``
+    groups of ``S = t // G`` tokens (a group is S tokens, not
+    ``group_size``), and the capacity C of each expert in a group, in the
+    reference's Python-float order."""
+    g = max(1, t // group_size)
+    s = t // g
+    return g, s, max(4, int(s * k / num_experts * capacity_factor))
+
+
+def moe_router_probs(xg: torch.Tensor, router_w: torch.Tensor):
+    """Router probabilities ``[G,S,E]`` of grouped tokens ``xg`` [G,S,d]:
+    fp32 logits from the widened input, then the softmax.  One flipped
+    choice re-routes a token, so the product must stay fp32 (no TF32)."""
+    if xg.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the MoE router needs fp32 logits: turn "
+                           "torch.backends.cuda.matmul.allow_tf32 off")
+    logits = torch.einsum("gsd,de->gse", xg.float(), router_w.float())
+    return torch.softmax(logits, dim=-1)
+
+
+def moe_slots(probs: torch.Tensor, k: int, cap: int):
+    """The routing of router probabilities ``probs`` [G,S,E] at capacity
+    ``cap`` -> ``(idx [G,S,K], gates [G,S,K], slot [G,S,E], keep
+    [G,S,E])``: each token's top k experts (``moe_route``) and gates,
+    normalised over all k choices before any drop; a choice of expert e
+    takes e's next slot in priority order (token-major, then choice), and
+    is kept while its slot is below ``cap``.  A token's k choices go to
+    distinct experts, so its slot at e is the number of earlier tokens of
+    its group that chose e (an exclusive integer cumsum over the group):
+    the reference's cumsum over the flattened ``[G, S*K, E]`` one-hot."""
+    gates, idx = moe_route(probs, k)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    chosen = (idx[..., None] == torch.arange(probs.shape[-1],
+                                             device=probs.device)).any(2)
+    slot = torch.cumsum(chosen.int(), dim=1) - 1
+    return idx, gates, slot, chosen & (slot < cap)
+
+
+def moe_tables(probs: torch.Tensor, k: int, cap: int,
+               dtype=torch.float32):
+    """Dispatch and combine ``[G,S,E,C]`` in ``dtype`` and the fp32
+    load-balance aux loss of router probabilities ``probs`` [G,S,E] at
+    capacity ``cap``.
+
+    The reference builds a ``[G,S,K,E,C]`` fp32 one-hot of the slots and
+    contracts K (335 MB a group at olmoe's E 64, C 160); here the masks
+    come from :func:`moe_slots` directly, the same numbers: a dispatch
+    cell is 1 where a kept choice of the token holds that slot, a combine
+    cell that choice's gate.  In another ``dtype`` they are the fp32
+    tables cast (a combine cell is 1 times a gate: the cast gate)."""
+    e = probs.shape[-1]
+    idx, gates, slot, keep = moe_slots(probs, k, cap)
+    disp = (keep[..., None] & (slot[..., None] == torch.arange(
+        cap, device=probs.device))).to(dtype)
+    onehot = (idx[..., None] == torch.arange(e, device=probs.device)).float()
+    gate_e = (onehot * gates[..., None]).sum(2)        # one term an expert
+    comb = disp * gate_e.to(dtype)[..., None]
+    # load-balance auxiliary loss (Switch/OLMoE style): top-1 fractions
+    frac_tokens = onehot[:, :, 0, :].mean(1)
+    frac_probs = probs.mean(1)
+    aux = e * (frac_tokens * frac_probs).sum(-1).mean()
+    return disp, comb, aux
+
+
+def moe_dispatch(x, router_w, *, num_experts: int, k: int,
+                 capacity_factor: float, group_size: int):
+    """Capacity-limited dispatch and combine tensors.
+
+    x: [T,d] flat tokens -> ``(dispatch [G,S,E,C], combine [G,S,E,C]
+    fp32, aux_loss fp32 scalar, (G, S, C))`` (:func:`moe_groups`,
+    :func:`moe_router_probs`, :func:`moe_tables`); the ragged tail ``T -
+    G S`` is not routed.  Static shapes, no host value: it runs under
+    ``vmap``, in a CUDA-graph capture and under deterministic
+    algorithms."""
+    t, d = x.shape
+    g, s, cap = moe_groups(t, group_size, num_experts, k, capacity_factor)
+    probs = moe_router_probs(x[: g * s].reshape(g, s, d), router_w)
+    disp, comb, aux = moe_tables(probs, k, cap)
+    return disp, comb, aux, (g, s, cap)
+
+
+def moe_experts(x, disp, comb, params, g: int, s: int):
+    """The experts' SwiGLU on the dispatched tokens and the combine: x
+    [T,d] with its tables ``disp``/``comb`` [G,S,E,C] -> [T,d].  The
+    combine weights are cast to the activations' dtype before the combine
+    product, as the reference casts them; the ragged tail ``T - G S``
+    passes through as zeros."""
+    t, d = x.shape
+    xg = x[: g * s].reshape(g, s, d)
+    ein = torch.einsum("gsec,gsd->egcd", disp.to(x.dtype), xg)
+    h = torch.einsum("egcd,edf->egcf", ein, params["w1"])
+    hg = torch.einsum("egcd,edf->egcf", ein, params["w3"])
+    out = torch.einsum("egcf,efd->egcd", silu(h) * hg, params["w2"])
+    y = torch.einsum("gsec,egcd->gsd", comb.to(x.dtype), out)
+    y = y.reshape(g * s, d)
+    if g * s < t:   # the ragged tail bypasses the MoE (residual passthrough)
+        y = torch.cat([y, y.new_zeros((t - g * s, d))], dim=0)
+    return y
+
+
+def moe_ffn(x, params, *, num_experts: int, k: int, capacity_factor: float,
+            group_size: int):
+    """Top-k MoE SwiGLU ffn.  x: [T,d] -> ``([T,d], aux load-balance
+    loss)``; ``params``: ``router`` [d,E] fp32, ``w1``/``w3`` [E,d,f],
+    ``w2`` [E,f,d].  The tables are built in x's dtype: the reference's
+    casts of its fp32 tables, bit for bit, at half the memory in bf16."""
+    t, d = x.shape
+    g, s, cap = moe_groups(t, group_size, num_experts, k, capacity_factor)
+    probs = moe_router_probs(x[: g * s].reshape(g, s, d), params["router"])
+    disp, comb, aux = moe_tables(probs, k, cap, x.dtype)
+    return moe_experts(x, disp, comb, params, g, s), aux
+
+
+# ---------------------------------------------------------------------------
 # Causal depthwise conv (mamba)
 # ---------------------------------------------------------------------------
 

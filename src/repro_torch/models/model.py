@@ -1,6 +1,6 @@
 """Split model: client stage | cut | server stage (+ aux head)
-(``repro.models.model``), for the dense and non-hybrid ssm (Mamba-1)
-families: training, and serving the merged model (``prefill``,
+(``repro.models.model``), for the dense, MoE and non-hybrid ssm
+(Mamba-1) families: training, and serving the merged model (``prefill``,
 ``decode_step``, ``full_forward``).
 
 The *client stage* owns the embedding and the first ``cut`` blocks; the
@@ -23,8 +23,8 @@ import torch.nn.functional as F
 from repro_torch.common import dtype_of, tree_leaves, tree_map, tree_stack
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.blocks import (BLOCKS, Ctx, block_cache_spec,
-                                       block_kind)
+from repro_torch.models.blocks import (AUX_KINDS, BLOCKS, Ctx,
+                                       block_cache_spec, block_kind)
 
 MOE_AUX_COEF = 0.01
 
@@ -121,19 +121,22 @@ def _batched(layer, in_dims):
 
 
 class RematBwd(torch.autograd.Function):
-    """``(dx, *dleaves)`` of ``layer`` at ``(x, leaves)`` against ``g``: the
-    layer rerun and ``torch.func.vjp`` of it.  A Function of its own, as
-    the kernels' backwards in ``kernels/ops.py`` are, so that its vmap rule
-    runs the vjp on plain tensors (the layer vmapped inside it, where the
-    kernel Functions fold the clients), also when the backward is reached
-    through a ``vjp``'s pull under ``vmap`` (the blocking methods' client
-    update), and so that ``torch.func.grad``'s ``create_graph=True``
-    records none of the rerun."""
+    """``(dx, *dleaves)`` of ``layer`` at ``(x, leaves)`` against its
+    outputs' cotangents (``ng`` of them: x's, and the aux loss's where the
+    layer returns one): the layer rerun and ``torch.func.vjp`` of it.  A
+    Function of its own, as the kernels' backwards in ``kernels/ops.py``
+    are, so that its vmap rule runs the vjp on plain tensors (the layer
+    vmapped inside it, where the kernel Functions fold the clients), also
+    when the backward is reached through a ``vjp``'s pull under ``vmap``
+    (the blocking methods' client update), and so that
+    ``torch.func.grad``'s ``create_graph=True`` records none of the rerun.
+    ``apply(layer, ng, x, *cotangents, *leaves)``."""
 
     @staticmethod
-    def forward(layer, x, g, *leaves):
+    def forward(layer, ng, x, *rest):
+        gs, leaves = rest[:ng], rest[ng:]
         _, vjp_fn = torch.func.vjp(lambda xx, *ll: layer(xx, ll), x, *leaves)
-        return vjp_fn(g)
+        return vjp_fn(gs[0] if ng == 1 else tuple(gs))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -144,7 +147,7 @@ class RematBwd(torch.autograd.Function):
         raise RuntimeError("a recomputed layer has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, layer, x, g, *leaves):
+    def vmap(info, in_dims, layer, ng, x, *rest):
         n = info.batch_size
 
         def lead(t, d):
@@ -152,17 +155,18 @@ class RematBwd(torch.autograd.Function):
             return t.expand((n,) + tuple(t.shape)) if d is None \
                 else t.movedim(d, 0)
 
-        _, xd, gd, *ld = in_dims
-        out = RematBwd.apply(_batched(layer, (0,) * (1 + len(leaves))),
-                             lead(x, xd), lead(g, gd),
-                             *(lead(t, d) for t, d in zip(leaves, ld)))
+        _, _, xd, *rd = in_dims
+        out = RematBwd.apply(_batched(layer, (0,) * (1 + len(rest) - ng)),
+                             ng, lead(x, xd),
+                             *(lead(t, d) for t, d in zip(rest, rd)))
         return out, (0,) * len(out)
 
 
 class Remat(torch.autograd.Function):
     """One layer recomputed in the backward (``jax.checkpoint`` of the
     reference's scan body): ``Remat.apply(layer, x, *leaves)`` with
-    ``layer(x, leaves) -> x'``.
+    ``layer(x, leaves) -> x'``, or ``-> (x', aux)`` for a block with an
+    aux loss (MoE): both outputs carry their gradients.
 
     The forward runs the layer without recording it, so none of its
     activations stay alive; only its input and parameter leaves are saved.
@@ -187,26 +191,26 @@ class Remat(torch.autograd.Function):
         ctx.save_for_backward(x, *leaves)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *grads):
         x, *leaves = ctx.saved_tensors
-        return (None, *RematBwd.apply(ctx.layer, x, g, *leaves))
+        return (None, *RematBwd.apply(ctx.layer, len(grads), x, *grads,
+                                      *leaves))
 
     @staticmethod
     def vmap(info, in_dims, layer, x, *leaves):
-        return Remat.apply(_batched(layer, in_dims[1:]), x, *leaves), 0
+        out = Remat.apply(_batched(layer, in_dims[1:]), x, *leaves)
+        return out, ((0,) * len(out) if isinstance(out, tuple) else 0)
 
 
-def _remat_layer(cfg: ModelConfig, apply_fn, p, ctx: Ctx):
+def _remat_layer(cfg: ModelConfig, apply_fn, p, ctx: Ctx, with_aux: bool):
     """``layer(x, leaves)`` for :class:`Remat`: the block ``apply_fn`` with
-    ``p``'s structure refilled from ``leaves``."""
+    ``p``'s structure refilled from ``leaves``; ``(x, aux)`` with
+    ``with_aux``."""
     def layer(x, leaves):
         it = iter(leaves)
         x, _, a = apply_fn(cfg, tree_map(lambda _: next(it), p), x, ctx,
                            None)
-        if isinstance(a, torch.Tensor):
-            raise NotImplementedError("remat of a block with an aux loss "
-                                      "(MoE) is not ported")
-        return x
+        return (x, a) if with_aux else x
     return layer
 
 
@@ -227,9 +231,11 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx,
     With ``cfg.remat`` in train mode each layer runs through
     :class:`Remat`: its activations are recomputed in the backward, the
     numbers are the same bit for bit, and the layer's kernels launch once
-    more there (the rerun forward).  The dense and Mamba-1 blocks add no
-    aux loss, so the stage's aux stays 0."""
+    more there (the rerun forward).  The stage's aux is the blocks' aux
+    losses summed in layer order from 0 (the reference's scan carry); the
+    dense and Mamba-1 blocks add none, so theirs stays 0."""
     _, apply_fn = BLOCKS[plan.kind]
+    with_aux = plan.kind in AUX_KINDS
     aux = 0.0
     layers = _unstack(sp["blocks"])
     given = _unstack(caches["blocks"]) if ctx.mode == "decode" \
@@ -237,8 +243,10 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx,
     emitted = []
     for p, c in zip(layers, given):
         if cfg.remat and ctx.mode == "train":
-            x = Remat.apply(_remat_layer(cfg, apply_fn, p, ctx), x,
-                            *tree_leaves(p))
+            out = Remat.apply(_remat_layer(cfg, apply_fn, p, ctx, with_aux),
+                              x, *tree_leaves(p))
+            x, a = out if with_aux else (out, 0.0)
+            aux = aux + a
             continue
         x, nc, a = apply_fn(cfg, p, x, ctx, c)
         aux = aux + a

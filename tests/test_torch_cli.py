@@ -177,9 +177,38 @@ def test_population_refuses_a_barrier_scheduler():
                              "deadline", "--device", "cpu"])
 
 
-def test_flags_match_reference():
-    """Every JAX flag, with its default and choices, plus ``--device``."""
+def _reference_registries():
+    """The JAX package's open registries that the JAX CLI's choices read:
+    methods, codecs, network models, policies, fault models, cohort
+    samplers."""
+    from repro import transport as jtransport
+    from repro.core.methods import base as jmethods
+    from repro.faults import model as jfaults
+    from repro.network import model as jnetwork
+    from repro.sched import cohort as jcohort
+    from repro.sched import policy as jpolicy
+    return (jmethods._REGISTRY, jtransport._CODECS, jnetwork.NETWORK_MODELS,
+            jpolicy._POLICIES, jfaults.FAULT_MODELS, jcohort.COHORT_SAMPLERS)
+
+
+def _own_entries_only(monkeypatch):
+    """Each reference registry limited, for the test, to the entries the
+    ``repro`` package defines: other test files register their own (e.g.
+    ``tests/test_sched.py``'s ``test_odd_rounds`` policy), which stay in
+    the process for the rest of a pytest worker's session."""
+    for reg in _reference_registries():
+        for name, entry in list(reg.items()):
+            cls = entry if isinstance(entry, type) else type(entry)
+            if not cls.__module__.startswith("repro."):
+                monkeypatch.delitem(reg, name)
+
+
+def test_flags_match_reference(monkeypatch):
+    """Every JAX flag, with its default and choices, plus ``--device``;
+    the reference's registries hold only the ``repro`` package's own
+    entries while its parser is built."""
     import argparse
+    _own_entries_only(monkeypatch)
     captured = {}
     orig = argparse.ArgumentParser.parse_args
 

@@ -332,6 +332,19 @@ def test_cache_converters_round_trip_bitwise():
 
 @pytest.mark.parametrize("kind", ["moe", "mamba2"])
 def test_unported_blocks_raise(kind):
+    """``mamba2`` is still to port: its cache spec raises.  ``moe`` is
+    ported (its decode cache is the attention's): olmoe-1b-7b's spec at B
+    4 and 4,096 slots equals the reference's, shapes, dtypes and tree."""
+    if kind == "moe":
+        from repro.models import blocks as jblocks
+        got = blocks.block_cache_spec(get_config("olmoe-1b-7b"), kind, 4,
+                                      4096, torch.bfloat16)
+        want = jblocks.block_cache_spec(jget_config("olmoe-1b-7b"), kind, 4,
+                                        4096, jnp.bfloat16)
+        assert sorted(got) == sorted(want) == ["k", "v"]
+        assert _spec_sig(got) == _jspec_sig(want) \
+            == [((4, 4096, 16, 128), "bfloat16")] * 2
+        return
     cfg = get_config("qwen3-0.6b").reduced()
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         blocks.block_cache_spec(cfg, kind, 1, 8, torch.bfloat16)
