@@ -6,8 +6,9 @@ engine's (phase 24), the population engine's and telemetry's (phase
 25), the entry points' (phase 26: the CLI's Qwen3 run, Trainer
 resume, falcon-mamba through the population engine) and the serving
 path's (phase 27: the windowed Qwen3 prefill and decode, falcon-mamba's
-decode) and the MoE layer's (phase 28: one olmoe block with and without
-recompute) can fail.  Run from the repo root on a machine with
+decode), the MoE layer's (phase 28: one olmoe block with and without
+recompute) and the hybrid serving path's (phase 29: zamba2-7b's decode
+caches against a prefill of the whole sequence) can fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py [--only PHASE ...]
@@ -18,15 +19,15 @@ them.)
 The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
 (its qwen3-cse_fsl path), 24 and 25 (their CNN paths) and 26 (its
-qwen3, resume and mamba parts), 27 (its qwen3 and mamba parts) and 28
-(its layer part) of ``chip_smoke.py`` in a fresh process, with every check reported instead
+qwen3, resume and mamba parts), 27 (its qwen3 and mamba parts), 28
+(its layer part) and 29 (its serve part) of ``chip_smoke.py`` in a fresh process, with every check reported instead
 of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
 K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
 (the masked round), 22 (the recomputed layer), 24 (the event engine),
 25 (the population engine, telemetry), 26 (the CLI, the Trainer's
 checkpoint, the Mamba population run), 27 (the ring, the conv window,
-the captured decode) or 28 (the recomputed MoE block) that holds its
-fault.  A mutant is
+the captured decode), 28 (the recomputed MoE block) or 29 (the shared
+sites' rings, the SSD's carried state) that holds its fault.  A mutant is
 one deliberate fault in a kernel source, in the compiled runner, in the
 masked aggregate, in the topk codec, in the layer recompute, in the
 per-client coding, in the checksum frame, in the arrival heap, in the
@@ -249,6 +250,13 @@ MUTANTS = {
         [(SERVE, "        self._set_pos(pos)\n        self.graph.replay()",
           "        self.graph.replay()")],
         "[qwen3-serve-window] the captured decode == eager", "27q"),
+    "one KV ring shared by every shared attention site": (
+        [(MODEL, "sites[(i + 1) // cfg.attn_every - 1])", "sites[0])")],
+        "[zamba2-serve] after the decode every cache leaf", "29"),
+    "the SSD's carried state not decayed across its chunk": (
+        [(LAYERS, "z = F.pad(la_cum[..., -1], (1, 0))",
+          "z = F.pad(0 * la_cum[..., -1], (1, 0))")],
+        "[zamba2-serve] after the decode every cache leaf", "29"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -278,7 +286,8 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "26m": 'cs.phase_cli(torch.device("cuda"), parts=("mamba",))\n',
           "27q": 'cs.phase_serve(torch.device("cuda"), parts=("qwen3",))\n',
           "27m": 'cs.phase_serve(torch.device("cuda"), parts=("mamba",))\n',
-          "28": 'cs.phase_moe(torch.device("cuda"), parts=("layer",))\n'}
+          "28": 'cs.phase_moe(torch.device("cuda"), parts=("layer",))\n',
+          "29": 'cs.phase_hybrid(torch.device("cuda"), parts=("serve",))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -289,7 +298,7 @@ def phase_of(path: str) -> str:
 
 
 ALL_PHASES = ("7", "11", "15", "19", "21", "22", "24", "25", "26q", "26r",
-              "26m", "27q", "27m", "28")
+              "26m", "27q", "27m", "28", "29")
 
 
 def run(where: str, phases=ALL_PHASES) -> list:

@@ -143,7 +143,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 23. the paper's figure scripts (``repro_torch.benchmarks``: Tables III/IV,
    Figs 4/5, Figs 7/8, the fault figure, Fig 9) at their own settings on
    the card, each asserting the JAX script's claims, with their tables and
-   seconds.  Fig 9's cheapest-uplink claim fails in the JAX script too at
+   seconds.  Figs 4/5, 7/8 and the fault figure compare accuracies near
+   chance and run under deterministic algorithms; each runs twice, and
+   the second run must end on the first's rows.  Fig 9's cheapest-uplink claim fails in the JAX script too at
    these settings: the phase holds the port's failure to the reference's
    row (FIG9_REFERENCE_FAILURE) and lists it, open, under
    ``"known_reference_failures"`` in the JSON record;
@@ -235,7 +237,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving: the windowed prefill of 4 x 2,048 (K6 once a layer, layer 0's
    drops at the config's factor counted), 32 captured decode steps
    bitwise eager and the last against ``full_forward`` with drops
-   disabled; phi3.5-moe reduced: a round and a captured decode.
+   disabled; phi3.5-moe reduced: a round and a captured decode;
+29. the hybrid family (``models.layers.ssd_scan``/``ssd_decode``, the
+   ``mamba2`` block, the shared attention site of a hybrid stage): K3/K4
+   at zamba2-7b's heads and K6 at its 4 folded clients against their
+   plain versions; CSE-FSL on zamba2-7b at full width (d 3,584, 112 SSD
+   heads, a shared block of hd 112 after every 6 layers, V 32,000, bf16,
+   remat, its parameters drawn on the card) cut to 27 layers through
+   phase 19's checks (a loop round and a replayed round bitwise, K6
+   launched once a shared site a pass, K5 never, the meter
+   CommProfile's, ms a round in both engines, idle and peak); one mamba2
+   layer and one shared site on 1,024 tokens against the host CPU; and
+   serving at all 81 layers: the windowed prefill of 4 x 1,920 (K6 once a
+   site, 13 times), 128 captured decode steps (the first 32 bitwise the
+   eager ones), the last against ``full_forward`` and every cache leaf
+   (each site's own ring) against a prefill of the whole sequence.
 
 Phases 18 (5 timed CNN rounds, 1 LM), 19 and 21 (one timed LM round or
 chunk) and 24 (``fig_sched`` and ``fig_wallclock`` at their own
@@ -245,7 +261,11 @@ and phase 25 leaves out its Qwen3 fleet (the CLI's population run in
 phase 26 drives that engine on Qwen3); for phase 28, phase 22 times no
 loop round, phase 18 one LM round a path (two before), phase 26 runs
 perf_bench's telemetry protocols once each (three before) and phase 27
-decodes 32 Qwen3 and 16 Mamba steps (64 and 32 before); so do
+decodes 32 Qwen3 and 16 Mamba steps (64 and 32 before); for phase 29,
+phases 19, 21 and 22 hold states by 64-bit digests on the card
+(``state_digests``) instead of host copies, phase 19's Qwen3 FSL_OC and
+phase 22's lifted cuts run one round (two before) and phase 26's Mamba
+``Population`` one round (two before); so do
 phases 19 and 22 (a path's kernels a replayed round read from its
 ``run_compiled``'s own replays, not from one more profiled chunk), 21
 (its timed paths' unmasked twins are phase 19's runs) and 26 (qwen2-1.5b
@@ -257,10 +277,12 @@ now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
 ``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
-``"telemetry"``, ``"cli"``, ``"serve"``, ``"moe"`` and
-``"known_reference_failures"``: phases 21-28's numbers; K6's record adds
-``serve_prefill_launches``, and the records of the kernels the MoE path
-runs ``olmoe_launches_per_round`` and ``olmoe_max_abs_err``), the
+``"telemetry"``, ``"cli"``, ``"serve"``, ``"moe"``, ``"hybrid"`` and
+``"known_reference_failures"``: phases 21-29's numbers; K6's record adds
+``serve_prefill_launches`` (and the olmoe and zamba2 prefills'), and
+the records of the kernels the MoE and hybrid paths run
+``olmoe_launches_per_round``, ``olmoe_max_abs_err``,
+``zamba2_launches_per_round`` and ``zamba2_max_abs_err``), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -1314,7 +1336,8 @@ def lm_launches(cfg, method: str, k2: int) -> dict:
     the dw products) per head, h client steps (vmapped) + n server updates;
     the layer's kernel (K6, the tensor-core one at bf16 hd 128, or K5) once
     per client layer a client step (vmapped: h steps and the smashed pass)
-    and once per server layer a server update; its backward (K6's delta,
+    and once per server layer a server update (a hybrid's K6: once per
+    shared site, where the layers count); its backward (K6's delta,
     dK/dV and dQ kernels, or K5's scan kernel and the kernel adding its
     partials) once per client layer a client step and per server layer an
     update.  The blocking methods, a unit (h a round): the clients' forward
@@ -1328,6 +1351,9 @@ def lm_launches(cfg, method: str, k2: int) -> dict:
     per backward."""
     cut = cfg.resolved_cut
     srv = cfg.num_layers - cut
+    if cfg.family == "hybrid":      # K6 runs at the shared sites alone
+        cplan, splan = tf_mod.stage_plans(cfg)
+        cut, srv = cplan.n_shared_sites, splan.n_shared_sites
     if method == "cse_fsl":
         heads = LM_H + LM_N
         fwd = cut * (LM_H + 1) + srv * LM_N
@@ -2501,9 +2527,10 @@ PROFILED = ("quantize_bits_kernel", "quantize_philox_kernel",
 # shows.  The Mamba path is the phase-12 cut (16 layers, S = 2048).
 # The Mamba path goes first: its loop rounds peak within half a GiB of the
 # card's memory, so it runs before the other paths leave anything behind.
+# Qwen3 FSL_OC runs one round (two until phase 29 took the room).
 COMPILED_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", 2, 2),
                   ("qwen3-cse_fsl", "qwen3", "cse_fsl", 2, 2),
-                  ("qwen3-fsl_oc", "qwen3", "fsl_oc", 2, 2),
+                  ("qwen3-fsl_oc", "qwen3", "fsl_oc", 1, 1),
                   ("cnn-cse_fsl", "cnn", "cse_fsl", 4, 3),
                   ("cnn-fsl_mc", "cnn", "fsl_mc", 3, 2),
                   ("cnn-fsl_oc", "cnn", "fsl_oc", 3, 2),
@@ -2668,11 +2695,11 @@ class ReplayWatch:
 
 
 def path_cfg(model, remat=False, layers=None):
-    """The LM path's config: phase 8's Qwen3, phase 12's Mamba cut or
-    phase 28's olmoe, with ``remat`` and at depth ``layers`` (None: the
-    path's own)."""
-    cfg = {"qwen3": lm_cfg, "mamba": mb_cfg, "olmoe": moe_cfg}[model]().with_(
-        remat=remat)
+    """The LM path's config: phase 8's Qwen3, phase 12's Mamba cut,
+    phase 28's olmoe or phase 29's zamba2, with ``remat`` and at depth
+    ``layers`` (None: the path's own)."""
+    cfg = {"qwen3": lm_cfg, "mamba": mb_cfg, "olmoe": moe_cfg,
+           "zamba2": zamba_cfg}[model]().with_(remat=remat)
     return cfg if layers is None else cfg.with_(num_layers=layers)
 
 
@@ -2696,9 +2723,9 @@ def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
                 cost_model(bundle, N, SAMPLES // N), B)
     cfg = path_cfg(model, remat, layers)
     s = seq or path_seq(model)
-    # olmoe's 6.9 B parameters are drawn on the card (a host draw would
-    # take minutes)
-    bundle = card_bundle(cfg, dev) if model == "olmoe" \
+    # olmoe's 6.9 B and zamba2's 7.0 B parameters are drawn on the card (a
+    # host draw would take minutes)
+    bundle = card_bundle(cfg, dev) if model in ("olmoe", "zamba2") \
         else lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
                     method=method)
@@ -2733,7 +2760,9 @@ def bits_digest(t: torch.Tensor) -> int:
     modulo 2^64, so a change in any one word always changes the digest;
     changes in several words cancel with probability about 2^-64."""
     b = t.detach().contiguous().reshape(-1).view(torch.uint8)
-    b = torch.cat([b, b.new_zeros((-b.numel()) % 8)]).view(torch.int64)
+    if b.numel() % 8:               # a copy only where words need padding
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 8)])
+    b = b.view(torch.int64)
     total, step = 0, 1 << 26
     for i in range(0, b.numel(), step):
         z = torch.arange(i, min(i + step, b.numel()), dtype=torch.int64,
@@ -2749,7 +2778,8 @@ def state_digests(state) -> list:
     """``bits_digest`` of every state leaf: a state compared without a
     copy of it (olmoe's 19.6 GB state: two copies to the host and a host
     comparison took about 17 of phase 28's seconds on an H100 80GB HBM3
-    at 700 W)."""
+    at 700 W; phases 19, 21 and 22 compare their states this way since
+    phase 29 took their host copies' seconds)."""
     return [(tuple(t.shape), t.dtype, bits_digest(t))
             for t in state_leaves(state)]
 
@@ -2777,8 +2807,9 @@ def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
     rounds' batches stacked on the host (counted at ``_stack_rounds``) and
     copied into the capture's buffers, the masked chunk program on staged
     data with ``masked``.  The same rounds from ``init(0)`` as the loop's
-    run (``want``: its state on the CPU, ``hist``, ``meter``), which the
-    pooled run equals too: state, history rows and meter bitwise."""
+    run (``want``: its state's ``state_digests``, ``hist``, ``meter``),
+    which the pooled run equals too: state, history rows and meter
+    bitwise."""
     stacks, orig = [], trainer_mod._stack_rounds
 
     def counting(*xs):
@@ -2806,16 +2837,12 @@ def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
           f"{lab} device_data=False staged the batches: {len(stacks)} "
           f"stacked leaves, a staged {'masked ' if masked else ''}capture "
           f"({secs:.3f} s for warm-up, captures, {rounds} replays)")
-    got = state_leaves(state)
-    bitwise = len(got) == len(want) and all(same(g, w)
-                                            for g, w in zip(got, want))
-    worst = 0.0 if bitwise else max(diff(g.cpu(), w)
-                                    for g, w in zip(got, want))
-    check(bitwise and shist == hist and m.counts == meter,
+    check(state_digests(state) == want and shist == hist
+          and m.counts == meter,
           f"{lab} the staged run_compiled == run == the pooled "
-          f"run_compiled, bitwise (state, history rows, meter; worst "
-          f"|diff| {worst:.3g})")
-    del state, got, cap
+          f"run_compiled, bitwise (state, history rows, meter; "
+          f"{len(want)} leaves, 64-bit digests of their bits)")
+    del state, cap
     tr._captured = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -2825,7 +2852,7 @@ def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
 def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                         remat=False, seq=None, layers=None, want=None,
                         reps=None, staged=False, time_loop=True,
-                        after_loop=None, digest=False):
+                        after_loop=None):
     """Phase 19 for one path, with the measurements phase 20 prints; phase
     22 runs its paths through it with ``remat`` (at sequence ``seq`` and
     depth ``layers``).
@@ -2841,7 +2868,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     wrapper 3 rounds' worth (so with remat the captured backward holds the
     recompute); its replays profiled inside the call (ReplayWatch): the
     same kernels as often as a loop round, and no wrapper call; then a few
-    chunks timed.  ``want``: a run without remat (CPU copy of the state,
+    chunks timed.  ``want``: a run without remat (the state's digests,
     history, meter) that the loop's run must equal, bitwise.  With
     ``keep``, the loop's run is returned under ``"loop_run"`` for phase
     22.  ``reps``: the loop rounds and compiled chunks timed (default 5 on
@@ -2851,11 +2878,10 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     is timed (phase 22, whose ratios PERF.md quotes from the compiled
     rounds): ``loop_ms`` and ``loop_idle`` are None.  ``after_loop(tr,
     state, batcher)`` runs on the loop's final state before it is
-    freed (phase 28's aux losses).  With ``digest`` the loop's state is
-    kept as its leaves' ``bits_digest`` on the card instead of a host copy,
-    and run_compiled's state is held to those (phase 28; not with
-    ``keep``, ``want`` or ``staged``, which need the copy)."""
-    assert not (digest and (keep or want is not None or staged))
+    freed (phase 28's aux losses).  The loop's state is kept as its
+    leaves' ``bits_digest`` on the card (``state_digests``), not as a host
+    copy: run_compiled's, the staged run's and a remat run's states are
+    held to those digests."""
     lab = f"[{tag}{' remat' if remat else ''}]"
     print(f"  {lab} at the start: "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated",
@@ -2906,11 +2932,10 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     check(all(math.isfinite(row[k]) for row in lhist
               for k in metric_keys(row)), f"{lab} losses finite: "
           f"{[round(row[k], 6) for row in lhist for k in metric_keys(row)]}")
-    copy = state_digests(state) if digest else state_on_cpu(state)
+    copy = state_digests(state)
     loop_run = {"state": copy, "hist": lhist, "meter": dict(meters[0].counts)}
     if want is not None:
-        check(all(same(a, b) for a, b in zip(copy, want["state"]))
-              and lhist == want["hist"]
+        check(copy == want["state"] and lhist == want["hist"]
               and meters[0].counts == want["meter"],
               f"[{tag}] run with remat == run without, bitwise (state, "
               "losses, meter)")
@@ -2946,21 +2971,15 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     first_s = time.perf_counter() - t - watch.added_s
     lap("run_compiled (warm-up, captures, replays profiled)")
     at_capture = {k: v for k, v in watch.at_capture.items() if v}
-    if digest:
-        bitwise, worst = state_digests(state) == copy, float("nan")
-    else:
-        got = state_leaves(state)
-        bitwise = len(got) == len(copy) and all(
-            same(g, w) for g, w in zip(got, copy))
-        worst = 0.0 if bitwise else max(diff(g.cpu(), w)
-                                        for g, w in zip(got, copy))
+    bitwise = state_digests(state) == copy
     print(f"  {lab} run: {rounds} rounds in {loop_s:.3f} s (profiled); "
           f"run_compiled (warm-up, two captures, {rounds} replays at chunk "
           f"{chunk}): {first_s:.3f} s, less the {watch.added_s:.3f} s its "
           f"replays' profiling added; wrapper launches at warm-up and "
           f"capture {at_capture}")
     check(bitwise, f"{lab} run_compiled's state == run's, bitwise, under "
-          f"deterministic algorithms ({f'{len(copy)} leaves, 64-bit digests of their bits' if digest else f'worst |diff| {worst:.3g}'})")
+          f"deterministic algorithms ({len(copy)} leaves, 64-bit digests "
+          "of their bits)")
     check(chist == lhist, f"{lab} history rows (losses, aggregated, "
           "comm_bytes) == run's, bitwise")
     prof_ = tr.comm_profile(cm, bsz, batch=make_batcher().next_round())
@@ -3376,7 +3395,7 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
         sync(dev)
         warned[0] = [str(x.message) for x in w]
     loop_summary = tr.participation_summary()
-    want = [t_.cpu() for t_ in state_leaves(state)]
+    want = state_digests(state)
     out = {"rounds": rounds, "chunk": chunk}
     reps = 5 if model == "cnn" else 1       # one LM round: room for 26
     if tag in SCHED_TIMED:          # phase 20's cadence
@@ -3405,10 +3424,7 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
         warned[1] = [str(x.message) for x in w]
     at_capture = {k: v for k, v in counts().items() if v}
     got = state_leaves(state)
-    bitwise = len(got) == len(want) and all(same(g, w_)
-                                            for g, w_ in zip(got, want))
-    worst = 0.0 if bitwise else max(diff(g.cpu(), w_)
-                                    for g, w_ in zip(got, want))
+    bitwise = state_digests(state) == want
     flags = [r["aggregated"] for r in lhist]
     parts = [r["participants"] for r in lhist if r["aggregated"]]
     print(f"  [{tag}] rows: " + "; ".join(
@@ -3423,7 +3439,8 @@ def check_sched_path(tag, model, method, rounds, chunk, dev):
           f"empty-cohort warnings: loop {len(warned[0])}, compiled "
           f"{len(warned[1])}")
     check(bitwise, f"[{tag}] run_compiled's state == run's, bitwise, under "
-          f"deterministic algorithms (worst |diff| {worst:.3g})")
+          f"deterministic algorithms ({len(want)} leaves, 64-bit digests of "
+          "their bits)")
     check(chist == lhist, f"[{tag}] history rows (losses, aggregated, "
           "participants, dropped updates, fault retries and drops, "
           "comm_bytes) == run's")
@@ -3639,7 +3656,9 @@ REMAT_PATHS = (("mamba-cse_fsl", "mamba", "cse_fsl", (MB_S,), None),
                ("mamba-cse_fsl-s4096", "mamba", "cse_fsl", (4096, 3072),
                 None),
                ("qwen3-fsl_mc-28L", "qwen3", "fsl_mc", (LM_S,), (28, 24)))
-REMAT_ROUNDS = 2
+# The two main paths run phase 19's 2 rounds (their states are held to
+# phase 19's); the lifted cuts one (two until phase 29 took the room).
+REMAT_ROUNDS, REMAT_LIFT_ROUNDS = 2, 1
 # Phase 22 times one compiled chunk a path (phase 19 times two) and no loop
 # round (PERF.md quotes its compiled ratios): the room phases 25 and 28
 # take in the script's time limit.
@@ -3694,11 +3713,11 @@ def phase_remat(dev, paths=None, plain=None):
                   f"{withr['compiled_peak_bytes'] / 2**30:.3f} GiB compiled")
             release(dev)
             continue
-        tried = []
+        tried, r1 = [], REMAT_LIFT_ROUNDS
         for seq in seqs:
             for layers in depths or (None,):
                 try:
-                    res = check_compiled_path(tag, model, method, r, r, dev,
+                    res = check_compiled_path(tag, model, method, r1, r1, dev,
                                               remat=True, seq=seq,
                                               layers=layers, reps=REMAT_REPS,
                                               time_loop=False)
@@ -3736,6 +3755,10 @@ def phase_remat(dev, paths=None, plain=None):
 # the card, in this order; each asserts the JAX script's claims.
 FIGURES = ("table34_aux_params", "fig45_convergence", "fig78_aux_arch",
            "fig_faults", "fig9_codec_tradeoff")
+# The scripts whose claims compare accuracies near chance run under
+# deterministic algorithms (benchmarks.common.deterministic): each runs
+# twice here, and the second run must end on the first's rows.
+REPEATED_FIGURES = ("fig45_convergence", "fig78_aux_arch", "fig_faults")
 # Fig 9's last claim, "the cheapest uplink of the sweep is CSE-FSL with a
 # codec" (benchmarks/fig9_codec_tradeoff.py:132-135), fails in the JAX
 # script itself at its own settings: at equal rounds every method uploads
@@ -3786,9 +3809,10 @@ def phase_figures(dev):
     """Phase 23: the five figure scripts' ``main`` on the card (table34
     counts shapes on the meta device and takes no device).  A script whose
     claim fails raises, and so does this phase, but for fig9's claim that
-    fails in the JAX script too (fig9_against_reference).  Returns each
-    script's seconds and final rows, and the claims that fail in both
-    packages."""
+    fails in the JAX script too (fig9_against_reference).  The
+    REPEATED_FIGURES run a second time, which must end on the first run's
+    rows.  Returns each script's seconds (of its first run) and final
+    rows, and the claims that fail in both packages."""
     t0 = phase("23 the paper's figure scripts on the card (Figs 4/5, 7/8, "
                "9, Tables III/IV, the fault figure)")
     import importlib
@@ -3808,6 +3832,11 @@ def phase_figures(dev):
         secs = time.perf_counter() - t
         print(f"  {name}: {secs:.3f} s", flush=True)
         out[name] = {"seconds": secs, "final": figure_summary(name, res)}
+        if name in REPEATED_FIGURES:
+            check(mod.main(dev) == res, f"{name}: a second run ends on the "
+                  "same rows as the first (deterministic algorithms)")
+            print(f"  {name}: a second run ends on the same rows, bit for "
+                  "bit", flush=True)
         release(dev)
     for k in known:
         print(f"  OPEN, in both packages: {k['script']}'s claim "
@@ -4805,7 +4834,9 @@ CLI_HOST = ("comm", "participation", "faults", "population", "memory",
 # round 3 (1-based) alone, 6 rounds at chunk 2 split after round 3.
 RESUME_FAULTS = dict(loss_rate=0.4, max_retries=1, seed=1)
 RESUME_ROUNDS, RESUME_SPLIT = 6, 3
-MB_ENGINE_ROUNDS, MB_POP_ROUNDS = 1, 2
+# falcon-mamba through Population and the event engine: one round each
+# (Population two until phase 29 took the room)
+MB_ENGINE_ROUNDS, MB_POP_ROUNDS = 1, 1
 # perf_bench's telemetry row in each protocol once (three times each until
 # phase 28 took the room)
 TELE_PROTOCOL_RUNS = 1
@@ -5248,7 +5279,7 @@ def check_mamba_population(dev, out):
     pop = Population(bundle, fsl, population=LM_N, transport=tp,
                      data=LMPool(cfg, FederatedPool(fed, LM_B, LM_H,
                                                     seed=0))).init(0)
-    default0 = [x.cpu() for x in tree_leaves(pop._default)]
+    default0 = [bits_digest(x) for x in tree_leaves(pop._default)]
     reset_counts()
     t = time.perf_counter()
     state, phist = pop.run(MB_POP_ROUNDS, chunk=MB_POP_ROUNDS, log_every=1,
@@ -5264,10 +5295,9 @@ def check_mamba_population(dev, out):
           f"{lab} Population.run (C == N = {LM_N}, remat) == "
           f"Trainer.run_compiled, bitwise (state, {len(hist)} rows, meter "
           f"{meters[1].total:,} B)")
-    check(all(same(a, b) for a, b in zip(
-        [x.cpu() for x in tree_leaves(pop._default)], default0)),
-        f"{lab} the default row is untouched by the replays (a copy, not a "
-        "view of the replayed state)")
+    check([bits_digest(x) for x in tree_leaves(pop._default)] == default0,
+          f"{lab} the default row is untouched by the replays (a copy, not "
+          "a view of the replayed state; 64-bit digests of its leaves)")
     at_capture_ok(lab, at_cap, expect)
     out["mamba-population"] = {"run_compiled_s": c_s, "population_s": p_s,
                                "peak_bytes": peak}
@@ -5461,14 +5491,19 @@ def serve_counted(plain_calls: list):
     return plain
 
 
-def decode_pair(lab, cfg, params, caches, tokens, pos0, window, dev):
+def decode_pair(lab, cfg, params, caches, tokens, pos0, window, dev,
+                eager_steps=None):
     """``tokens.shape[1]`` decode steps from ``caches``: eager
     (``decode_step`` on a copy) and captured (``make_serving_fns``' decode
     on ``caches`` themselves).  Checks each step's logits bitwise, the
     caches bitwise at the end, every step in place and no kernel launched.
+    With ``eager_steps`` the eager decode runs only the first that many
+    steps, held bitwise against the captured ones and the caches after
+    them (a copy taken there), and the captured decode runs on alone.
     Returns ``(last logits, caches, eager ms a token, captured ms a
     token)``."""
     steps = tokens.shape[1]
+    eager_steps = eager_steps or steps
     eager = tree_map(torch.clone, caches)
     ptrs = [t.data_ptr() for t in tree_leaves(caches)]
     eptrs = [t.data_ptr() for t in tree_leaves(eager)]
@@ -5477,18 +5512,20 @@ def decode_pair(lab, cfg, params, caches, tokens, pos0, window, dev):
     sync(dev)
     t = time.perf_counter()
     want = []
-    for i in range(steps):
+    for i in range(eager_steps):
         lg, eager = tf_mod.decode_step(cfg, params, tokens[:, i], pos0 + i,
                                        eager, window=window)
         want.append(lg)
     sync(dev)
-    eager_ms = (time.perf_counter() - t) * 1e3 / steps
-    got = []
+    eager_ms = (time.perf_counter() - t) * 1e3 / eager_steps
+    got, at = [], None
     lg, caches = decode(params, tokens[:, 0], pos0, caches)    # captures
     got.append(lg)
     sync(dev)
     t = time.perf_counter()
     for i in range(1, steps):
+        if i == eager_steps:
+            at = tree_map(torch.clone, caches)
         lg, caches = decode(params, tokens[:, i], pos0 + i, caches)
         got.append(lg)
     sync(dev)
@@ -5501,12 +5538,13 @@ def decode_pair(lab, cfg, params, caches, tokens, pos0, window, dev):
           "place (no step copied a cache)")
     check(all(torch.equal(a, b) for a, b in zip(want, got))
           and all(torch.equal(a, b) for a, b in zip(tree_leaves(eager),
-                                                    tree_leaves(caches))),
-          f"{lab} the captured decode == eager decode, bitwise ({steps} "
-          "steps' logits and the caches)")
+                                                    tree_leaves(at or caches))),
+          f"{lab} the captured decode == eager decode, bitwise ({eager_steps}"
+          f" steps' logits and the caches after them"
+          + (f"; {steps} captured steps" if at else "") + ")")
     check(all(torch.isfinite(g.float()).all() for g in got),
           f"{lab} logits finite at every step")
-    del eager
+    del eager, at
     return got[-1], caches, eager_ms, graph_ms
 
 
@@ -5915,7 +5953,7 @@ def moe_train(dev, out):
     meter CommProfile's, ms a round in both engines, idle and peak."""
     out["train"] = check_compiled_path(
         "olmoe-cse_fsl", "olmoe", "cse_fsl", MOE_ROUNDS, MOE_ROUNDS, dev,
-        remat=True, reps=1, after_loop=moe_aux_losses(out), digest=True)
+        remat=True, reps=1, after_loop=moe_aux_losses(out))
     r = out["train"]
     print(f"  [olmoe-cse_fsl] loop {r['loop_ms']:.3f} ms/round (device "
           f"{r['loop_device_ms']:.3f} ms, idle {r['loop_idle']:.4f}), peak "
@@ -6167,6 +6205,236 @@ def phase_moe(dev, card="", parts=("kernels", "train", "layer", "serve",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the hybrid family (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# zamba2-7b at full width: 81 Mamba-2 layers (d 3,584, d_inner 7,168, 112
+# SSD heads of 64, N 64, chunk 128), one shared dense block (32 heads of
+# hd 112, d_ff 14,336) after every 6 of them, V 32,000, bf16, the kernels
+# on, remat as configured (each backbone layer and each shared site
+# recomputed in the backward).  Training: CSE-FSL at the Qwen3 cell's
+# settings (4 clients x B 1 x h 2, S 4,096, int8 uplink and model sync),
+# one round, at ZAMBA_LAYERS: cut 12 (the client stage 2 groups) and 15
+# server layers (2 groups and a tail of 3).  At all 81 layers the loop
+# round ran, but run_compiled's capture ran out of the card's 79.18 GiB
+# (24.3 GiB held by the first captured graph's pool when the aggregating
+# round's int8 model sync widened the 10 GB in_proj leaf to fp32; H100
+# 80GB HBM3, 700 W); at 27 it peaks at 53.2 GiB.  Serving takes all 81.
+ZAMBA_ROUNDS, ZAMBA_LAYERS = 1, 27
+# K3/K4 at zamba2's heads (G, T, d, V): the server's and the 4 folded aux
+# heads'; K6 at the 4 folded clients' shared sites (B, S, H, KH, hd, W)
+# (one server sequence's K6 and its backward are phase 7's hd-112 cases).
+ZAMBA_CE_CASES = [((1, 4096, 3584, 32000), torch.bfloat16),
+                  ((4, 4096, 128, 32000), torch.bfloat16)]
+ZAMBA_SWA_CASES = [((4, 4096, 32, 32, 112, 4096), torch.bfloat16)]
+# One mamba2 layer and one shared site on [1, 1024] tokens, the card
+# (bf16) against the host CPU (fp32) from the same bf16 inputs and
+# parameters, relative 2-norm of the output.  Each bf16 rounding on the
+# card moves a value by at most 2^-9 of itself, and an error passes the
+# rest of the layer with a gain near 1, so each rounding adds at most
+# about 2^-8 relative (twice u, as MOE_LAYER_BOUND counts them): the
+# mamba2 layer rounds 10 times (its norm, the projection, the conv, the
+# SiLU, the scan's y, the skip term, the gate, the gate norm, out_proj,
+# the residual add), a shared site 14 (norm, q, k, v, RoPE on q and k,
+# K6, wo, the add, norm, w1, w3, their gated product, w2 and the add).
+ZAMBA_LAYER_S = 1024
+MAMBA2_LAYER_BOUND, SITE_LAYER_BOUND = 10 * 2.0 ** -8, 14 * 2.0 ** -8
+# Serving at all 81 layers (13 shared sites): a prefill of [4, 1920] at
+# window 4,096 (K6 once a site), then 128 decode steps eager and captured
+# to position 2,047; the ring is min(window, prompt) = 1,920 slots a site,
+# so each step attends to the last 1,920 positions: the last step against
+# full_forward at window 1,920 on the 2,048 tokens, and every cache leaf
+# (the 81 conv windows and SSD states, the 13 sites' rings) against a
+# prefill of the 2,048 tokens at window 1,920, within SERVE_BOUND of the
+# layers and sites.  Both lengths are multiples of the 128-step SSD chunk.
+# The eager decode (host-bound: 257 ms a token at 81 layers on an H100
+# 80GB HBM3 at 700 W) runs the first ZAMBA_EAGER_STEPS of them, held
+# bitwise against the captured steps and the caches after them.
+ZAMBA_SERVE_S, ZAMBA_SERVE_STEPS, ZAMBA_EAGER_STEPS = 1920, 128, 32
+
+
+def zamba_cfg():
+    return get_config("zamba2-7b").with_(use_pallas=True)
+
+
+def zamba_kernels(dev, out):
+    """Phase 29 (a): K3/K4 and K6 at zamba2's shapes against their plain
+    versions, phase 7's bounds."""
+    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "fused_ce_bwd": 0.0, "swa_attention": 0.0,
+           "swa_attention_tc": 0.0}
+    check_ce(ZAMBA_CE_CASES, err, dev)
+    check_swa(ZAMBA_SWA_CASES, err, dev, seed=700)
+    out["kernel_max_abs_err"] = {k: v for k, v in err.items() if v}
+    release(dev)
+
+
+def zamba_train(dev, out):
+    """Phase 29 (b): CSE-FSL on zamba2-7b through phase 19's checks
+    (check_compiled_path, remat on): a loop round and a replayed round
+    bitwise (64-bit digests of the state), launches a round as
+    lm_launches states (K6 a shared site, K5 never), losses finite, the
+    meter CommProfile's, ms a round in both engines, idle and peak."""
+    out["train"] = check_compiled_path(
+        "zamba2-cse_fsl", "zamba2", "cse_fsl", ZAMBA_ROUNDS, ZAMBA_ROUNDS,
+        dev, remat=True, reps=1, layers=ZAMBA_LAYERS)
+    r = out["train"]
+    print(f"  [zamba2-cse_fsl] {ZAMBA_LAYERS} layers: loop "
+          f"{r['loop_ms']:.3f} ms/round (device {r['loop_device_ms']:.3f} "
+          f"ms, idle {r['loop_idle']:.4f}), peak "
+          f"{r['loop_peak_bytes'] / 2**30:.3f} GiB | compiled "
+          f"{r['compiled_ms']:.3f} ms/round (replay {r['replay_ms']:.3f}, "
+          f"idle {r['compiled_idle']:.4f}), peak "
+          f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    release(dev)
+
+
+def zamba_layer(dev, out):
+    """Phase 29 (c): one full-width mamba2 layer and one shared site
+    (``dense_apply``: K6 on the card, the plain attention on the CPU) on
+    [1, 1024] tokens, the card in bf16 against the host CPU in fp32 from
+    the same bf16 inputs and parameters (MAMBA2_LAYER_BOUND,
+    SITE_LAYER_BOUND)."""
+    cfg = zamba_cfg()
+    ctx = Ctx(cfg, "train", window=cfg.swa_window)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    with torch.device(dev):
+        parts = {"mamba2": blocks.mamba2_init(cfg, gen, torch.bfloat16),
+                 "site": blocks.dense_init(cfg, gen, torch.bfloat16)}
+        x = torch.randn((1, ZAMBA_LAYER_S, cfg.d_model),
+                        generator=gen).to(torch.bfloat16)
+    fns = {"mamba2": blocks.mamba2_apply, "site": blocks.dense_apply}
+    bounds = {"mamba2": MAMBA2_LAYER_BOUND, "site": SITE_LAYER_BOUND}
+    hcfg = cfg.with_(dtype="float32")
+    out["layer"] = {}
+    for name, p in parts.items():
+        lab = f"[zamba2-layer {name}]"
+        reset_counts()
+        with torch.no_grad():
+            y, _, _ = fns[name](cfg, p, x, ctx, None)
+            sync(dev)
+            launched = counts()
+            hp = tree_map(lambda t: t.float().cpu(), p)
+            want, _, _ = fns[name](hcfg, hp, x.float().cpu(),
+                                   Ctx(hcfg, "train", window=cfg.swa_window),
+                                   None)
+        err = rel_error(y, want)
+        k6 = 1 if name == "site" else 0
+        check(torch.isfinite(y.float()).all() and err <= bounds[name]
+              and launched == only(swa_attention_tc=k6),
+              f"{lab} [1, {ZAMBA_LAYER_S}, {cfg.d_model}] on the card (bf16, "
+              f"K6 {launched.get('swa_attention_tc', 0)} time(s)) against "
+              f"the host CPU (fp32): relative 2-norm {err:.6f} <= "
+              f"{bounds[name]:.4f} (max |diff| {diff(y.cpu(), want):.4g})")
+        out["layer"][name] = {"rel2": err, "bound": bounds[name]}
+        del y, hp, want
+    del parts, x
+    release(dev)
+
+
+def zamba_serve(dev, out, card):
+    """Phase 29 (d): serving zamba2-7b at all 81 layers: the windowed
+    prefill of [4, 1920] (K6 once a shared site, 13 times, timed), 128
+    captured decode steps bitwise the eager ones, the last step against
+    full_forward, and every cache leaf against a prefill of the whole
+    sequence (each site its own ring)."""
+    lab = "[zamba2-serve]"
+    cfg = zamba_cfg()
+    win, L = cfg.swa_window, cfg.num_layers
+    sites = sum(pl.n_shared_sites for pl in tf_mod.stage_plans(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = serve_mod.draw_params(cfg, SERVE_SEED, dev)
+    total = ZAMBA_SERVE_S + ZAMBA_SERVE_STEPS
+    toks = serve_tokens(cfg.vocab_size, SERVE_B, total, dev)
+    prompt = {"tokens": toks[:, :ZAMBA_SERVE_S]}
+    ms = []
+    for _ in range(2):              # the second call is timed
+        reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        logits, caches = tf_mod.prefill(cfg, params, prompt, window=win)
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        launched = counts()
+        if not ms[1:]:
+            del caches, logits
+    check(launched == only(swa_attention_tc=sites)
+          and torch.isfinite(logits.float()).all(),
+          f"{lab} prefill [{SERVE_B}, {ZAMBA_SERVE_S}] at window {win}: K6 "
+          f"launched {launched['swa_attention_tc']} == {sites} times (once "
+          f"a shared site), nothing else; logits finite ({ms[1]:.3f} ms)")
+    ring = min(win, ZAMBA_SERVE_S)
+    last, caches, eager_ms, graph_ms = decode_pair(
+        lab, cfg, params, caches, toks[:, ZAMBA_SERVE_S:], ZAMBA_SERVE_S,
+        win, dev, eager_steps=ZAMBA_EAGER_STEPS)
+    bound = serve_bound(L + sites)
+    with torch.no_grad():
+        x = tf_mod.full_forward(cfg, params, {"tokens": toks},
+                                Ctx(cfg, "train", window=ring))
+        full = tf_mod.server_logits_fn(cfg, params["server"])(
+            x[:, -1:])[:, 0]
+        del x
+        _, whole = tf_mod.prefill(cfg, params, {"tokens": toks},
+                                  window=ring)
+    err = rel_error(last, full)
+    agree = float((last.argmax(-1) == full.argmax(-1)).float().mean())
+    check(err <= bound, f"{lab} the last step's logits (position "
+          f"{total - 1}) against full_forward on {total} tokens at window "
+          f"{ring}: relative 2-norm {err:.6f} <= {bound:.4f} ({L} layers + "
+          f"{sites} sites; argmax agreement {agree})")
+    errs = {}
+    for stage in ("client", "server"):
+        for group, tree in caches[stage].items():
+            for leaf, t in tree.items():
+                errs[f"{stage}/{group}/{leaf}"] = rel_error(
+                    t, whole[stage][group][leaf])
+    worst = max(errs, key=errs.get)
+    check(all(v <= bound for v in errs.values())
+          and caches["server"]["shared"]["k"].shape[0] == sites - 2,
+          f"{lab} after the decode every cache leaf (the conv windows, the "
+          f"SSD states, each site's own ring of {ring} slots) against a "
+          f"prefill of the {total} tokens at window {ring}: relative "
+          f"2-norm <= {bound:.4f} (worst {worst} {errs[worst]:.6f})")
+    del whole, caches
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["serve"] = {"k6_launches": launched["swa_attention_tc"],
+                    "prefill_cold_ms": ms[0], "full_forward_rel2": err,
+                    "cache_rel2": errs, "bound": bound,
+                    "argmax_agreement": agree}
+    serve_times(lab, out["serve"], ms[1], eager_ms, graph_ms, SERVE_B, peak,
+                card)
+    del params
+    release(dev)
+
+
+def phase_hybrid(dev, card="", parts=("kernels", "train", "layer",
+                                      "serve")):
+    """Phase 29: the hybrid family on the card, the ``parts`` of it: the
+    kernels at zamba2's shapes, CSE-FSL on zamba2-7b in both engines, one
+    mamba2 layer and one shared site against the host CPU, and serving at
+    81 layers.  Returns the phase's numbers."""
+    t0 = phase(f"29 hybrid: zamba2-7b (Mamba-2 SSD, a shared attention "
+               f"block every 6 layers) trained at {ZAMBA_LAYERS} layers in "
+               "both engines and served at 81")
+    release(dev)
+    out, secs = {"train_layers": ZAMBA_LAYERS}, {}
+    steps = (("kernels", zamba_kernels, (dev, out)),
+             ("train", zamba_train, (dev, out)),
+             ("layer", zamba_layer, (dev, out)),
+             ("serve", zamba_serve, (dev, out, card)))
+    for part, fn, args in steps:
+        if part in parts:
+            t = time.perf_counter()
+            fn(*args)
+            secs[part] = time.perf_counter() - t
+    out["seconds"] = secs
+    print(f"  seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -6227,6 +6495,7 @@ def main() -> int:
     cli_out = phase_cli(dev, remat)
     serve = phase_serve(dev, card)
     moe = phase_moe(dev, card)
+    hybrid = phase_hybrid(dev, card)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -6244,6 +6513,8 @@ def main() -> int:
             r_["serve_prefill_launches"] = serve["qwen3_window"][
                 "k6_launches"]
             r_["olmoe_serve_prefill_launches"] = moe["serve"]["k6_launches"]
+            r_["zamba2_serve_prefill_launches"] = hybrid["serve"][
+                "k6_launches"]
     # the MoE path (phase 28): launches a round at olmoe's shapes and the
     # largest differences from the plain versions there
     moe_launches = moe["train"]["launches_per_round"]
@@ -6252,6 +6523,14 @@ def main() -> int:
         if moe_launches.get(key):
             r_["olmoe_launches_per_round"] = moe_launches[key]
             r_["olmoe_max_abs_err"] = moe["kernel_max_abs_err"].get(
+                r_["name"])
+    # the hybrid path (phase 29): the same at zamba2's shapes
+    zamba_launches = hybrid["train"]["launches_per_round"]
+    for r_ in records + lm_records:
+        key = "fused_ce_p" if r_["name"] == "fused_ce_bwd" else r_["name"]
+        if zamba_launches.get(key):
+            r_["zamba2_launches_per_round"] = zamba_launches[key]
+            r_["zamba2_max_abs_err"] = hybrid["kernel_max_abs_err"].get(
                 r_["name"])
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
@@ -6265,6 +6544,8 @@ def main() -> int:
                               if k != "k2_leaf"}, "serve": serve,
                       "moe": {k: v for k, v in moe.items()
                               if k != "kernel_max_abs_err"},
+                      "hybrid": {k: v for k, v in hybrid.items()
+                                 if k != "kernel_max_abs_err"},
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

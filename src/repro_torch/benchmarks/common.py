@@ -1,8 +1,9 @@
 """Shared helpers of the table and figure scripts (``benchmarks/common.py``):
-the output folder, a banner, a plain-text table and the split CNN's test
-accuracy."""
+the output folder, a banner, a plain-text table, the split CNN's test
+accuracy and the deterministic setting the accuracy claims are read under."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Any, Dict, List
@@ -23,6 +24,26 @@ def save(name: str, payload: Dict[str, Any]) -> str:
     with open(path, "w") as f:
         json.dump(payload, f, indent=1, default=str)
     return path
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms, cuDNN's too, for the block (or the function
+    it decorates), the previous setting restored after.  The figures' claims
+    compare accuracies near chance, where the card's nondeterministic
+    library kernels move a method's final accuracy by several points from
+    one run to the next; under this setting repeated runs are bitwise
+    equal, so a claim holds or fails on every run."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
 
 
 def banner(title: str):

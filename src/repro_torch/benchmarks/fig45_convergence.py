@@ -8,8 +8,9 @@ and Dirichlet, 5 clients, B = 24, 12 rounds, each through
 callback reads accuracy off the exact state of each logged round.  Keeps
 the JAX script's claims as assertions, unchanged in value: on the iid half
 the per-batch methods end below a loss of 2.32, CSE-FSL h = 5 below 2.45,
-and CSE-FSL h = 1's accuracy is above FSL_OC's less 0.1.  Run from the
-repo root:
+and CSE-FSL h = 1's accuracy is above FSL_OC's less 0.1, all read off a
+run under deterministic algorithms (``common.deterministic``), so that a
+claim holds or fails on every run.  Run from the repo root:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.fig45_convergence \\
         [--device cpu] [--rounds R]
@@ -18,7 +19,8 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.benchmarks.common import accuracy, banner, save, table
+from repro_torch.benchmarks.common import (accuracy, banner, deterministic,
+                                          save, table)
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.bundle import cnn_bundle
 from repro_torch.core.trainer import Trainer
@@ -52,6 +54,7 @@ def run_method(bundle, fed, test, method: str, h: int, rounds: int, lr=0.15,
     return curve
 
 
+@deterministic()
 def main(device="cuda", rounds: int = ROUNDS):
     bundle = cnn_bundle(CIFAR10, device=device)
     x, y = synthetic_classification(1500, CIFAR10.in_shape, 10, signal=12.0)

@@ -6,7 +6,8 @@ channels, on the paper's CIFAR-10 (54 and 27 channels, h = 5) and F-EMNIST
 (64 and 8 channels, h = 2) CNNs over the planted-signal synthetic data, 5
 clients, B = 20, lr 0.05, 10 rounds each through ``Trainer.run_compiled``.
 Keeps the JAX script's claim as an assertion: the 27-channel CNN aux ends
-within 0.1 of the MLP's accuracy.  Run from the repo root:
+within 0.1 of the MLP's accuracy, read off a run under deterministic
+algorithms (``common.deterministic``).  Run from the repo root:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.fig78_aux_arch \\
         [--device cpu]
@@ -16,7 +17,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-from repro_torch.benchmarks.common import accuracy, banner, save, table
+from repro_torch.benchmarks.common import (accuracy, banner, deterministic,
+                                          save, table)
 from repro_torch.common import count_params
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.bundle import cnn_bundle
@@ -63,6 +65,7 @@ def sweep(base_cfg, name: str, channel_list, h: int, device="cuda"):
     return rows
 
 
+@deterministic()
 def main(device="cuda"):
     out = {
         "cifar10_h5": sweep(CIFAR10, "CIFAR-10", (54, 27), 5, device),

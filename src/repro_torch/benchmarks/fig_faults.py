@@ -15,7 +15,8 @@ masked participation.  Keeps the JAX script's claims as assertions:
     least the fault-free run's less 0.15;
   - the failure-aware wall-clock estimate (``UniformNetwork``) of the
     lossy run is above the clean one.
-Run from the repo root:
+All are read off a run under deterministic algorithms
+(``common.deterministic``).  Run from the repo root:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.fig_faults \\
         [--device cpu] [--smoke] [--rounds R]
@@ -27,7 +28,8 @@ import warnings
 
 import numpy as np
 
-from repro_torch.benchmarks.common import accuracy, banner, save, table
+from repro_torch.benchmarks.common import (accuracy, banner, deterministic,
+                                          save, table)
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CommMeter, CostModel
 from repro_torch.core.bundle import cnn_bundle
@@ -105,6 +107,7 @@ def expected_lossy_bytes(trainer, fm, rounds: int, meter):
     }
 
 
+@deterministic()
 def main(device="cuda", rounds: int = ROUNDS, smoke: bool = False):
     bundle = cnn_bundle(MODEL, device=device)
     x, y = synthetic_classification(1200, MODEL.in_shape, 10, signal=12.0)

@@ -3,8 +3,9 @@
 input shapes (``ShapeConfig``, ``SHAPES``) the serving specs read.
 
 Only the fields this port reads are here.  ``ModelConfig`` carries the
-dense, MoE and Mamba-1 (``ssm``) families' fields; hybrid and modality
-fields come with the slices that port those families.  ``remat`` recomputes
+dense, MoE, Mamba-1 (``ssm``) and hybrid (Mamba-2 with a shared attention
+block) families' fields; the modality fields come with the slices that
+port those families.  ``remat`` recomputes
 each layer's activations in the backward (``models.model.Remat``, a
 layer-level ``torch.autograd.Function`` that composes with the client
 phase's ``vmap(grad(...))``, where ``torch.utils.checkpoint`` does not); it
@@ -16,7 +17,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -45,13 +46,19 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 1024      # token group size for capacity dispatch
 
-    # SSM (mamba1: falcon-mamba)
-    ssm_variant: str = ""           # "" | "mamba1"
+    # SSM (mamba1: falcon-mamba; mamba2: zamba2)
+    ssm_variant: str = ""           # "" | "mamba1" | "mamba2"
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
-    ssm_dt_rank: int = 0            # 0 -> ceil(d_model/16)
+    ssm_dt_rank: int = 0            # mamba1; 0 -> ceil(d_model/16)
+    ssm_heads: int = 0              # mamba2; 0 -> d_inner // ssm_headdim
+    ssm_headdim: int = 64           # mamba2
     ssm_chunk: int = 128            # chunked-scan chunk length
+
+    # hybrid (zamba2): one shared attention block run after every
+    # `attn_every` backbone layers, its weights shared across the sites
+    attn_every: int = 0
 
     # split-learning structure
     cut_layer: int = 0              # 0 -> default max(1, num_layers // 8)
@@ -91,12 +98,19 @@ class ModelConfig:
             return self.ssm_dt_rank
         return max(1, math.ceil(self.d_model / 16))
 
+    @property
+    def resolved_ssm_heads(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads
+        return max(1, self.d_inner // max(self.ssm_headdim, 1))
+
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 experts top<=2,
-        no remat (the reference's ``reduced`` on the dense, moe and ssm
+        no remat; a hybrid 4 layers cut at 2 with a shared site every 2
+        (the reference's ``reduced`` on the dense, moe, ssm and hybrid
         families)."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
@@ -114,6 +128,14 @@ class ModelConfig:
             kw["num_experts_per_tok"] = min(self.num_experts_per_tok, 2)
         if self.ssm_variant:
             kw["ssm_state"] = min(self.ssm_state, 16)
+            kw["ssm_headdim"] = 32
+            kw["ssm_heads"] = 0
+        if self.attn_every:
+            # a hybrid cut is a multiple of attn_every, and the server
+            # stage keeps a site
+            kw["attn_every"] = 2
+            kw["num_layers"] = 4
+            kw["cut_layer"] = 2
         return self.with_(**kw)
 
 

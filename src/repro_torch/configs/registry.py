@@ -2,17 +2,17 @@
 
 ``get_config(name)`` returns the full-size ModelConfig;
 ``get_config(name).reduced()`` is the CPU smoke variant, in the
-reference's order.  The other families (hybrid, VLM, audio) join as their
-slices are ported
-(ROADMAP Queue 1 item 4); asking for any other name raises a ``KeyError``
-that says so.
+reference's order.  The other families (VLM, audio) join as their slices
+are ported (ROADMAP Queue 1 item 4); asking for any other name raises a
+``KeyError`` that says so.
 """
 from __future__ import annotations
 
 from repro_torch.configs import falcon_mamba_7b, glm4_9b, olmoe_1b_7b, \
-    phi35_moe, qwen2_1_5b, qwen2_72b, qwen3_0_6b
+    phi35_moe, qwen2_1_5b, qwen2_72b, qwen3_0_6b, zamba2_7b
 
 ARCHS = {
+    "zamba2-7b": zamba2_7b.CONFIG,
     "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
     "qwen2-72b": qwen2_72b.CONFIG,

@@ -1,5 +1,5 @@
 """Per-layer blocks, init + apply (``repro.models.blocks``), for the dense,
-MoE and Mamba-1 kinds, in training, prefill and decode mode.
+MoE, Mamba-1 and Mamba-2 kinds, in training, prefill and decode mode.
 
 A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
 Depth comes from params stacked on a leading layer axis (``model.py``).
@@ -7,8 +7,9 @@ Prefill emits each layer's cache; decode updates the cache it is given in
 place and returns it (the attention's ring slot, the conv window, the SSM
 state), where the reference returns new arrays that its ``jax.jit``
 donates.  The MoE block returns its load-balance loss as ``aux_loss`` (a
-0-d fp32 tensor; the others a Python 0.0).  The Mamba-2 and hybrid kinds
-come with the slices that port them (ROADMAP Queue 1 item 4).
+0-d fp32 tensor; the others a Python 0.0).  The hybrid family runs
+Mamba-2 blocks with a shared dense block between groups of them
+(``model.stage_apply``).
 """
 from __future__ import annotations
 
@@ -29,9 +30,6 @@ class Ctx:
                                    # (an int or a 0-d device tensor)
     window: int = 0                # sliding window (0 = full)
     cache_len: int = 0             # allocated cache slots (decode)
-
-
-NOT_PORTED = "ROADMAP Queue 1 item 4"
 
 
 def _init(gen, shape, scale, dtype):
@@ -281,25 +279,103 @@ def mamba1_cache_spec(cfg, batch, dtype):
                                device="meta")}
 
 
+# ---------------------------------------------------------------------------
+# Mamba-2 (zamba2's backbone)
+# ---------------------------------------------------------------------------
+
+
+def mamba2_init(cfg, gen, dtype, lead=()):
+    """``a_log``, ``dt_b`` and ``d_skip`` are kept in fp32 whatever
+    ``dtype`` is."""
+    d, din, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    h, k = cfg.resolved_ssm_heads, cfg.ssm_conv
+    conv_ch = din + 2 * n
+    lead = tuple(lead)
+    return {
+        "ln": torch.ones(lead + (d,), dtype=dtype),
+        "in_proj": _init(gen, lead + (d, 2 * din + 2 * n + h), d ** -0.5,
+                         dtype),
+        "conv_w": _init(gen, lead + (conv_ch, k), k ** -0.5, dtype),
+        "conv_b": torch.zeros(lead + (conv_ch,), dtype=dtype),
+        "a_log": torch.zeros(lead + (h,), dtype=torch.float32),
+        "dt_b": torch.full(lead + (h,), -4.6, dtype=torch.float32),
+        "d_skip": torch.ones(lead + (h,), dtype=torch.float32),
+        "gate_ln": torch.ones(lead + (din,), dtype=dtype),
+        "out_proj": _init(gen, lead + (din, d), din ** -0.5, dtype),
+    }
+
+
+def mamba2_apply(cfg, p, x, ctx: Ctx, cache):
+    """The projection splits into z (din), xbc (din + 2N: the conv runs
+    over all of it) and dt (H).  The scan's y comes back in the
+    activations' dtype and the skip term is added in fp32 after, then cast
+    again, as the reference rounds twice."""
+    b, s, _ = x.shape
+    din, n, nh = cfg.d_inner, cfg.ssm_state, cfg.resolved_ssm_heads
+    hp = din // nh
+    xn = L.rmsnorm(x, p["ln"])
+    z, xbc, dt_raw = torch.split(xn @ p["in_proj"], [din, din + 2 * n, nh],
+                                 dim=-1)
+    dt = L.softplus(dt_raw.float() + p["dt_b"])
+    new_cache = None
+    if ctx.mode == "decode":
+        xbc1, conv = L.conv1d_decode(xbc[:, 0], cache["conv"], p["conv_w"],
+                                     p["conv_b"])
+        xin, b_mat, c_mat = torch.split(L.silu(xbc1), [din, n, n], dim=-1)
+        xh = xin.reshape(b, nh, hp)
+        y, h = L.ssd_decode(xh, dt[:, 0], p["a_log"], b_mat, c_mat,
+                            cache["ssm"])
+        y = torch.addcmul(y, p["d_skip"][None, :, None], xh).to(x.dtype)
+        y = y.reshape(b, 1, din)
+        new_cache = {"conv": conv, "ssm": h}
+    else:
+        xbc_c = L.silu(L.causal_conv1d(xbc, p["conv_w"], p["conv_b"]))
+        xin, b_mat, c_mat = torch.split(xbc_c, [din, n, n], dim=-1)
+        xh = xin.reshape(b, s, nh, hp)
+        if ctx.mode == "prefill":
+            y, h = L.ssd_scan(xh, dt, p["a_log"], b_mat, c_mat,
+                              chunk=cfg.ssm_chunk, return_state=True)
+            kc = cfg.ssm_conv - 1
+            # the raw projection, before the conv
+            new_cache = {"conv": xbc[:, s - kc:].contiguous(), "ssm": h}
+        else:
+            y = L.ssd_scan(xh, dt, p["a_log"], b_mat, c_mat,
+                           chunk=cfg.ssm_chunk)
+        y = torch.addcmul(y, p["d_skip"][None, None, :, None], xh).to(
+            x.dtype).reshape(b, s, din)
+    y = L.rmsnorm(y * L.silu(z), p["gate_ln"])
+    return x + y @ p["out_proj"], new_cache, 0.0
+
+
+def mamba2_cache_spec(cfg, batch, dtype):
+    """One layer's conv window (over the din + 2N conv channels) and SSD
+    state ``[B, H, N, P]`` as ``meta`` tensors."""
+    din, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    nh = cfg.resolved_ssm_heads
+    return {"conv": torch.empty((batch, k - 1, din + 2 * n), dtype=dtype,
+                                device="meta"),
+            "ssm": torch.empty((batch, nh, n, din // nh),
+                               dtype=torch.float32, device="meta")}
+
+
 BLOCKS = {
     "dense": (dense_init, dense_apply),
     "moe": (moe_init, moe_apply),
     "mamba1": (mamba1_init, mamba1_apply),
+    "mamba2": (mamba2_init, mamba2_apply),
 }
 # the kinds whose apply returns an aux loss (a tensor)
 AUX_KINDS = frozenset({"moe"})
 
 
 def block_kind(cfg: ModelConfig) -> str:
-    if cfg.family in ("dense", "moe"):
-        return cfg.family
+    if cfg.family == "moe":
+        return "moe"
     if cfg.family == "ssm":
-        kind = cfg.ssm_variant or "mamba1"
-        if kind in BLOCKS:
-            return kind
-    raise NotImplementedError(f"block kind of family {cfg.family!r} "
-                              f"({cfg.ssm_variant or 'default'}) is not "
-                              "ported yet")
+        return cfg.ssm_variant or "mamba1"
+    if cfg.family == "hybrid":
+        return cfg.ssm_variant or "mamba2"
+    return "dense"
 
 
 def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -309,5 +385,4 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
         return attn_cache_spec(cfg, batch, cache_len, dtype)
     if kind == "mamba1":
         return mamba1_cache_spec(cfg, batch, dtype)
-    raise NotImplementedError(f"the {kind!r} block and its decode cache are "
-                              f"not ported yet ({NOT_PORTED})")
+    return mamba2_cache_spec(cfg, batch, dtype)

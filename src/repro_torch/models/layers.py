@@ -341,3 +341,84 @@ def selective_scan_decode(u, dt, a, b_mat, c_mat, d_vec, h):
                     * uf[..., None])
     y = torch.einsum("bdn,bn->bd", h, c_mat.float()) + uf * d_vec
     return y.to(u.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD, chunked dual form)
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(x, dt, a_log, b_mat, c_mat, *, chunk: int = 128, h0=None,
+             return_state: bool = False):
+    """Mamba-2 SSD.  x: [B,S,H,P]; dt: [B,S,H]; a_log: [H] (A =
+    -exp(a_log)); b_mat, c_mat: [B,S,N] (one group) -> y [B,S,H,P] in x's
+    dtype (and, with ``return_state``, the fp32 state after the last step,
+    [B,H,N,P]).  ``h0``: the state before the first step (default zeros).
+
+    h_t = exp(dt_t A_h) h_{t-1} + (dt_t x_t) outer b_t ;  y_t = h_t . c_t.
+
+    The chunk-parallel form of the reference's chunk-by-chunk scan, each
+    head's chunks as a batch of matrices ([B, H, nc, ...], fp32): every
+    chunk's intra-chunk term and its own contribution to the state after
+    it at once ([B, H, nc, Q, Q] scores), then the states entering the
+    chunks from those contributions and h0 in one product with the
+    chunks' decays ([B, H, nc+1, nc+1]; the decay from chunk j to chunk i
+    a sum of the chunks' log decays between them, never a difference of
+    running sums).  A sequence that is not a multiple of ``chunk`` is one
+    chunk (the reference's fallback).  Above the diagonal the decay
+    exponent is positive, so it is masked to -inf before the exp, never
+    after (exp would overflow and inf * 0 be NaN).  Static shapes, no
+    host values: it runs under ``vmap`` and in a CUDA graph capture."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    if s % chunk:
+        chunk = s
+    nc = s // chunk
+    dtf = dt.float().reshape(bsz, nc, chunk, h).permute(0, 3, 1, 2)
+    xb = x.reshape(bsz, nc, chunk, h, p).permute(0, 3, 1, 2, 4) \
+        * dtf[..., None]                             # [B,H,nc,Q,P], fp32
+    bm = b_mat.float().reshape(bsz, 1, nc, chunk, n)
+    cm = c_mat.float().reshape(bsz, 1, nc, chunk, n)
+    a_neg = -torch.exp(a_log.float())
+    la_cum = torch.cumsum(dtf * a_neg[:, None, None], dim=-1)  # [B,H,nc,Q]
+    iq = torch.arange(chunk, device=x.device)
+    # intra-chunk (attention-like)
+    decay = la_cum[..., :, None] - la_cum[..., None, :]      # [B,H,nc,i,j]
+    scores = (cm @ bm.transpose(-1, -2)) * torch.exp(
+        torch.where(iq[:, None] >= iq[None, :], decay, -torch.inf))
+    y = scores @ xb                                          # [B,H,nc,Q,P]
+    # each chunk's own contribution to the state after it: [B,H,nc,N,P]
+    tail = torch.exp(la_cum[..., -1:] - la_cum)[..., None]
+    sc = bm.transpose(-1, -2) @ (xb * tail)
+    # the states entering chunks 0..nc-1 and the last state: entry i of
+    # [h0, sc_0, ..., sc_{nc-1}] decayed by chunks j..i-1 into slot i
+    z = F.pad(la_cum[..., -1], (1, 0))                       # [B,H,nc+1]
+    ic = torch.arange(nc + 1, device=x.device)
+    seg = torch.cumsum(torch.where(ic[:, None] > ic[None, :],
+                                   z[..., :, None], 0.0), dim=-2)
+    dec = torch.exp(torch.where(ic[:, None] >= ic[None, :], seg,
+                                -torch.inf))                 # [B,H,i,j]
+    h_in = torch.zeros((bsz, h, 1, n, p), dtype=torch.float32,
+                       device=x.device) if h0 is None \
+        else h0.float()[:, :, None]
+    states = torch.cat([h_in, sc], 2).flatten(-2)            # [B,H,nc+1,NP]
+    hs = (dec @ states).unflatten(-1, (n, p))                # [B,H,nc+1,N,P]
+    # inter-chunk, from the carried state
+    y = torch.addcmul(y, cm @ hs[:, :, :nc], torch.exp(la_cum)[..., None])
+    # the cast and the layout in one pass
+    y = y.permute(0, 2, 3, 1, 4).to(
+        x.dtype, memory_format=torch.contiguous_format).reshape(bsz, s, h, p)
+    return (y, hs[:, :, nc]) if return_state else y
+
+
+def ssd_decode(x, dt, a_log, b_mat, c_mat, h):
+    """One step.  x: [B,H,P]; dt: [B,H]; b_mat, c_mat: [B,N]; h: [B,H,N,P]
+    fp32 -> ``(y [B,H,P] in x's dtype, h)``, in the reference's fp32
+    order; ``h`` is updated in place and returned."""
+    dtf = dt.float()
+    a = torch.exp(dtf * -torch.exp(a_log.float()))
+    xb = x.float() * dtf[..., None]
+    h.mul_(a[:, :, None, None]).add_(
+        b_mat.float()[:, None, :, None] * xb[:, :, None, :])
+    y = torch.einsum("bhnp,bn->bhp", h, c_mat.float())
+    return y.to(x.dtype), h

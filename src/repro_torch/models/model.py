@@ -1,7 +1,7 @@
 """Split model: client stage | cut | server stage (+ aux head)
-(``repro.models.model``), for the dense, MoE and non-hybrid ssm
-(Mamba-1) families: training, and serving the merged model (``prefill``,
-``decode_step``, ``full_forward``).
+(``repro.models.model``), for the dense, MoE, ssm (Mamba-1) and hybrid
+(Mamba-2 with a shared attention block) families: training, and serving
+the merged model (``prefill``, ``decode_step``, ``full_forward``).
 
 The *client stage* owns the embedding and the first ``cut`` blocks; the
 *server stage* owns the remaining blocks, the final norm and the LM head.
@@ -10,7 +10,10 @@ loss, so the client trains without server gradients.
 
 Params keep the reference's tree and layouts: weights ``[din, dout]``
 (``x @ w``) and block params stacked on a leading ``[L, ...]`` axis, which
-``stage_apply`` walks with a Python loop.
+``stage_apply`` walks with a Python loop.  A hybrid (zamba2) stage also
+holds ``shared_attn``, one dense block with no layer axis that runs after
+every ``attn_every`` backbone layers: the same weights at every site, a
+decode cache per site.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.common import dtype_of, tree_leaves, tree_map, tree_stack
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (AUX_KINDS, BLOCKS, Ctx,
-                                       block_cache_spec, block_kind)
+                                       attn_cache_spec, block_cache_spec,
+                                       block_kind, dense_apply, dense_init)
 
 MOE_AUX_COEF = 0.01
 
@@ -38,11 +42,24 @@ MOE_AUX_COEF = 0.01
 class StagePlan:
     kind: str
     n_layers: int
+    groups: int = 0          # hybrid: complete groups of attn_every layers
+    tail: int = 0            # hybrid: the backbone layers after the groups
+
+    @property
+    def n_shared_sites(self) -> int:
+        return self.groups
 
 
 def stage_plans(cfg: ModelConfig):
     cut = cfg.resolved_cut
     kind = block_kind(cfg)
+    if cfg.family == "hybrid":
+        e = cfg.attn_every
+        if cut % e:
+            raise ValueError(f"hybrid cut {cut} must be a multiple of {e}")
+        rest = cfg.num_layers - cut
+        return (StagePlan(kind, cut, groups=cut // e),
+                StagePlan(kind, rest, groups=rest // e, tail=rest % e))
     return StagePlan(kind, cut), StagePlan(kind, cfg.num_layers - cut)
 
 
@@ -53,7 +70,10 @@ def stage_plans(cfg: ModelConfig):
 
 def _stage_init(cfg: ModelConfig, plan: StagePlan, gen, dtype):
     init_fn, _ = BLOCKS[plan.kind]
-    return {"blocks": init_fn(cfg, gen, dtype, lead=(plan.n_layers,))}
+    p = {"blocks": init_fn(cfg, gen, dtype, lead=(plan.n_layers,))}
+    if cfg.family == "hybrid":      # each stage its own shared block
+        p["shared_attn"] = dense_init(cfg, gen, dtype)
+    return p
 
 
 def aux_init(cfg: ModelConfig, gen, dtype):
@@ -222,6 +242,12 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx,
     (the reference's layout); in decode mode ``caches`` (that layout) is
     updated in place, a layer's view at a time, and returned.
 
+    A hybrid stage runs ``sp["shared_attn"]`` as a dense block after every
+    ``attn_every`` backbone layers (``plan.groups`` sites; none after the
+    ``plan.tail`` layers that end a stage).  Every site uses the same
+    weights, so their gradients add into one leaf; each site has its own
+    decode cache, ``"shared": [sites, B, ...]`` in the stage cache.
+
     The stacked params are split with one ``unbind`` per leaf, whose
     backward stacks the layers' grads once.  Indexing ``a[i]`` per layer
     would make each layer's backward a zero-filled grad of the whole stack,
@@ -231,29 +257,54 @@ def stage_apply(cfg: ModelConfig, plan: StagePlan, sp, x, ctx: Ctx,
     With ``cfg.remat`` in train mode each layer runs through
     :class:`Remat`: its activations are recomputed in the backward, the
     numbers are the same bit for bit, and the layer's kernels launch once
-    more there (the rerun forward).  The stage's aux is the blocks' aux
-    losses summed in layer order from 0 (the reference's scan carry); the
-    dense and Mamba-1 blocks add none, so theirs stays 0."""
+    more there (the rerun forward).  A shared site runs through it too
+    (the reference checkpoints only the backbone layers: recompute moves
+    memory, not numbers).  The stage's aux is the blocks' aux losses
+    summed in layer order from 0 (the reference's scan carry); the dense
+    and Mamba blocks add none, so theirs stays 0."""
     _, apply_fn = BLOCKS[plan.kind]
     with_aux = plan.kind in AUX_KINDS
+    remat = cfg.remat and ctx.mode == "train"
+    decode = ctx.mode == "decode"
     aux = 0.0
     layers = _unstack(sp["blocks"])
-    given = _unstack(caches["blocks"]) if ctx.mode == "decode" \
-        else [None] * len(layers)
-    emitted = []
-    for p, c in zip(layers, given):
-        if cfg.remat and ctx.mode == "train":
+    given = _unstack(caches["blocks"]) if decode else [None] * len(layers)
+    sites = _unstack(caches["shared"]) if decode and plan.groups \
+        else [None] * plan.groups
+    emitted, emitted_sites = [], []
+    for i, (p, c) in enumerate(zip(layers, given)):
+        if remat:
             out = Remat.apply(_remat_layer(cfg, apply_fn, p, ctx, with_aux),
                               x, *tree_leaves(p))
             x, a = out if with_aux else (out, 0.0)
             aux = aux + a
-            continue
-        x, nc, a = apply_fn(cfg, p, x, ctx, c)
-        aux = aux + a
-        emitted.append(nc)
+        else:
+            x, nc, a = apply_fn(cfg, p, x, ctx, c)
+            aux = aux + a
+            emitted.append(nc)
+        if plan.groups and (i + 1) % cfg.attn_every == 0:
+            shared = sp["shared_attn"]
+            if remat:
+                x = Remat.apply(_remat_layer(cfg, dense_apply, shared, ctx,
+                                             False), x, *tree_leaves(shared))
+                continue
+            x, nc, _ = dense_apply(cfg, shared, x, ctx,
+                                   sites[(i + 1) // cfg.attn_every - 1])
+            emitted_sites.append(nc)
     if ctx.mode == "prefill":
-        return x, aux, {"blocks": tree_stack(emitted)}
-    if ctx.mode == "decode":
+        out = {"blocks": tree_stack(emitted)}
+        if plan.groups:
+            out["shared"] = tree_stack(emitted_sites)
+        elif cfg.family == "hybrid":    # a stage shorter than a group
+            s = x.shape[1]
+            out["shared"] = tree_map(
+                lambda t: torch.empty((0,) + tuple(t.shape), dtype=t.dtype,
+                                      device=x.device),
+                attn_cache_spec(cfg, x.shape[0],
+                                min(ctx.window, s) if ctx.window else s,
+                                x.dtype))
+        return x, aux, out
+    if decode:
         return x, aux, caches
     return x, aux, None
 
@@ -360,10 +411,15 @@ def full_forward(cfg: ModelConfig, params, inputs, ctx: Ctx):
 
 
 def _stage_cache_spec(cfg, plan: StagePlan, batch, cache_len, dtype):
-    return {"blocks": tree_map(
-        lambda t: torch.empty((plan.n_layers,) + tuple(t.shape),
-                              dtype=t.dtype, device="meta"),
-        block_cache_spec(cfg, plan.kind, batch, cache_len, dtype))}
+    def lead(n):
+        return lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                     device="meta")
+    spec = {"blocks": tree_map(lead(plan.n_layers), block_cache_spec(
+        cfg, plan.kind, batch, cache_len, dtype))}
+    if cfg.family == "hybrid":      # one attention cache a shared site
+        spec["shared"] = tree_map(lead(plan.n_shared_sites), attn_cache_spec(
+            cfg, batch, cache_len, dtype))
+    return spec
 
 
 def decode_cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
@@ -383,7 +439,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _pad_attn_caches(caches, cache_len: int):
-    """Grow the k/v caches' sequence dim (stacked layout [L,B,S,KH,hd]) to
+    """Grow the k/v caches' sequence dim (stacked layout [L,B,S,KH,hd], a
+    hybrid's shared sites' [sites,B,S,KH,hd] too) to
     ``cache_len``, zeros after the prompt, so decode appends up to
     ``cache_len - S`` tokens before the ring buffer wraps."""
     def walk(tree):

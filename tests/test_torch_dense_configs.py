@@ -96,7 +96,8 @@ def test_registry_names_what_is_missing():
     assert set(ARCHS) <= set(registry.arch_names())
     missing = [n for n in jregistry.arch_names()
                if n not in registry.arch_names()]
-    assert "zamba2-7b" in missing
+    assert "qwen2-vl-72b" in missing
+    assert "zamba2-7b" not in missing
     assert "olmoe-1b-7b" not in missing
     assert "phi3.5-moe-42b-a6.6b" not in missing
     for name in missing + ["gpt-2"]:

@@ -174,8 +174,8 @@ def test_table34_rows_equal_reference(jbench, tmp_path, monkeypatch):
                                           (64, 32, 8, 2))
     jrows = {r["arch"]: r for r in jt.transformer_table()}
     assert [r["arch"] for r in out["transformers"]] == [
-        "olmoe-1b-7b", "qwen3-0.6b", "qwen2-72b", "falcon-mamba-7b",
-        "qwen2-1.5b", "glm4-9b", "phi3.5-moe-42b-a6.6b"]
+        "zamba2-7b", "olmoe-1b-7b", "qwen3-0.6b", "qwen2-72b",
+        "falcon-mamba-7b", "qwen2-1.5b", "glm4-9b", "phi3.5-moe-42b-a6.6b"]
     for r in out["transformers"]:
         assert r == jrows[r["arch"]]
     assert (tmp_path / "torch_table34_aux_params.json").exists()
@@ -214,3 +214,44 @@ def test_fig_faults_main_runs_its_claims_on_the_cpu(tmp_path, monkeypatch):
     rows = fig_faults.main(device="cpu", rounds=4, smoke=True)
     assert [r["faults"] for r in rows] == ["none", "lossy", "crashy"]
     assert (tmp_path / "torch_fig_faults.json").exists()
+
+
+@pytest.mark.parametrize("before", [(False, False), (True, False),
+                                    (True, True)])
+def test_deterministic_sets_and_restores(before):
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    try:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        torch.backends.cudnn.deterministic = False
+        with pytest.raises(ValueError):
+            with common.deterministic():
+                assert torch.are_deterministic_algorithms_enabled()
+                assert torch.is_deterministic_algorithms_warn_only_enabled()
+                assert torch.backends.cudnn.deterministic
+                raise ValueError
+        assert (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cudnn.deterministic) == (*before, False)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+
+
+def test_fig45_main_trains_under_deterministic_algorithms(tmp_path,
+                                                          monkeypatch):
+    """Every run of fig45's main is under ``common.deterministic``: its
+    claims compare accuracies near chance."""
+    monkeypatch.setattr(common, "OUT_DIR", str(tmp_path))
+    seen = []
+
+    def run_method(*a, **kw):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return [{"round": 2, "acc": 0.5, "loss": 2.0}]
+
+    monkeypatch.setattr(fig45_convergence, "run_method", run_method)
+    was = torch.are_deterministic_algorithms_enabled()
+    fig45_convergence.main(device="cpu", rounds=2)
+    assert seen == [True] * 10
+    assert torch.are_deterministic_algorithms_enabled() == was

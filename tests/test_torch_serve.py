@@ -332,19 +332,19 @@ def test_cache_converters_round_trip_bitwise():
 
 @pytest.mark.parametrize("kind", ["moe", "mamba2"])
 def test_unported_blocks_raise(kind):
-    """``mamba2`` is still to port: its cache spec raises.  ``moe`` is
-    ported (its decode cache is the attention's): olmoe-1b-7b's spec at B
-    4 and 4,096 slots equals the reference's, shapes, dtypes and tree."""
-    if kind == "moe":
-        from repro.models import blocks as jblocks
-        got = blocks.block_cache_spec(get_config("olmoe-1b-7b"), kind, 4,
-                                      4096, torch.bfloat16)
-        want = jblocks.block_cache_spec(jget_config("olmoe-1b-7b"), kind, 4,
-                                        4096, jnp.bfloat16)
-        assert sorted(got) == sorted(want) == ["k", "v"]
-        assert _spec_sig(got) == _jspec_sig(want) \
-            == [((4, 4096, 16, 128), "bfloat16")] * 2
-        return
-    cfg = get_config("qwen3-0.6b").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        blocks.block_cache_spec(cfg, kind, 1, 8, torch.bfloat16)
+    """The two block kinds whose cache specs raised until they were
+    ported, ``moe`` (its decode cache is the attention's) and ``mamba2``
+    (the conv window over the din + 2N channels and the fp32 SSD state
+    ``[B, H, N, P]``): olmoe-1b-7b's and zamba2-7b's specs at B 4 and
+    4,096 slots equal the reference's, shapes, dtypes and tree."""
+    from repro.models import blocks as jblocks
+    arch = {"moe": "olmoe-1b-7b", "mamba2": "zamba2-7b"}[kind]
+    got = blocks.block_cache_spec(get_config(arch), kind, 4, 4096,
+                                  torch.bfloat16)
+    want = jblocks.block_cache_spec(jget_config(arch), kind, 4, 4096,
+                                    jnp.bfloat16)
+    assert sorted(got) == sorted(want)
+    assert _spec_sig(got) == _jspec_sig(want) == {
+        "moe": [((4, 4096, 16, 128), "bfloat16")] * 2,
+        "mamba2": [((4, 3, 7296), "bfloat16"),
+                   ((4, 112, 64, 64), "float32")]}[kind]
