@@ -7,8 +7,11 @@ engine's (phase 24), the population engine's and telemetry's (phase
 resume, falcon-mamba through the population engine) and the serving
 path's (phase 27: the windowed Qwen3 prefill and decode, falcon-mamba's
 decode), the MoE layer's (phase 28: one olmoe block with and without
-recompute) and the hybrid serving path's (phase 29: zamba2-7b's decode
-caches against a prefill of the whole sequence) can fail.  Run from the repo root on a machine with
+recompute), the hybrid serving path's (phase 29: zamba2-7b's decode
+caches against a prefill of the whole sequence) and the VLM and audio
+families' (phase 30: the attention sub-blocks against an attention
+written out in the phase, the image merge, qwen2-vl's decoded ring) can
+fail.  Run from the repo root on a machine with
 one NVIDIA GPU and nvcc:
 
     python3 chip_mutants.py [--only PHASE ...]
@@ -20,14 +23,17 @@ The tree itself runs phases 1, 2, 7, 11, 15 (its topk tie check), 19 (its
 CNN CSE-FSL path), 21 (its cnn-cse-deadline and cnn-cse-bwh paths), 22
 (its qwen3-cse_fsl path), 24 and 25 (their CNN paths) and 26 (its
 qwen3, resume and mamba parts), 27 (its qwen3 and mamba parts), 28
-(its layer part) and 29 (its serve part) of ``chip_smoke.py`` in a fresh process, with every check reported instead
+(its layer part), 29 (its serve part) and 30 (its layer and serve parts)
+of ``chip_smoke.py`` in a fresh process, with every check reported instead
 of raised; each mutant below runs phases 1, 2 and the one of 7 (fused CE,
 K6 and its backward), 11 (K5), 15 (topk), 19 (the captured round), 21
 (the masked round), 22 (the recomputed layer), 24 (the event engine),
 25 (the population engine, telemetry), 26 (the CLI, the Trainer's
 checkpoint, the Mamba population run), 27 (the ring, the conv window,
-the captured decode), 28 (the recomputed MoE block) or 29 (the shared
-sites' rings, the SSD's carried state) that holds its fault.  A mutant is
+the captured decode), 28 (the recomputed MoE block), 29 (the shared
+sites' rings, the SSD's carried state) or 30 (M-RoPE in decode and in its
+sections, the image merge, hubert's non-causal attention) that holds its
+fault.  A mutant is
 one deliberate fault in a kernel source, in the compiled runner, in the
 masked aggregate, in the topk codec, in the layer recompute, in the
 per-client coding, in the checksum frame, in the arrival heap, in the
@@ -257,6 +263,25 @@ MUTANTS = {
         [(LAYERS, "z = F.pad(la_cum[..., -1], (1, 0))",
           "z = F.pad(0 * la_cum[..., -1], (1, 0))")],
         "[zamba2-serve] after the decode every cache leaf", "29"),
+    "the vlm's decode builds 1-D RoPE positions": (
+        [(BLOCKS, "pos_ids = L.mrope_pos_ids(cfg.num_image_tokens, b, s, "
+          "ctx.pos,",
+          "pos_ids = L.mrope_pos_ids(0 if ctx.mode == \"decode\" else "
+          "cfg.num_image_tokens, b, s, ctx.pos,")],
+        "[qwen2vl-serve] layer 0's ring", "30"),
+    "the image merge skipped on the card": (
+        [(MODEL, "    if cfg.family == \"vlm\":\n        img = ",
+          "    if cfg.family == \"vlm\" and x.device.type != \"cuda\":\n"
+          "        img = ")],
+        "[qwen2vl-serve] embed_inputs on the card", "30"),
+    "hubert's attention left causal": (
+        [(BLOCKS, "out = L.attention(q, k, v, causal=not cfg.encoder_only,",
+          "out = L.attention(q, k, v, causal=True,")],
+        "[hubert-layer] attention sub-block", "30"),
+    "M-RoPE's sections take the streams in reverse order": (
+        [(LAYERS, "parts.append(pos[i][..., None].float()",
+          "parts.append(pos[2 - i][..., None].float()")],
+        "[qwen2vl-layer] attention sub-block", "30"),
 }
 KERNEL_PHASES = """
 import sys, torch
@@ -287,7 +312,9 @@ PHASES = {"7": 'cs.phase_lm_kernels(torch.device("cuda"))\n',
           "27q": 'cs.phase_serve(torch.device("cuda"), parts=("qwen3",))\n',
           "27m": 'cs.phase_serve(torch.device("cuda"), parts=("mamba",))\n',
           "28": 'cs.phase_moe(torch.device("cuda"), parts=("layer",))\n',
-          "29": 'cs.phase_hybrid(torch.device("cuda"), parts=("serve",))\n'}
+          "29": 'cs.phase_hybrid(torch.device("cuda"), parts=("serve",))\n',
+          "30": 'cs.phase_families(torch.device("cuda"), '
+                'parts=("layer", "serve"))\n'}
 
 
 def phase_of(path: str) -> str:
@@ -298,7 +325,7 @@ def phase_of(path: str) -> str:
 
 
 ALL_PHASES = ("7", "11", "15", "19", "21", "22", "24", "25", "26q", "26r",
-              "26m", "27q", "27m", "28", "29")
+              "26m", "27q", "27m", "28", "29", "30")
 
 
 def run(where: str, phases=ALL_PHASES) -> list:

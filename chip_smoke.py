@@ -251,7 +251,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    serving at all 81 layers: the windowed prefill of 4 x 1,920 (K6 once a
    site, 13 times), 128 captured decode steps (the first 32 bitwise the
    eager ones), the last against ``full_forward`` and every cache leaf
-   (each site's own ring) against a prefill of the whole sequence.
+   (each site's own ring) against a prefill of the whole sequence;
+30. the VLM and audio families (M-RoPE, the image-embedding and frame
+   frontends, encoder-only attention): K3/K4 at qwen2-vl-72b's heads (d
+   8,192 x V 152,064 and r 256) and hubert-xlarge's (d 1,280 and r 64 x V
+   504, a ragged last vocabulary tile) against their plain versions, timed
+   at the two server heads, and FedAvg in slices bitwise the whole leaf's;
+   CSE-FSL on qwen2-vl-72b at full width cut to 4 layers (cut 1; its
+   batches staged with zero image embeddings, the model sync uncoded)
+   and on hubert-xlarge at all 48 layers (train_batch_specs features,
+   int8 model sync, no K6) through phase 19's checks; one attention
+   sub-block of each against an attention written out here (rotation by
+   ``torch.polar`` per M-RoPE section) on the host CPU; serving qwen2-vl
+   at 16 layers: the image merge bitwise, the prefill of 4 x 4,096 with
+   256 image embeddings (K6 once a layer), 32 captured decode steps
+   bitwise the eager ones, layer 0's ring, the last step against
+   ``full_forward`` and every cache leaf against a prefill of the whole
+   sequence.
 
 Phases 18 (5 timed CNN rounds, 1 LM), 19 and 21 (one timed LM round or
 chunk) and 24 (``fig_sched`` and ``fig_wallclock`` at their own
@@ -270,19 +286,31 @@ phases 19 and 22 (a path's kernels a replayed round read from its
 ``run_compiled``'s own replays, not from one more profiled chunk), 21
 (its timed paths' unmasked twins are phase 19's runs) and 26 (qwen2-1.5b
 drawn on the card; the CLI's own replays profiled, not a second run).
-No check or kernel comparison went, and every path is still driven.
+For phase 30, the LM paths draw their parameters on the card
+(``lm_bundle``; the host's generator took tens of seconds for the
+16-layer Mamba cut, Qwen3 and its 20-layer cut, 3.6 B parameters),
+phase 26's Mamba ``Population`` is held to phase 22's run of the same
+path (its digests, rows and meter) instead of a ``run_compiled`` of its
+own and its event-engine check keeps the initial state on the card (no
+host copy), phase 18 times K2's plain version once (twice before), and
+phase 10 qwen2-vl's plain attention once.  No check or kernel comparison
+went, and every path is still driven at its depth.
 
 Phases 7-21 pin ``remat=False``, which the Qwen3 and falcon-mamba configs
 now set, so their sizes, counts and peaks stay as they were.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (with
 ``"sched"``, ``"remat"``, ``"figures"``, ``"engine"``, ``"population"``,
-``"telemetry"``, ``"cli"``, ``"serve"``, ``"moe"``, ``"hybrid"`` and
-``"known_reference_failures"``: phases 21-29's numbers; K6's record adds
-``serve_prefill_launches`` (and the olmoe and zamba2 prefills'), and
-the records of the kernels the MoE and hybrid paths run
-``olmoe_launches_per_round``, ``olmoe_max_abs_err``,
-``zamba2_launches_per_round`` and ``zamba2_max_abs_err``), the
+``"telemetry"``, ``"cli"``, ``"serve"``, ``"moe"``, ``"hybrid"``,
+``"families"`` and ``"known_reference_failures"``: phases 21-30's
+numbers; K6's record adds ``serve_prefill_launches`` (and the olmoe,
+zamba2 and qwen2-vl prefills'), and the records of the kernels the MoE,
+hybrid, VLM and audio paths run ``olmoe_launches_per_round``,
+``olmoe_max_abs_err``, ``zamba2_launches_per_round``,
+``zamba2_max_abs_err``, ``qwen2_vl_launches_per_round``,
+``qwen2_vl_max_abs_err``, ``hubert_launches_per_round`` and
+``hubert_max_abs_err``; K3/K4's records ``qwen2_vl_server`` and
+``hubert_server``, their times at those heads), the
 last ``{"ok": true, "device":
 {...}}``.  The script imports neither JAX nor the
 JAX package.
@@ -331,7 +359,7 @@ from repro_torch.core.bundle import cnn_bundle, transformer_bundle  # noqa: E402
 from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.graphs import state_leaves  # noqa: E402
 from repro_torch.core.methods import get_method  # noqa: E402
-from repro_torch.core.methods.base import stacked_keys  # noqa: E402
+from repro_torch.core.methods.base import fedavg, stacked_keys  # noqa: E402
 from repro_torch.core import trainer as trainer_mod  # noqa: E402
 from repro_torch.core.trainer import Trainer  # noqa: E402
 from repro_torch.data import (FederatedBatcher, partition_iid,  # noqa: E402
@@ -354,6 +382,7 @@ from repro_torch.models import model as tf_mod  # noqa: E402
 from repro_torch.models.blocks import Ctx  # noqa: E402
 from repro_torch.models.cnn import CIFAR10, stages  # noqa: E402
 from repro_torch.network import TieredNetwork  # noqa: E402
+from repro_torch.optim import SLICE_NUMEL  # noqa: E402
 from repro_torch.population import (FederatedPool, Population,  # noqa: E402
                                     VirtualPool)
 from repro_torch.sched import (BandwidthHPolicy, DeadlinePolicy,  # noqa: E402
@@ -437,8 +466,9 @@ SOURCE = {"quantize_bits": "quantize.cu", "quantize_philox": "quantize.cu",
 # path's and a longer one the window cuts, ragged ones for the tensor-core
 # kernel (S not a multiple of 128, windows that cut the kv tiles, hd = 64),
 # zamba2-7b's attention (hd = 112, on the tensor cores), qwen2-1.5b's and
-# glm4-9b's (GQA groups of 6 and 16: 12 and 32 heads over 2), then
-# tests/test_kernels.py's four in fp32.
+# glm4-9b's (GQA groups of 6 and 16: 12 and 32 heads over 2), qwen2-vl-72b's
+# server (a group of 8: 64 heads over 8), then tests/test_kernels.py's four
+# in fp32.
 CE_CASES = [((4, 4096, 128, 151936), torch.bfloat16),
             ((1, 4096, 1024, 151936), torch.bfloat16),
             ((4, 4096, 1024, 151936), torch.bfloat16),
@@ -475,7 +505,8 @@ SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
              ((2, 1000, 4, 2, 64, 300), torch.bfloat16),
              ((1, 4096, 32, 32, 112, 4096), torch.bfloat16),
              ((1, 4096, 12, 2, 128, 4096), torch.bfloat16),
-             ((1, 4096, 32, 2, 128, 4096), torch.bfloat16)] + [
+             ((1, 4096, 32, 2, 128, 4096), torch.bfloat16),
+             ((1, 4096, 64, 8, 128, 4096), torch.bfloat16)] + [
     (c, torch.float32) for c in ((1, 128, 2, 2, 16, 32),
                                  (1, 256, 4, 2, 32, 64),
                                  (2, 128, 4, 1, 16, 128),
@@ -483,8 +514,8 @@ SWA_CASES = [((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
 # K6 backward cases (B, S, H, KH, hd, W): the Qwen3 main path's (one server
 # sequence, 4 folded clients), zamba2-7b's heads, a longer sequence the
 # window cuts (W < S), ragged ones (S off the 64- and 128-row tiles,
-# windows that cut them) at hd 128, 64 and 112 with GQA, qwen2-1.5b's and
-# glm4-9b's heads (groups of 6 and 16); then the plain
+# windows that cut them) at hd 128, 64 and 112 with GQA, qwen2-1.5b's,
+# glm4-9b's and qwen2-vl-72b's heads (groups of 6, 16 and 8); then the plain
 # backward's routes on the card (bf16 at hd 32, fp32).
 SWA_BWD_CASES = [((1, 4096, 16, 8, 128, 4096), torch.bfloat16),
                  ((4, 4096, 16, 8, 128, 4096), torch.bfloat16),
@@ -495,6 +526,7 @@ SWA_BWD_CASES = [((1, 4096, 16, 8, 128, 4096), torch.bfloat16),
                  ((1, 1000, 4, 2, 112, 1000), torch.bfloat16),
                  ((1, 4096, 12, 2, 128, 4096), torch.bfloat16),
                  ((1, 4096, 32, 2, 128, 4096), torch.bfloat16),
+                 ((1, 4096, 64, 8, 128, 4096), torch.bfloat16),
                  ((1, 256, 4, 2, 32, 64), torch.bfloat16),
                  ((1, 256, 2, 2, 64, 200), torch.float32)]
 SWA_GRADS = ("dq", "dk", "dv")
@@ -953,11 +985,16 @@ def phase_times(dev: torch.device, err, launches, tr, state, fed):
 
 def ce_inputs(g, t, d, v, dtype, seed, dev):
     """x ~ N(0, 1), w ~ N(0, 1/d) (the head's init scale), random labels,
-    per-group loss cotangents g in [0.5, 1.5]."""
-    gen = torch.Generator().manual_seed(seed)
-    x = torch.randn((g, t, d), generator=gen).to(dtype)
-    w = (torch.randn((g, d, v), generator=gen) * d ** -0.5).to(dtype)
-    lab = torch.randint(0, v, (g, t), generator=gen).to(torch.int32)
+    per-group loss cotangents g in [0.5, 1.5].  Drawn on the host, except
+    where w has more than 2^30 elements (qwen2-vl's d 8192 x V 152,064
+    head: seconds on the host), drawn on the card."""
+    on = dev if g * d * v > 2 ** 30 else "cpu"
+    gen = torch.Generator(device=on).manual_seed(seed)
+    x = torch.randn((g, t, d), generator=gen, device=on).to(dtype)
+    w = (torch.randn((g, d, v), generator=gen, device=on)
+         * d ** -0.5).to(dtype)
+    lab = torch.randint(0, v, (g, t), generator=gen, device=on).to(
+        torch.int32)
     gs = torch.linspace(0.5, 1.5, g) if g > 1 else torch.ones(1)
     return [a.to(dev) for a in (x, w, lab, gs)]
 
@@ -1286,29 +1323,28 @@ def check_swa_bwd(cases, err, dev):
         torch.cuda.empty_cache()
 
 
-# The LM paths' bundles (by config), host copies of their initial
-# parameters (by config less remat, which does not change them, and seed)
-# and their token data (by vocabulary, clients and S), built once for every
-# phase that runs the path (8, 12, 17, 19-22, 24): each draw runs on the
-# CPU's generator, and a falcon-mamba one takes tens of seconds.
-BUNDLES, PARAMS, DATA = {}, {}, {}
+# The LM paths' bundles (by config) and their token data (by vocabulary,
+# clients and S), built once for every phase that runs the path (8, 12,
+# 17, 19-22, 24); the bundles draw their parameters on the card.
+BUNDLES, DATA = {}, {}
 
 
 def lm_bundle(cfg, dev):
-    """``transformer_bundle(cfg, dev)`` whose ``init(gen)`` draws the
-    parameters once per config and seed and copies the host copy to the
-    card after; each method's ``init_state`` draws nothing else, so
-    ``Trainer.init`` gives the same bits as a fresh draw."""
+    """``transformer_bundle(cfg, dev)`` whose ``init(gen)`` is
+    ``init_params``' draw made on the card from a generator seeded with
+    ``gen``'s seed (card_bundle's), moved to the bundle's device: every
+    init of a config and seed gives the same bits, on the card and on the
+    CPU (phase 26's reduced CLI runs compare the two).  Each method's
+    ``init_state`` draws nothing else.  A draw on the host's generator
+    takes about 13 s a billion parameters (card_bundle), so the 16-layer
+    Mamba cut's took tens of seconds."""
     key = (repr(cfg), str(dev))
     if key not in BUNDLES:
         bundle = transformer_bundle(cfg, device=dev)
-        pkey = repr(cfg.with_(remat=False))
 
-        def init(gen, bundle=bundle, pkey=pkey):
-            k = (pkey, gen.initial_seed())
-            if k not in PARAMS:
-                PARAMS[k] = tree_map(lambda t: t.cpu(), bundle.init(gen))
-            return tree_map(lambda t: t.to(bundle.device), PARAMS[k])
+        def init(gen, bundle=bundle):
+            params = serve_mod.draw_params(cfg, gen.initial_seed(), "cuda")
+            return tree_map(lambda t: t.to(bundle.device), params)
         BUNDLES[key] = dataclasses.replace(bundle, init=init)
     return BUNDLES[key]
 
@@ -1369,7 +1405,7 @@ def lm_launches(cfg, method: str, k2: int) -> dict:
                 fused_ce_dw=heads, fused_ce_p=heads)
     if cfg.family == "ssm":
         want.update(ssm_scan=fwd, ssm_scan_bwd=bwd, ssm_scan_bwd_sum=bwd)
-    else:
+    elif cfg.swa_window and not cfg.encoder_only:   # hubert: no K6
         want.update(swa_attention_tc=fwd, **{n: bwd for n in swa.BWD_KERNELS})
     return want
 
@@ -1537,8 +1573,9 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                    peak):
     """Phase 10: K3/K4a/K4b/K6, K6's backward and a main-path round,
     timed.  The bf16 K6 (the tensor-core kernel) at the server's and the 4
-    folded clients' shapes and at zamba2-7b's heads (32 of width 112; no
-    path here runs zamba2, so its record sits beside the server's), the
+    folded clients' shapes, at zamba2-7b's heads (32 of width 112; no
+    path here runs zamba2, so its record sits beside the server's) and at
+    qwen2-vl-72b's (64 over 8 kv heads, the forward only), the
     CUDA-core K6 at the server's in fp32 (its launches are phase 9's,
     ``fp32_launches``; its bound at the fp32 rate); the backward's three
     kernels and the whole backward call at the same bf16 shapes, beside
@@ -1560,7 +1597,8 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
     cases = (("server", 1, torch.bfloat16, 16, 8, 128),
              ("client", LM_N, torch.bfloat16, 16, 8, 128),
              ("fp32", 1, torch.float32, 16, 8, 128),
-             ("zamba2", 1, torch.bfloat16, 32, 32, 112))
+             ("zamba2", 1, torch.bfloat16, 32, 32, 112),
+             ("qwen2_vl", 1, torch.bfloat16, 64, 8, 128))
     by_name = {}
     for tag, b, dtype, hh, kh, hd in cases:
         s = LM_S
@@ -1582,8 +1620,10 @@ def phase_lm_times(dev, err, launches, fp32_launches, tr, state, fed,
                      event_ms(lambda: swa.swa_attention_fwd(q, k, v, win),
                               reps=3 if cuda_core else 5,
                               inner=3 if cuda_core else 5),
+                     # qwen2-vl's 64 heads: one plain call, not three
                      event_ms(lambda: ref.swa_attention(q, k, v, win),
-                              reps=3, inner=1, warm=1),
+                              reps=1 if hh == 64 else 3, inner=1,
+                              warm=int(hh != 64)),
                      io, flops, FP32_OPS if fp32 else BF16_OPS,
                      library_ms=min(lib.values()),
                      library_band_ms=lib["band"],
@@ -1893,7 +1933,7 @@ def phase_mamba_cpu_vs(dev):
 LIB_CE = "cross_entropy(linear(x, w^T))"
 
 
-def library_ce_ms(x, w, lab, gs) -> dict:
+def library_ce_ms(x, w, lab, gs, reps=3) -> dict:
     """The library's time per kernel record, summed over the groups as the
     kernels serve them (``sum_i g_i * CE(x_i w_i)``): its forward for K3;
     with ``autograd.grad`` (forward included) to x for K4a, to w for K4b,
@@ -1916,14 +1956,18 @@ def library_ce_ms(x, w, lab, gs) -> dict:
            "fused_ce_dw": lambda: torch.autograd.grad(loss(x, wr), wr),
            "fused_ce_bwd": lambda: torch.autograd.grad(loss(xr, wr),
                                                        (xr, wr))}
-    return {k: event_ms(f, reps=3, inner=2, warm=1) for k, f in fns.items()}
+    return {k: event_ms(f, reps=reps, inner=2 if reps > 1 else 1, warm=1)
+            for k, f in fns.items()}
 
 
-def time_ce(cases, launches, err, dev):
+def time_ce(cases, launches, err, dev, plain_reps=3, reps=5, inner=2,
+            warm=1):
     """K3, K4a (its own P pass + dx), K4b (its own P pass + dw) and
     fused_ce_bwd (one shared P pass + both) timed at ``cases``
-    ``{tag: (G, T, d, V)}`` in bf16, beside their plain versions and the
-    library call; returns ``{tag: {name: record}}``."""
+    ``{tag: (G, T, d, V)}`` in bf16 (medians of ``reps`` times of
+    ``inner`` calls, after ``warm`` calls), beside their plain versions
+    (``plain_reps`` calls after ``warm``) and the library call; returns
+    ``{tag: {name: record}}``."""
     out = {}
     for tag, (g, t, d, v) in cases.items():
         x, w, lab, gs = ce_inputs(g, t, d, v, torch.bfloat16, 7, dev)
@@ -1945,16 +1989,18 @@ def time_ce(cases, launches, err, dev):
                  "fused_ce_dw": lambda: ref.fused_ce_dw(x, w, lab, lse, gs),
                  "fused_ce_bwd": lambda: ref.fused_ce_bwd(x, w, lab, lse,
                                                           gs)}
-        lib = library_ce_ms(x, w, lab, gs)
+        lib = library_ce_ms(x, w, lab, gs, reps=min(reps, 3))
         torch.cuda.empty_cache()
         out[tag] = {}
         for name in run:
             # fused_ce_bwd: its launches are the main path's P passes
             rec = record(name, launches["fused_ce_p" if name == "fused_ce_bwd"
                                         else name], err[name],
-                         graph_ms(run[name], reps=5, inner=2),
-                         event_ms(run[name], reps=5, inner=2, warm=1),
-                         event_ms(plain[name], reps=3, inner=1, warm=1),
+                         graph_ms(run[name], reps=reps, inner=inner),
+                         event_ms(run[name], reps=reps, inner=inner,
+                                  warm=warm),
+                         event_ms(plain[name], reps=plain_reps, inner=1,
+                                  warm=warm),
                          *work[name], BF16_OPS, library_ms=lib[name],
                          library=LIB_CE, shape=[g, t, d, v])
             print(f"  [{tag}]", end="")
@@ -2493,7 +2539,7 @@ def phase_baseline_times(dev, fed, records, cnn_paths, lm_paths):
     rec = record("quantize_philox", lm_paths["qwen3-28L-fsl_oc"]["launches"]
                  ["quantize_philox"], err, graph_ms(run), event_ms(run),
                  event_ms(lambda: ref.quantize_2d(xd, ref.philox_bits(
-                     seeds.cpu(), r, c).to(dev)), reps=2, inner=1, warm=0),
+                     seeds.cpu(), r, c).to(dev)), reps=1, inner=1, warm=0),
                  io, ops, FP32_OPS, shape=[n, r, c],
                  launches_path="qwen3-0.6b fsl_oc int8 up and down "
                                "(phase 17)")
@@ -2623,8 +2669,8 @@ class ReplayWatch:
     read and :func:`close_profile`).  So a run's own replays are read,
     with no replayed chunk of its own for the count."""
 
-    def __init__(self, dev, shapes: bool = False):
-        self.dev, self.shapes = dev, shapes
+    def __init__(self, dev, shapes: bool = False, profile: bool = True):
+        self.dev, self.shapes, self.profile = dev, shapes, profile
         self.at_capture, self.k2_shapes = {}, {True: {}, False: {}}
         self.events, self.flags, self.replay_calls = {}, [], 0
         self.added_s = 0.0
@@ -2657,12 +2703,14 @@ class ReplayWatch:
         def watched_replay(cap, flags, fetch=True):
             t0 = time.perf_counter()
             watch._fold()
-            with cuda_profile() as prof:
+            with cuda_profile() if watch.profile \
+                    else contextlib.nullcontext() as prof:
                 t1 = time.perf_counter()
                 rows = replay(cap, flags, True)
                 t2 = time.perf_counter()
-                close_profile(watch.dev)
-            for e in cuda_events(prof):
+                if watch.profile:
+                    close_profile(watch.dev)
+            for e in cuda_events(prof) if watch.profile else ():
                 d = watch.events.setdefault(e.key, DeviceEvents(e.key))
                 d.count += e.count
                 d.self_device_time_total += e.self_device_time_total
@@ -2696,10 +2744,12 @@ class ReplayWatch:
 
 def path_cfg(model, remat=False, layers=None):
     """The LM path's config: phase 8's Qwen3, phase 12's Mamba cut,
-    phase 28's olmoe or phase 29's zamba2, with ``remat`` and at depth
-    ``layers`` (None: the path's own)."""
+    phase 28's olmoe, phase 29's zamba2 or phase 30's qwen2-vl cut and
+    hubert, with ``remat`` and at depth ``layers`` (None: the path's
+    own)."""
     cfg = {"qwen3": lm_cfg, "mamba": mb_cfg, "olmoe": moe_cfg,
-           "zamba2": zamba_cfg}[model]().with_(remat=remat)
+           "zamba2": zamba_cfg, "qwen2vl": vlm_cfg,
+           "hubert": hubert_cfg}[model]().with_(remat=remat)
     return cfg if layers is None else cfg.with_(num_layers=layers)
 
 
@@ -2712,7 +2762,8 @@ def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
     path; the LM paths with ``remat``, at sequence ``seq`` (default their
     phase-19 S) and depth ``layers`` for phase 22."""
     down = "int8" if get_method(method).downloads_gradients else "none"
-    tp = make_transport("int8", down, model_sync="int8")
+    tp = make_transport("int8", down, model_sync=MODEL_SYNC.get(model,
+                                                                "int8"))
     if model == "cnn":
         bundle = cnn_bundle(CIFAR10, device=dev)
         fsl = FSLConfig(num_clients=N, h=H, lr=LR, lr_decay_every=1,
@@ -2723,15 +2774,23 @@ def compiled_trainer(model, method, dev, remat=False, seq=None, layers=None):
                 cost_model(bundle, N, SAMPLES // N), B)
     cfg = path_cfg(model, remat, layers)
     s = seq or path_seq(model)
-    # olmoe's 6.9 B and zamba2's 7.0 B parameters are drawn on the card (a
-    # host draw would take minutes)
-    bundle = card_bundle(cfg, dev) if model in ("olmoe", "zamba2") \
+    # olmoe's 6.9 B, zamba2's 7.0 B, the qwen2-vl cut's 6.3 B and hubert's
+    # 1.3 B parameters are drawn on the card (a host draw would take
+    # minutes)
+    bundle = card_bundle(cfg, dev) if model in ("olmoe", "zamba2",
+                                                "qwen2vl", "hubert") \
         else lm_bundle(cfg, dev)
     fsl = FSLConfig(num_clients=LM_N, h=LM_H, lr=LM_LR, lr_decay_every=1,
                     method=method)
-    fed = lm_data(cfg, fsl, s)
-    return (Trainer(bundle, fsl, transport=tp),
-            lambda: LMBatcher(cfg, fed, LM_B, LM_H, seed=0),
+    if cfg.family == "audio":       # frame features, as train_batch_specs
+        def batcher():
+            return SpecBatcher(cfg, fsl, s)
+    else:
+        fed = lm_data(cfg, fsl, s)
+
+        def batcher():
+            return LMBatcher(cfg, fed, LM_B, LM_H, seed=0)
+    return (Trainer(bundle, fsl, transport=tp), batcher,
             cost_model(bundle, LM_N, LM_SAMPLES), LM_B)
 
 
@@ -2852,7 +2911,7 @@ def check_staged(lab, tr, make_batcher, rounds, chunk, want, hist, meter,
 def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                         remat=False, seq=None, layers=None, want=None,
                         reps=None, staged=False, time_loop=True,
-                        after_loop=None):
+                        after_loop=None, profile=True):
     """Phase 19 for one path, with the measurements phase 20 prints; phase
     22 runs its paths through it with ``remat`` (at sequence ``seq`` and
     depth ``layers``).
@@ -2878,7 +2937,13 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     is timed (phase 22, whose ratios PERF.md quotes from the compiled
     rounds): ``loop_ms`` and ``loop_idle`` are None.  ``after_loop(tr,
     state, batcher)`` runs on the loop's final state before it is
-    freed (phase 28's aux losses).  The loop's state is kept as its
+    freed (phase 28's aux losses).  Without ``profile`` (hubert, whose
+    round launches about 100,000 kernels) neither engine's rounds are
+    profiled: the launches a round and the replays' wrapper calls are
+    counted as before, but the kernels by symbol, the device time and the
+    loop's idle are not read, the loop's ms a round is its run's host
+    time (``loop_run_ms``), and no replayed round is timed alone
+    (``replay_ms`` and ``compiled_idle`` are None).  The loop's state is kept as its
     leaves' ``bits_digest`` on the card (``state_digests``), not as a host
     copy: run_compiled's, the staged run's and a remat run's states are
     held to those digests."""
@@ -2891,8 +2956,9 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                                                  seq, layers)
     lap("setup (bundle, data, trainer)")
     nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
+    synced = not tr.transport.model_identity    # an int8 model-sync wire
     k2 = tr.units_per_round * (
-        2 if get_method(method).downloads_gradients else 1) + 2 * nm
+        2 if get_method(method).downloads_gradients else 1) + 2 * nm * synced
     lcfg = None if model == "cnn" else path_cfg(model, remat, layers)
     expect = None if lcfg is None else lm_launches(lcfg, method, k2)
     if lcfg is not None:
@@ -2911,19 +2977,23 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t = time.perf_counter()
-    with cuda_profile() as prof:
+    with cuda_profile() if profile else contextlib.nullcontext() as prof:
         state, lhist = tr.run(state, batcher, rounds, log_every=1,
                               meter=meters[0], cost_model=cm,
                               callback=lambda *_: after.append(counts()))
         sync(dev)
         loop_s = time.perf_counter() - t
-        lap("loop rounds (profiled)")
-        close_profile(dev)
-    ev = cuda_events(prof)
-    loop_counts = kernel_counts(ev)
-    loop_dev = device_ms(ev, "loop", rounds, top=5)
-    del prof, ev
-    lap("loop profile read")
+        lap("loop rounds" + (" (profiled)" if profile else ""))
+        if profile:
+            close_profile(dev)
+    loop_counts = loop_dev = None
+    if profile:
+        ev = cuda_events(prof)
+        loop_counts = kernel_counts(ev)
+        loop_dev = device_ms(ev, "loop", rounds, top=5)
+        del ev
+        lap("loop profile read")
+    del prof
     if expect is not None:
         for i, c in enumerate(after):
             c = {k: v - (after[i - 1][k] if i else 0) for k, v in c.items()}
@@ -2963,7 +3033,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
     batcher, state = make_batcher(), tr.init(0)
     lap("initial state")
     t = time.perf_counter()
-    with ReplayWatch(dev) as watch:
+    with ReplayWatch(dev, profile=profile) as watch:
         state, chist = tr.run_compiled(state, batcher, rounds, chunk=chunk,
                                        log_every=1, meter=meters[1],
                                        cost_model=cm)
@@ -2989,10 +3059,12 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
             "downlink_grads": rounds * prof_.wire_downlink_grads,
             "model_sync": aggs * prof_.wire_model_sync}
     check(meters[1].counts == meters[0].counts == wire
-          and 0 < prof_.wire_model_sync < prof_.model_sync,
+          and (0 < prof_.wire_model_sync < prof_.model_sync if synced
+               else prof_.wire_model_sync == prof_.model_sync),
           f"{lab} meter {meters[1].counts} == run's == CommProfile "
-          f"(model sync {prof_.wire_model_sync:,} B int8 of "
-          f"{prof_.model_sync:,} B raw, {aggs} aggregations)")
+          f"(model sync {prof_.wire_model_sync:,} B "
+          f"{'int8' if synced else 'uncoded'} of {prof_.model_sync:,} B "
+          f"raw, {aggs} aggregations)")
     if expect is not None:
         layer = [k for k in expect if expect[k] and not k.startswith(
             ("quantize", "fused_ce"))]
@@ -3004,24 +3076,28 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
                   if remat else ""))
 
     lap("checks")
-    # the run's own replays, profiled inside it (ReplayWatch)
-    replay_dev = watch.device_ms("replay", top=5)
     wrapper_calls = watch.replay_calls
-    per_loop = {k: v / rounds for k, v in loop_counts.items() if v}
-    per_replay = watch.per_round()
-    print(f"  {lab} kernels a round, profiled: loop {per_loop}; replayed "
-          f"{per_replay}")
-    check(per_replay == per_loop and len(watch.flags) == rounds
-          and all(watch.flags) and all(r["aggregated"] for r in chist),
-          f"{lab} a replayed round launches every kernel a loop round "
-          f"does, as often ({len(per_replay)} kernels; every round "
-          "aggregates)")
-    check(per_replay.get("quantize_philox_kernel") == k2,
-          f"{lab} K2 {k2} times a replayed round: {tr.units_per_round} "
-          f"unit(s) x the coded wire channel(s), {nm} model leaves up, "
-          f"{nm} down")
-    check(wrapper_calls == 0, f"{lab} the replays called no kernel "
-          "wrapper: the graphs launch the kernels")
+    replay_dev = per_replay = None
+    if profile:
+        # the run's own replays, profiled inside it (ReplayWatch)
+        replay_dev = watch.device_ms("replay", top=5)
+        per_loop = {k: v / rounds for k, v in loop_counts.items() if v}
+        per_replay = watch.per_round()
+        print(f"  {lab} kernels a round, profiled: loop {per_loop}; "
+              f"replayed {per_replay}")
+        check(per_replay == per_loop and len(watch.flags) == rounds
+              and all(watch.flags) and all(r["aggregated"] for r in chist),
+              f"{lab} a replayed round launches every kernel a loop round "
+              f"does, as often ({len(per_replay)} kernels; every round "
+              "aggregates)")
+        check(per_replay.get("quantize_philox_kernel") == k2,
+              f"{lab} K2 {k2} times a replayed round: {tr.units_per_round} "
+              f"unit(s) x the coded wire channel(s)"
+              + (f", {nm} model leaves up, {nm} down" if synced
+                 else ", the model sync uncoded"))
+    check(wrapper_calls == 0 and len(watch.flags) == rounds,
+          f"{lab} the replays called no kernel wrapper: the graphs launch "
+          "the kernels")
 
     box = {"state": state}
 
@@ -3036,7 +3112,7 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
         cap.step.zero_()
         cap.graphs[True].replay()
 
-    graph_ms_ = events_ms(replay_round, reps, 1)
+    graph_ms_ = events_ms(replay_round, reps, 1) if profile else []
     peak = torch.cuda.max_memory_allocated(dev)
     lap("compiled timed rounds")
     out = {"rounds": rounds, "chunk": chunk, "remat": remat,
@@ -3046,15 +3122,18 @@ def check_compiled_path(tag, model, method, rounds, chunk, dev, keep=False,
            "compiled_ms": statistics.median(compiled_ms),
            "compiled_rounds_ms": compiled_ms, "loop_device_ms": loop_dev,
            "compiled_device_ms": replay_dev,
-           "replay_ms": statistics.median(graph_ms_),
+           "replay_ms": statistics.median(graph_ms_) if graph_ms_ else None,
            "loop_peak_bytes": loop_peak, "compiled_peak_bytes": peak,
            "kernels_per_round": per_replay, "model_leaves": nm,
-           "run_compiled_first_s": first_s, "launches_per_round": expect}
+           "run_compiled_first_s": first_s, "launches_per_round": expect,
+           "loop_run_ms": loop_s * 1e3 / rounds}
     # idle: the loop's from its kernel time; the compiled round's from one
     # replayed round alone (inside a graph the profiler's kernel times can
     # add up to more than the replay: short kernels read long there)
-    out["loop_idle"] = 1 - loop_dev / out["loop_ms"] if loop_ms else None
-    out["compiled_idle"] = 1 - out["replay_ms"] / out["compiled_ms"]
+    out["loop_idle"] = 1 - loop_dev / out["loop_ms"] \
+        if loop_ms and profile else None
+    out["compiled_idle"] = 1 - out["replay_ms"] / out["compiled_ms"] \
+        if graph_ms_ else None
     if keep:
         out["loop_run"] = loop_run
     del box, state, cap
@@ -3699,7 +3778,7 @@ def phase_remat(dev, paths=None, plain=None):
                 " (phase 19's run)" if plain and tag in plain else ""))
             release(dev)
             withr = check_compiled_path(tag, model, method, r, r, dev,
-                                        remat=True, seq=seqs[0],
+                                        keep=True, remat=True, seq=seqs[0],
                                         want=base["loop_run"],
                                         reps=REMAT_REPS, time_loop=False)
             print("  " + remat_line(tag, withr), flush=True)
@@ -4836,7 +4915,7 @@ RESUME_FAULTS = dict(loss_rate=0.4, max_retries=1, seed=1)
 RESUME_ROUNDS, RESUME_SPLIT = 6, 3
 # falcon-mamba through Population and the event engine: one round each
 # (Population two until phase 29 took the room)
-MB_ENGINE_ROUNDS, MB_POP_ROUNDS = 1, 1
+MB_ENGINE_ROUNDS = 1
 # perf_bench's telemetry row in each protocol once (three times each until
 # phase 28 took the room)
 TELE_PROTOCOL_RUNS = 1
@@ -5247,12 +5326,15 @@ def check_trainer_resume(dev, out):
     release(dev)
 
 
-def check_mamba_population(dev, out):
+def check_mamba_population(dev, out, remat_runs=None):
     """Phase 26 (g): falcon-mamba (phase 12's cut, S = 2048) with remat
     through ``Population`` at C == N over a FederatedPool, bitwise
     ``run_compiled`` on the same data (state, rows, meter), the launches
     of its warm-up and captures, and the default row untouched by the
-    replays."""
+    replays.  ``remat_runs``: phase 22's runs, whose Mamba remat path (the
+    same config, data, wire and rounds, its loop == its run_compiled) is
+    held here by its state's digests, rows and meter; without it the
+    rounds run through ``run_compiled`` here first."""
     lab = "[mamba-population]"
     cfg = path_cfg("mamba", remat=True)
     bundle = lm_bundle(cfg, dev)
@@ -5265,16 +5347,24 @@ def check_mamba_population(dev, out):
     tr = Trainer(bundle, fsl, transport=tp)
     nm = len(tr.method.model_sync_specs(bundle, fsl))
     expect = lm_launches(cfg, "cse_fsl", tr.units_per_round + 2 * nm)
+    run = ((remat_runs or {}).get("mamba-cse_fsl") or {}).get("remat", {})
     t = time.perf_counter()
-    state, hist = tr.run_compiled(tr.init(0), LMBatcher(cfg, fed, LM_B, LM_H,
-                                                        seed=0),
-                                  MB_POP_ROUNDS, chunk=MB_POP_ROUNDS,
-                                  log_every=1, meter=meters[0],
-                                  cost_model=cm)
-    sync(dev)
+    if "loop_run" in run:               # phase 22's run of this path
+        rounds = run["rounds"]
+        want, hist = run["loop_run"]["state"], run["loop_run"]["hist"]
+        meters[0].counts.update(run["loop_run"]["meter"])
+        source = "phase 22's run"
+    else:
+        rounds = REMAT_ROUNDS
+        state, hist = tr.run_compiled(
+            tr.init(0), LMBatcher(cfg, fed, LM_B, LM_H, seed=0), rounds,
+            chunk=rounds, log_every=1, meter=meters[0], cost_model=cm)
+        sync(dev)
+        want = state_digests(state)
+        del state
+        source = "run_compiled here"
     c_s = time.perf_counter() - t
-    want = state_leaves(state)      # kept on the card (11 GB), no copy
-    del tr, state
+    del tr
     release(dev)
     pop = Population(bundle, fsl, population=LM_N, transport=tp,
                      data=LMPool(cfg, FederatedPool(fed, LM_B, LM_H,
@@ -5282,18 +5372,17 @@ def check_mamba_population(dev, out):
     default0 = [bits_digest(x) for x in tree_leaves(pop._default)]
     reset_counts()
     t = time.perf_counter()
-    state, phist = pop.run(MB_POP_ROUNDS, chunk=MB_POP_ROUNDS, log_every=1,
+    state, phist = pop.run(rounds, chunk=rounds, log_every=1,
                            meter=meters[1], cost_model=cm)
     sync(dev)
     p_s = time.perf_counter() - t
     at_cap = {k: v for k, v in counts().items() if v}
     peak = torch.cuda.max_memory_allocated(dev)
-    got = state_leaves(state)
-    check(len(got) == len(want) and all(same(a, b)
-                                        for a, b in zip(got, want))
-          and phist == hist and meters[1].counts == meters[0].counts,
+    check(state_digests(state) == want and phist == hist
+          and meters[1].counts == meters[0].counts,
           f"{lab} Population.run (C == N = {LM_N}, remat) == "
-          f"Trainer.run_compiled, bitwise (state, {len(hist)} rows, meter "
+          f"Trainer.run_compiled ({source}), bitwise (state: "
+          f"{len(want)} leaves' 64-bit digests, {len(hist)} rows, meter "
           f"{meters[1].total:,} B)")
     check([bits_digest(x) for x in tree_leaves(pop._default)] == default0,
           f"{lab} the default row is untouched by the replays (a copy, not "
@@ -5301,10 +5390,10 @@ def check_mamba_population(dev, out):
     at_capture_ok(lab, at_cap, expect)
     out["mamba-population"] = {"run_compiled_s": c_s, "population_s": p_s,
                                "peak_bytes": peak}
-    print(f"  {lab} run_compiled {c_s:.3f} s, Population {p_s:.3f} s for "
-          f"{MB_POP_ROUNDS} rounds each (warm-up, captures, replays); peak "
-          f"{peak / 2**30:.3f} GiB", flush=True)
-    del pop, state, got, want
+    print(f"  {lab} run_compiled ({source}) {c_s:.3f} s, Population "
+          f"{p_s:.3f} s for {rounds} rounds each (warm-up, captures, "
+          f"replays); peak {peak / 2**30:.3f} GiB", flush=True)
+    del pop, state, want
     release(dev)
 
 
@@ -5312,10 +5401,13 @@ def check_mamba_engine(dev, out):
     """Phase 26 (h): falcon-mamba (phase 12's cut, remat) through the event
     engine at zero latency for one round against ``Trainer.run`` from the
     same state: the schedule and meter equal, losses at rtol 1e-3, each
-    state key's update within UNIT_RTOL (the initial state kept on the
-    host, the two runs' on the card, compared 2^26 elements at a time:
-    a whole leaf in fp64 ran the card out of memory), launches as
-    engine_lm_launches states them."""
+    state key's update within UNIT_RTOL, launches as engine_lm_launches
+    states them.  Everything stays on the card, compared 2^26 elements at
+    a time (a whole leaf in fp64 ran the card out of memory): each key's
+    update norm |Trainer.run's - initial| is summed after Trainer.run, from
+    the initial state the engine then consumes, and the differences
+    |engine's - Trainer.run's| after the engine (no host copy of the
+    11 GB initial state)."""
     lab = "[mamba-engine]"
     cfg = path_cfg("mamba", remat=True)
     tr, make_batcher, cm, _ = compiled_trainer("mamba", "cse_fsl", dev,
@@ -5325,8 +5417,14 @@ def check_mamba_engine(dev, out):
     nm = len(tr.method.model_sync_specs(tr.bundle, tr.fsl))
     want = engine_lm_launches(cfg, LM_N + 2 * nm)
     state0 = tr.init(0)
-    before = tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, state0)
-    runs = []
+    runs, dens = [], {}
+
+    def slices(*trees):             # leaf slices of 2^26 elements, zipped
+        for leaves in zip(*(tree_leaves(t) for t in trees)):
+            flat = [x.reshape(-1) for x in leaves]
+            for i in range(0, flat[0].numel(), 1 << 26):
+                yield [x[i:i + (1 << 26)] for x in flat]
+
     for t in (tr, eng):
         st = state0 if t is eng else tree_map(
             lambda x: x.clone() if torch.is_tensor(x) else x, state0)
@@ -5340,6 +5438,10 @@ def check_mamba_engine(dev, out):
         sync(dev)
         secs = time.perf_counter() - t0
         runs.append((st, hist, meter, after[-1], secs))
+        if t is tr:                 # |w - before|^2 a key, before state0 goes
+            dens = {k: sum(rel_sums([w], [w], [b])[1] for w, b in slices(
+                st[k]["params"], state0[k]["params"]))
+                for k in st if k != "round"}
         del st
         release(dev)
     del state0
@@ -5360,19 +5462,11 @@ def check_mamba_engine(dev, out):
     del eng, tr
     release(dev)
     errs = {}
-    for k in s_sync:                # 2^26 elements at a time on the card
-        if k != "round":
-            num = den = 0.0
-            for g, w, b in zip(*(tree_leaves(s[k]["params"])
-                                 for s in (s_eng, s_sync, before))):
-                g, w, b = (x.reshape(-1) for x in (g, w, b))
-                for i in range(0, w.numel(), 1 << 26):
-                    n_, d_ = rel_sums([g[i:i + (1 << 26)]],
-                                      [w[i:i + (1 << 26)]],
-                                      [b[i:i + (1 << 26)].to(dev)])
-                    num, den = num + n_, den + d_
-            check(den > 0, f"{lab} Trainer.run moved {k}")
-            errs[k] = (num / den) ** 0.5
+    for k, den in dens.items():     # rel_sums' numerator: needs no before
+        num = sum(rel_sums([g], [w], [w])[0] for g, w in slices(
+            s_eng[k]["params"], s_sync[k]["params"]))
+        check(den > 0, f"{lab} Trainer.run moved {k}")
+        errs[k] = (num / den) ** 0.5
     release(dev)
     check(max(errs.values()) <= UNIT_RTOL,
           f"{lab} each key's update within {UNIT_RTOL} of Trainer.run's "
@@ -5381,7 +5475,7 @@ def check_mamba_engine(dev, out):
                            "update_rel_err": errs}
     print(f"  {lab} engine {eng_s:.3f} s a round | Trainer.run {sync_s:.3f} "
           "s (host clock, the first round of each)", flush=True)
-    del runs, s_sync, s_eng, before
+    del runs, s_sync, s_eng
     release(dev)
 
 
@@ -5402,7 +5496,7 @@ def phase_cli(dev, remat_runs=None, parts=("qwen3", "dense", "bench",
              ("dense", check_cli_qwen2, (dev, out)),
              ("dense", check_cli_reduced, (dev, out)),
              ("resume", check_trainer_resume, (dev, out)),
-             ("mamba", check_mamba_population, (dev, out)),
+             ("mamba", check_mamba_population, (dev, out, remat_runs)),
              ("mamba", check_mamba_engine, (dev, out)))
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.backends.cudnn.deterministic = True
@@ -6435,6 +6529,391 @@ def phase_hybrid(dev, card="", parts=("kernels", "train", "layer",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the VLM and audio families (qwen2-vl-72b, hubert-xlarge)
+# ---------------------------------------------------------------------------
+
+# qwen2-vl-72b at full width: d 8,192, 64 query heads over 8 kv heads of
+# hd 128 (a GQA group of 8), d_ff 29,568, V 152,064, M-RoPE sections (16,
+# 24, 24) of hd / 2 over 256 image positions (a 16 x 16 patch grid), bf16,
+# the kernels on, remat as configured.  Training: CSE-FSL at the Qwen3
+# cell's settings (4 clients x B 1 x h 2, S 4,096, lr 0.1, the int8
+# uplink), one round, depth 80 cut to VLM_LAYERS (cut 1, 3 server layers).
+# A layer is 877.7 M parameters (1.755 GB), the embedding and the head
+# 1.246 B each: the 4 client copies hold 17.3 GB, the server 7.8 GB, and a
+# round their gradients and updates as much again.  The model sync runs
+# uncoded (MODEL_SYNC): the int8 one codes each client's leaf in fp32, and
+# the [4, 152064, 8192] embedding widened is 19.9 GB more (phase 29's
+# failure); FedAvg averages such a leaf in slices (core/methods/base.py).
+VLM_LAYERS, VLM_ROUNDS = 4, 1
+MODEL_SYNC = {"qwen2vl": "none"}
+# hubert-xlarge at full width and depth: 48 encoder layers cut at 6, d
+# 1,280, 16 heads of 80, non-causal plain attention (no K6), a 512-wide
+# frame frontend, 504 classes, 1.26 B parameters; the int8 uplink and
+# model sync; train_batch_specs-style features [4, 2, 1, 4096, 512].
+HUBERT_ROUNDS = 1
+# K3/K4 at both families' heads (G, T, d, V): the server head and the 4
+# folded aux heads.  V 504 is 3 x 128 + 120: the last bf16 vocabulary tile
+# is ragged at both of hubert's heads.
+VLM_CE_CASES = [((1, 4096, 8192, 152064), torch.bfloat16),
+                ((4, 4096, 256, 152064), torch.bfloat16)]
+HUBERT_CE_CASES = [((1, 4096, 1280, 504), torch.bfloat16),
+                   ((4, 4096, 64, 504), torch.bfloat16)]
+# One attention sub-block (blocks.attn_apply) of each family on [1, 4096]
+# positions, the card (bf16; qwen2-vl's K6) against the host CPU in fp32,
+# from the same bf16 inputs and parameters, through attn_reference: an
+# attention written out here, whose rotation is the complex form
+# (torch.polar, per section for M-RoPE) over position streams written out
+# here, so it shares no code with the port's RoPE, M-RoPE or attention.
+# The inputs are N(0, 2^-12): the norm undoes their scale, and the
+# sub-block's own output, not the residual, carries the relative error.
+# Roundings on the card, each within 2^-8 relative as MOE_LAYER_BOUND
+# counts them: qwen2-vl 13 (the norm, q, k, v, their bias adds, RoPE on q
+# and k, K6's P and output, wo, the add), hubert 9 (no biases; the plain
+# attention's one output rounding).
+ATTN_LAYER_S, ATTN_X_SCALE = 4096, 2.0 ** -6
+VLM_LAYER_BOUND, HUBERT_LAYER_BOUND = 13 * 2.0 ** -8, 9 * 2.0 ** -8
+# Serving qwen2-vl at full width and 16 layers (cut 10): prefill [4, 4096]
+# with 256 image embeddings at window 4,096 (K6 once a layer), 32 captured
+# decode steps bitwise the eager ones, the last against full_forward on
+# the 4,128 tokens and every cache leaf against a prefill of them.
+VLM_SERVE_LAYERS, VLM_SERVE_STEPS = 16, 32
+
+
+def vlm_cfg():
+    return get_config("qwen2-vl-72b").with_(use_pallas=True,
+                                            num_layers=VLM_LAYERS,
+                                            cut_layer=1)
+
+
+def hubert_cfg():
+    return get_config("hubert-xlarge").with_(use_pallas=True)
+
+
+class SpecBatcher:
+    """Round batches as ``launch.specs.train_batch_specs`` draws them with
+    numpy (seed: the round's index), on the host for ``run_compiled`` to
+    stage: hubert's frame features ``[n, h, B, S, 512]`` (fp32) and its
+    labels."""
+
+    def __init__(self, cfg, fsl, seq):
+        self.cfg, self.fsl, self.rnd = cfg, fsl, 0
+        self.shape = dataclasses.replace(
+            SHAPES["train_4k"], seq_len=seq,
+            global_batch=fsl.num_clients * LM_B)
+
+    def next_round(self):
+        inputs, labels = specs_mod.train_batch_specs(
+            self.cfg, self.shape, self.fsl, as_spec=False, seed=self.rnd,
+            device="cpu")
+        self.rnd += 1
+        return tree_map(lambda t: t.numpy(), inputs), labels.numpy()
+
+
+def family_kernels(dev, out):
+    """Phase 30 (a): K3/K4 at qwen2-vl's and hubert's heads against their
+    plain versions (phase 7's bounds; K6 at qwen2-vl's group of 8 is among
+    phase 7's cases), timed at the two server heads, and FedAvg of a leaf
+    past SLICE_NUMEL (averaged in slices) bitwise the whole leaf's."""
+    err = {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0, "fused_ce_dw": 0.0,
+           "fused_ce_bwd": 0.0}
+    check_ce(VLM_CE_CASES, err, dev)
+    out["qwen2_vl_max_abs_err"] = dict(err)
+    err = dict.fromkeys(err, 0.0)
+    check_ce(HUBERT_CE_CASES, err, dev)
+    out["hubert_max_abs_err"] = dict(err)
+    x = torch.randn((LM_N, 152064, 1024), device=dev).to(torch.bfloat16)
+    total = x[0].float()
+    for i in range(1, LM_N):        # the clients added in order
+        total = total + x[i].float()
+    whole = (total * (1.0 / LM_N)).expand(x.shape).to(x.dtype)
+    got = fedavg({"x": x})["x"]
+    check(x[0].numel() >= SLICE_NUMEL and same(got, whole),
+          f"FedAvg of a [{LM_N}, 152064, 1024] bf16 leaf in slices of dim "
+          "1 == the whole leaf's fp32 mean (the clients added in order), "
+          "bitwise")
+    del total
+    del x, whole, got
+    release(dev)
+    # the qwen2-vl head's calls take 21-62 ms (its plain versions 0.2-0.9
+    # s): three single calls each after none, and one plain call
+    none = dict.fromkeys(("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
+                          "fused_ce_p"), 0)
+    out["times"] = {
+        **time_ce({"qwen2_vl": VLM_CE_CASES[0][0][:4]}, none,
+                  {**out["qwen2_vl_max_abs_err"]}, dev, plain_reps=1,
+                  reps=3, inner=1, warm=0),
+        **time_ce({"hubert": HUBERT_CE_CASES[0][0][:4]}, none,
+                  {**out["hubert_max_abs_err"]}, dev, plain_reps=1)}
+    release(dev)
+
+
+def family_train(dev, out, model):
+    """Phase 30 (b, d): CSE-FSL on qwen2-vl (cut to VLM_LAYERS; its vlm
+    batches staged from the host, zero image embeddings as the
+    reference's batcher gives) or hubert (all 48 layers, SpecBatcher's
+    features) through phase 19's checks (check_compiled_path, remat as
+    configured): a loop round and a replayed round bitwise, launches a
+    round as lm_launches states (K6 none for hubert), losses finite, the
+    meter CommProfile's, ms a round in both engines, idle and peak."""
+    tag = {"qwen2vl": "qwen2vl-cse_fsl", "hubert": "hubert-cse_fsl"}[model]
+    rounds = VLM_ROUNDS if model == "qwen2vl" else HUBERT_ROUNDS
+    # no separate timed loop round: the loop's ms a round is its checked
+    # run's host time (profiled for qwen2-vl); hubert's round (about 6 s,
+    # some 100,000 kernel launches) runs unprofiled, and its compiled round
+    # is timed through run_compiled only (its replay alone is not)
+    vlm = model == "qwen2vl"
+    r = check_compiled_path(tag, model, "cse_fsl", rounds, rounds, dev,
+                            remat=True, reps=1, time_loop=False, profile=vlm)
+    out[model] = r
+    loop = f"loop {r['loop_run_ms']:.3f} ms/round (the run's host time" + (
+        f", profiled; device {r['loop_device_ms']:.3f} ms)" if vlm else ")")
+    alone = (f"replay {r['replay_ms']:.3f}, idle {r['compiled_idle']:.4f}"
+             if vlm else "a replay alone not timed")
+    print(f"  [{tag}] {r['layers']} layers: {loop}, peak "
+          f"{r['loop_peak_bytes'] / 2**30:.3f} "
+          f"GiB | compiled {r['compiled_ms']:.3f} ms/round ({alone}), peak "
+          f"{r['compiled_peak_bytes'] / 2**30:.3f} GiB ({out['card']})",
+          flush=True)
+    release(dev)
+
+
+def rope_streams(cfg, s: int) -> np.ndarray:
+    """The position streams of positions 0..s-1 written out here: for
+    M-RoPE (t, h, w) over a square patch grid of the first P positions
+    (t 0, h the row, w the column) and text positions from 0 after it on
+    all three; otherwise the one stream 0..s-1.  ``[streams, s]``."""
+    pos = np.arange(s)
+    if cfg.mrope_sections is None:
+        return pos[None]
+    p = cfg.num_image_tokens
+    side = int(round(p ** 0.5))
+    img = pos < p
+    return np.stack([np.where(img, 0, pos - p),
+                     np.where(img, pos // side, pos - p),
+                     np.where(img, pos % side, pos - p)])
+
+
+def rotate(x, streams, cfg):
+    """RoPE as a complex product: each pair ``(x_j, x_{j + hd/2})`` as
+    ``x_j + i x_{j + hd/2}`` times ``polar(1, p f_j)``, ``f_j = theta^(-2j
+    / hd)`` in fp64, ``p`` the stream of frequency slot j's section.  x
+    ``[B, S, H, hd]`` fp32."""
+    hd = x.shape[-1]
+    f = cfg.rope_theta ** (-torch.arange(0, hd, 2, dtype=torch.float64)
+                           / hd)
+    secs = cfg.mrope_sections or (hd // 2,)
+    which = torch.repeat_interleave(torch.arange(len(secs)),
+                                    torch.tensor(secs))
+    ang = torch.from_numpy(streams).double()[which].T * f      # [S, hd/2]
+    rot = torch.polar(torch.ones_like(ang), ang)[None, :, None, :]
+    c = torch.complex(x[..., :hd // 2].double(), x[..., hd // 2:].double())
+    c = c * rot
+    return torch.cat([c.real, c.imag], dim=-1).float()
+
+
+def attn_reference(cfg, p, x, streams, causal: bool, window: int):
+    """One attention sub-block's output ``x + attention`` in fp32, written
+    out here: the RMS norm, the projections (with the biases), the
+    rotation (:func:`rotate`), GQA by repeating the kv heads, softmax over
+    the causal band of ``window`` (or every key when not ``causal``), the
+    output projection and the residual."""
+    b, s, d = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    xf = x.float()
+    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6) \
+        * p["ln"].float()
+    q, k, v = (xn @ p[w].float() for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"].float(), k + p["bk"].float(), \
+            v + p["bv"].float()
+    q = rotate(q.reshape(b, s, h, hd), streams, cfg)
+    k = rotate(k.reshape(b, s, kh, hd), streams, cfg)
+    k = k.repeat_interleave(h // kh, dim=2)
+    v = v.reshape(b, s, kh, hd).repeat_interleave(h // kh, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+    i = torch.arange(s)
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    scores.masked_fill_(~keep, -math.inf)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+    return xf + o.reshape(b, s, h * hd) @ p["wo"].float()
+
+
+def family_layer(dev, out):
+    """Phase 30 (c): one full-width attention sub-block of qwen2-vl
+    (M-RoPE over positions 0..4095, the image/text boundary at 256; K6)
+    and of hubert (non-causal plain attention) on the card against
+    attn_reference on the host CPU (VLM_LAYER_BOUND, HUBERT_LAYER_BOUND)."""
+    out["layer"] = {}
+    for name, cfg, bound in (("qwen2vl", vlm_cfg(), VLM_LAYER_BOUND),
+                             ("hubert", hubert_cfg(), HUBERT_LAYER_BOUND)):
+        lab = f"[{name}-layer]"
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        with torch.device(dev):
+            p = blocks.attn_init(cfg, gen, torch.bfloat16)
+            x = (torch.randn((1, ATTN_LAYER_S, cfg.d_model), generator=gen)
+                 * ATTN_X_SCALE).to(torch.bfloat16)
+        reset_counts()
+        with torch.no_grad():
+            y, _ = blocks.attn_apply(cfg, p, x, Ctx(
+                cfg, "train", window=cfg.swa_window), None)
+            sync(dev)
+        launched = counts()
+        k6 = 0 if cfg.encoder_only else 1
+        hp = tree_map(lambda t: t.cpu(), p)
+        t = time.perf_counter()
+        want = attn_reference(cfg, hp, x.cpu(), rope_streams(
+            cfg, ATTN_LAYER_S), causal=not cfg.encoder_only,
+            window=cfg.swa_window)
+        host_s = time.perf_counter() - t
+        err = rel_error(y.float() - x.float(), want - x.float().cpu())
+        rot = " per M-RoPE section" if cfg.mrope_sections else ""
+        check(torch.isfinite(y.float()).all() and err <= bound
+              and launched == only(swa_attention_tc=k6),
+              f"{lab} attention sub-block [1, {ATTN_LAYER_S}, "
+              f"{cfg.d_model}] on the card (bf16, K6 {k6} time(s)) against "
+              f"the host CPU's written-out attention (fp32, "
+              f"{'non-causal, ' if cfg.encoder_only else ''}rotation by "
+              f"torch.polar{rot}): relative 2-norm of the sub-block's "
+              f"output {err:.6f} <= "
+              f"{bound:.4f} (host {host_s:.3f} s)")
+        out["layer"][name] = {"rel2": err, "bound": bound, "host_s": host_s}
+        del p, x, y, hp, want
+    release(dev)
+
+
+def vlm_serve(dev, out, card):
+    """Phase 30 (e): serving qwen2-vl at 16 layers: the image merge on the
+    card, the windowed prefill of [4, 4096] with 256 image embeddings (K6
+    once a layer), 32 captured decode steps bitwise the eager ones, the
+    last against full_forward and every cache leaf against a prefill of
+    the whole sequence."""
+    lab = "[qwen2vl-serve]"
+    cfg = get_config("qwen2-vl-72b").with_(use_pallas=True,
+                                           num_layers=VLM_SERVE_LAYERS)
+    win, L, p_img = cfg.swa_window, cfg.num_layers, cfg.num_image_tokens
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = serve_mod.draw_params(cfg, SERVE_SEED, dev)
+    total = SERVE_S + VLM_SERVE_STEPS
+    toks = serve_tokens(cfg.vocab_size, SERVE_B, total, dev)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+    img = torch.randn((SERVE_B, p_img, cfg.d_model), generator=gen,
+                      device=dev)
+    prompt = {"tokens": toks[:, :SERVE_S], "image_embeds": img}
+    with torch.no_grad():
+        x = tf_mod.embed_inputs(cfg, params["client"], prompt)
+        emb = params["client"]["embed"][toks[:, p_img:SERVE_S].long()]
+    check(same(x[:, :p_img], img.to(torch.bfloat16))
+          and same(x[:, p_img:], emb),
+          f"{lab} embed_inputs on the card: positions 0-{p_img - 1} the "
+          f"image embeddings (bf16), {p_img}-{SERVE_S - 1} the tokens' "
+          "embedding rows, bitwise")
+    del x, emb
+    ms = []
+    for _ in range(2):              # the second call is timed
+        reset_counts()
+        sync(dev)
+        t = time.perf_counter()
+        logits, caches = tf_mod.prefill(cfg, params, prompt, window=win)
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        launched = counts()
+        if not ms[1:]:
+            del caches, logits
+    check(launched == only(swa_attention_tc=L)
+          and torch.isfinite(logits.float()).all(),
+          f"{lab} prefill [{SERVE_B}, {SERVE_S}] with {p_img} image "
+          f"embeddings at window {win}: K6 launched "
+          f"{launched['swa_attention_tc']} == {L} times (once a layer), "
+          f"nothing else; logits finite ({ms[1]:.3f} ms)")
+    ring = min(win, SERVE_S)
+    last, caches, eager_ms, graph_ms = decode_pair(
+        lab, cfg, params, caches, toks[:, SERVE_S:], SERVE_S, win, dev)
+    bound = serve_bound(L)
+    whole_in = {"tokens": toks, "image_embeds": img}
+    with torch.no_grad():
+        x = tf_mod.full_forward(cfg, params, whole_in,
+                                Ctx(cfg, "train", window=ring))
+        full = tf_mod.server_logits_fn(cfg, params["server"])(
+            x[:, -1:])[:, 0]
+        del x
+        _, whole = tf_mod.prefill(cfg, params, whole_in, window=ring)
+        # layer 0 on the decoded tokens, a prefill at their positions
+        xd = tf_mod.embed_inputs(cfg, params["client"], {
+            "tokens": toks[:, SERVE_S:], "image_embeds": img[:, :0]})
+        _, kv = blocks.attn_apply(cfg, layer0(params)["attn"], xd,
+                                  Ctx(cfg, "prefill", pos=SERVE_S), None)
+        del xd
+    err = rel_error(last, full)
+    agree = float((last.argmax(-1) == full.argmax(-1)).float().mean())
+    check(err <= bound, f"{lab} the last step's logits (position "
+          f"{total - 1}) against full_forward on {total} tokens with the "
+          f"image at window {ring}: relative 2-norm {err:.6f} <= "
+          f"{bound:.4f} ({L} layers; argmax agreement {agree})")
+    slots = [(SERVE_S + i) % ring for i in range(VLM_SERVE_STEPS)]
+    r0 = {k: caches["client"]["blocks"][k][0][:, slots] for k in kv}
+    check(all(within(r0[k], kv[k], **SERVE_ELEM) for k in kv),
+          f"{lab} layer 0's ring after {VLM_SERVE_STEPS} steps: slots "
+          f"{slots[0]}-{slots[-1]} hold the k (M-RoPE-rotated) and v of "
+          f"positions {SERVE_S}-{total - 1} (that layer run on the decoded "
+          f"tokens at their positions), each element within {SERVE_ELEM}")
+    del r0, kv
+    errs = {}
+    for stage in ("client", "server"):
+        for leaf, t in caches[stage]["blocks"].items():
+            errs[f"{stage}/{leaf}"] = rel_error(
+                t, whole[stage]["blocks"][leaf])
+    worst = max(errs, key=errs.get)
+    check(all(v <= bound for v in errs.values()),
+          f"{lab} after the decode every cache leaf (each layer's ring of "
+          f"{ring} slots) against a prefill of the {total} tokens at "
+          f"window {ring}: relative 2-norm <= {bound:.4f} (worst {worst} "
+          f"{errs[worst]:.6f})")
+    del whole, caches
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["serve"] = {"layers": L, "k6_launches": launched["swa_attention_tc"],
+                    "prefill_cold_ms": ms[0], "full_forward_rel2": err,
+                    "cache_rel2": errs, "bound": bound,
+                    "argmax_agreement": agree}
+    serve_times(lab, out["serve"], ms[1], eager_ms, graph_ms, SERVE_B, peak,
+                card)
+    del params
+    release(dev)
+
+
+def phase_families(dev, card="", parts=("kernels", "train", "layer",
+                                        "hubert", "serve")):
+    """Phase 30: the VLM and audio families on the card, the ``parts`` of
+    it: K3/K4 at both families' heads, CSE-FSL on qwen2-vl-72b (cut to
+    VLM_LAYERS) in both engines, one attention sub-block of each family
+    against the host CPU, CSE-FSL on hubert-xlarge at full depth in both
+    engines, and serving qwen2-vl at 16 layers.  Returns the phase's
+    numbers."""
+    t0 = phase(f"30 VLM and audio: qwen2-vl-72b (M-RoPE, image embeddings) "
+               f"trained at {VLM_LAYERS} layers in both engines and served "
+               "at 16; hubert-xlarge (encoder-only, frame features) trained "
+               "at 48 in both engines")
+    release(dev)
+    out, secs = {"train_layers": VLM_LAYERS, "card": card}, {}
+    steps = (("kernels", family_kernels, (dev, out)),
+             ("train", family_train, (dev, out, "qwen2vl")),
+             ("layer", family_layer, (dev, out)),
+             ("hubert", family_train, (dev, out, "hubert")),
+             ("serve", vlm_serve, (dev, out, card)))
+    for part, fn, args in steps:
+        if part in parts:
+            t = time.perf_counter()
+            fn(*args)
+            secs[part] = time.perf_counter() - t
+    out["seconds"] = secs
+    print(f"  seconds: { {k: round(v, 3) for k, v in secs.items()} }",
+          flush=True)
+    done(t0)
+    return out
+
+
 def phase_capture_raises(dev):
     """Phases 19 and 21, run last: a kernel wrapper made to synchronize
     makes the capture of the unmasked and of the masked graphs raise.
@@ -6493,9 +6972,12 @@ def main() -> int:
                                                               "drivers"),
                                              compiled=compiled)
     cli_out = phase_cli(dev, remat)
+    for t in main_lm:               # digests kept for phase 26's Mamba run
+        remat[t]["remat"].pop("loop_run", None)
     serve = phase_serve(dev, card)
     moe = phase_moe(dev, card)
     hybrid = phase_hybrid(dev, card)
+    families = phase_families(dev, card)
     phase_capture_raises(dev)
     for r_ in records:              # K2 a replayed round, model sync in
         if r_["name"] == "quantize_philox":
@@ -6515,6 +6997,8 @@ def main() -> int:
             r_["olmoe_serve_prefill_launches"] = moe["serve"]["k6_launches"]
             r_["zamba2_serve_prefill_launches"] = hybrid["serve"][
                 "k6_launches"]
+            r_["qwen2_vl_serve_prefill_launches"] = families["serve"][
+                "k6_launches"]
     # the MoE path (phase 28): launches a round at olmoe's shapes and the
     # largest differences from the plain versions there
     moe_launches = moe["train"]["launches_per_round"]
@@ -6532,6 +7016,23 @@ def main() -> int:
             r_["zamba2_launches_per_round"] = zamba_launches[key]
             r_["zamba2_max_abs_err"] = hybrid["kernel_max_abs_err"].get(
                 r_["name"])
+    # the VLM and audio paths (phase 30): launches a round, the largest
+    # differences at their heads, and K3/K4 timed at their server heads
+    for model, key in (("qwen2vl", "qwen2_vl"), ("hubert", "hubert")):
+        launched = families[model]["launches_per_round"]
+        for r_ in records + lm_records:
+            name = r_["name"]
+            if launched.get("fused_ce_p" if name == "fused_ce_bwd"
+                            else name):
+                r_[f"{key}_launches_per_round"] = launched[
+                    "fused_ce_p" if name == "fused_ce_bwd" else name]
+                r_[f"{key}_max_abs_err"] = families[
+                    f"{key}_max_abs_err"].get(name)
+            if name in families["times"][key]:
+                r_[f"{key}_server"] = {k: families["times"][key][name][k]
+                                       for k in ("shape", "ms", "eager_ms",
+                                                 "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}
     print(f"\n  total wall time {time.perf_counter() - t_start:.3f} s")
     print(card)
     print(json.dumps({"kernels": records + lm_records + ssm_records,
@@ -6546,6 +7047,8 @@ def main() -> int:
                               if k != "kernel_max_abs_err"},
                       "hybrid": {k: v for k, v in hybrid.items()
                                  if k != "kernel_max_abs_err"},
+                      "families": {k: v for k, v in families.items()
+                                   if k != "times"},
                       "known_reference_failures": known, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

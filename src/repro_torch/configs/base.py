@@ -2,10 +2,11 @@
 ``ModelConfig``, the FSL protocol config (the paper's knobs) and the
 input shapes (``ShapeConfig``, ``SHAPES``) the serving specs read.
 
-Only the fields this port reads are here.  ``ModelConfig`` carries the
-dense, MoE, Mamba-1 (``ssm``) and hybrid (Mamba-2 with a shared attention
-block) families' fields; the modality fields come with the slices that
-port those families.  ``remat`` recomputes
+Only the fields this port reads are here.  ``ModelConfig`` carries every
+family of the reference: dense, MoE, Mamba-1 (``ssm``), hybrid (Mamba-2
+with a shared attention block), the VLM (M-RoPE over a stub frontend of
+``num_image_tokens`` patch embeddings) and audio (an encoder-only model
+over ``frontend_dim`` frame features).  ``remat`` recomputes
 each layer's activations in the backward (``models.model.Remat``, a
 layer-level ``torch.autograd.Function`` that composes with the client
 phase's ``vmap(grad(...))``, where ``torch.utils.checkpoint`` does not); it
@@ -16,8 +17,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -37,7 +39,9 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 1e6
-    encoder_only: bool = False
+    mrope_sections: Optional[Tuple[int, ...]] = None   # qwen2-vl M-RoPE
+    causal: bool = True
+    encoder_only: bool = False      # hubert: no decode step exists
     swa_window: int = 0             # 0 = full attention; >0 = sliding window
 
     # MoE
@@ -60,6 +64,11 @@ class ModelConfig:
     # `attn_every` backbone layers, its weights shared across the sites
     attn_every: int = 0
 
+    # modality frontend stubs: precomputed frame features (audio) or patch
+    # embeddings (vlm) enter ``embed_inputs``
+    frontend_dim: int = 0           # hubert conv-feature dim (512)
+    num_image_tokens: int = 0       # vlm: patch embeddings per sample
+
     # split-learning structure
     cut_layer: int = 0              # 0 -> default max(1, num_layers // 8)
     aux_kind: str = "lowrank"       # lowrank | mlp
@@ -72,9 +81,8 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {self.family!r} is not ported yet (have "
-                f"{FAMILIES}; ROADMAP Queue 1 item 4)")
+            raise ValueError(f"unknown family {self.family!r} (have "
+                             f"{FAMILIES})")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -109,9 +117,9 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 experts top<=2,
-        no remat; a hybrid 4 layers cut at 2 with a shared site every 2
-        (the reference's ``reduced`` on the dense, moe, ssm and hybrid
-        families)."""
+        no remat; a hybrid 4 layers cut at 2 with a shared site every 2; 8
+        image positions, M-RoPE sections rescaled to the reduced head and a
+        64-wide frame frontend (the reference's ``reduced``)."""
         d = min(self.d_model, 256)
         heads = min(self.num_heads, 4)
         kv = min(self.num_kv_heads, heads)
@@ -136,6 +144,17 @@ class ModelConfig:
             kw["attn_every"] = 2
             kw["num_layers"] = 4
             kw["cut_layer"] = 2
+        if self.num_image_tokens:
+            kw["num_image_tokens"] = 8
+        if self.mrope_sections:
+            # the sections rescaled to the reduced head_dim / 2
+            half = (d // max(heads, 1)) // 2
+            base = sum(self.mrope_sections)
+            secs = [max(1, s * half // base) for s in self.mrope_sections]
+            secs[0] += half - sum(secs)
+            kw["mrope_sections"] = tuple(secs)
+        if self.frontend_dim:
+            kw["frontend_dim"] = 64
         return self.with_(**kw)
 
 

@@ -24,8 +24,12 @@ counter:
   (exact for fp32 and bf16 values) that the host fetches once a chunk.
 
 The state's tensors are static buffers too: the captured round runs the
-functional round step and copies its result back into them.  The state
-passed in is adopted as those buffers (donated: keep no reference to it).
+round step and copies its result back into them.  The state passed in is
+adopted as those buffers (donated: keep no reference to it); the captured
+round runs under ``donated_state()``, so the CSE-FSL clients' SGD steps
+update the static params in place (the same bits: no second copy of the
+clients' params beside their gradients), where the eager warm-up and
+``Trainer.run`` keep the functional step.
 
 Warm-up runs one round and its aggregation eagerly on a side stream
 before the captures, as PyTorch's graph rules require (lazy cuBLAS and
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import tree_leaves, tree_map
+from repro_torch.core.methods.base import donated_state
 
 
 def _torch_dtype(a: np.ndarray) -> torch.dtype:
@@ -115,8 +120,9 @@ class CapturedChunk:
     def _round(self, aggregated: bool):
         """The captured round: the body at ``step``, its metrics into row
         ``step``, its state into the static state, ``step + 1``."""
-        new, m = self.body(self.state, self.data, self.lrs, self.seeds,
-                           self.step, aggregated, self.windows)
+        with donated_state():       # the static state, overwritten below
+            new, m = self.body(self.state, self.data, self.lrs, self.seeds,
+                               self.step, aggregated, self.windows)
         if list(m) != self.names:
             raise RuntimeError(f"round metrics {list(m)} != {self.names}")
         row = torch.stack([m[k].to(torch.float64) for k in self.names])

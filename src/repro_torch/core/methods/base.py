@@ -29,6 +29,8 @@ runner sets it on the host after each chunk.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional
@@ -41,6 +43,7 @@ from repro_torch.common import tree_leaves, tree_map
 from repro_torch.configs.base import FSLConfig
 from repro_torch.core.accounting import CostModel
 from repro_torch.core.bundle import SplitModelBundle
+from repro_torch.optim import SLICE_NUMEL
 
 # ---------------------------------------------------------------------------
 # Declarative communication / storage profile (paper Table II per method)
@@ -237,6 +240,28 @@ def assemble_round_step(hooks: AsyncHooks, fsl: FSLConfig, transport=None):
         return state, _mean_metrics(rows)
 
     return round_step
+
+
+_DONATED = contextvars.ContextVar("repro_torch_state_donated", default=False)
+
+
+@contextlib.contextmanager
+def donated_state():
+    """Inside it a round step may update the state it was handed in place:
+    the captured round's static state (``core/graphs.py``), which the round
+    overwrites at its end anyway (the CSE-FSL clients' optimizer steps take
+    it as their ``out``).  A round step outside it never writes into its
+    input state."""
+    token = _DONATED.set(True)
+    try:
+        yield
+    finally:
+        _DONATED.reset(token)
+
+
+def state_donated() -> bool:
+    """Whether the running round step was handed a donated state."""
+    return _DONATED.get()
 
 
 # ---------------------------------------------------------------------------
@@ -697,15 +722,37 @@ def stack_clients(tree, n: int):
 
 def _mean0(x: torch.Tensor) -> torch.Tensor:
     """fp32 mean over dim 0 as the JAX package's ``jnp.mean`` comes out of
-    XLA: the sum times the fp32 reciprocal of n (``Tensor.mean`` rounds
-    differently in the last bit)."""
-    return x.float().sum(dim=0, keepdim=True) * (1.0 / x.shape[0])
+    XLA on the CPU: the clients' sum in order (client 0, then each next one
+    added) times the fp32 reciprocal of n (``Tensor.mean`` rounds
+    differently in the last bit, and a reduction kernel on the card may
+    add the clients in another order, which depends on the tensor's shape
+    and alignment).  Elementwise, so any slice of ``x`` gives the same
+    bits as the whole."""
+    acc = x[:1].float()
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i:i + 1].float()
+    return acc * (1.0 / x.shape[0])
+
+
+def _avg_broadcast(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mean0` of ``x`` in its dtype, broadcast back to every client.
+    A leaf of ``SLICE_NUMEL`` elements or more a client is averaged in
+    slices of dim 1, each written into one output: the same bits (the
+    mean is elementwise), but no temporary widens the whole leaf to fp32
+    (qwen2-vl-72b's ``[4, 152064, 8192]`` embedding: 19.9 GB, beside a
+    state of 25 GB and its update)."""
+    if x.dim() < 2 or x[0].numel() < SLICE_NUMEL:
+        return _mean0(x).expand(x.shape).to(x.dtype).contiguous()
+    out = torch.empty_like(x)
+    rows = max(1, x.shape[1] * (SLICE_NUMEL // 2) // x[0].numel())
+    for i in range(0, x.shape[1], rows):
+        out[:, i:i + rows] = _mean0(x[:, i:i + rows]).to(x.dtype)
+    return out
 
 
 def fedavg(tree):
     """Mean over the stacked client dim, broadcast back (Eq. 14)."""
-    return tree_map(lambda x: _mean0(x).expand(x.shape).to(x.dtype)
-                    .contiguous(), tree)
+    return tree_map(_avg_broadcast, tree)
 
 
 def mask_weights(mask: torch.Tensor) -> torch.Tensor:

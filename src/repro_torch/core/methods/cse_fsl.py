@@ -28,7 +28,8 @@ from repro_torch.configs.base import FSLConfig
 from repro_torch.core.bundle import SplitModelBundle
 from repro_torch.core.methods.base import (AsyncHooks, FSLMethod,
                                            assemble_round_step, client_mean,
-                                           register, stack_clients)
+                                           register, stack_clients,
+                                           state_donated)
 from repro_torch.optim import make_optimizer
 
 # ---------------------------------------------------------------------------
@@ -73,7 +74,13 @@ def make_client_round(bundle: SplitModelBundle, fsl: FSLConfig):
                 lambda pr: bundle.client_loss(pr["client"], pr["aux"],
                                               binputs, labels[k]),
                 has_aux=True)(params)
-            params, opt = opt_update(grads, opt, params, lr)
+            # params are this round's own after step 0, and the state's own
+            # in a captured round (donated): the step may write into them
+            # (the same bits, one copy of the clients' large leaves fewer
+            # beside their gradients: 16 GB on qwen2-vl-72b)
+            params, opt = opt_update(
+                grads, opt, params, lr,
+                out=params if k or state_donated() else None)
             losses.append(loss)
         # Alg.1 line 9: smashed data of the last batch with *updated* weights
         smashed = bundle.client_smashed(params["client"],

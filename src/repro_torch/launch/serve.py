@@ -199,6 +199,10 @@ def main(argv=None):
         inputs = {"tokens": torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                          dtype=np.int32)).to(device)}
+        if cfg.family == "vlm":     # the stub frontend's patch embeddings
+            inputs["image_embeds"] = torch.from_numpy(rng.normal(
+                size=(args.batch, cfg.num_image_tokens, cfg.d_model)).astype(
+                    np.float32)).to(device)
         t0 = time.time()
         logits, caches = prefill(params, inputs)
         tok = logits.argmax(-1).to(torch.int32)

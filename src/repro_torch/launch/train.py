@@ -21,6 +21,9 @@ memory independent of N:
       --population 10000 --cohort 8 --sampler stratified --network tiered
 
 Differences from the JAX driver:
+- hubert-xlarge (audio: frame features, not tokens) is refused with a
+  message; the JAX driver gives its token batches to the model and dies
+  with ``KeyError: 'features'``;
 - the model's hot spots (attention, the selective scan, the fused LM-head
   cross-entropy) always go through the port's kernels
   (``ModelConfig.use_pallas``): the JAX driver leaves its Pallas kernels
@@ -81,26 +84,35 @@ def build_data(cfg, fsl: FSLConfig, seq_len: int, samples_per_client: int,
 
 class LMBatcher:
     """Adapts FederatedBatcher token pairs to the transformer's input tree:
-    ``next_round() -> ({"tokens": x}, y)``, numpy int32 ``[n, h, B, S]``.
+    ``next_round() -> ({"tokens": x}, y)``, numpy int32 ``[n, h, B, S]``;
+    the vlm's inputs also carry zero ``image_embeds`` ``[n, h, B, P, d]``
+    (fp32), as the reference's batcher gives them.
 
-    It speaks the device-pool protocol too (``device_pool(device)`` and
-    ``next_round_indices``, the inner batcher's cursor walk), so
-    ``Trainer.run_compiled`` uploads the token pool once and gathers each
-    round on the device."""
+    For token-only archs it speaks the device-pool protocol too
+    (``device_pool(device)`` and ``next_round_indices``, the inner
+    batcher's cursor walk), so ``Trainer.run_compiled`` uploads the token
+    pool once and gathers each round on the device.  ``run_compiled``
+    probes for the protocol with ``hasattr``, so the vlm's batcher does
+    not expose it (a pool would carry each sample's image embeddings) and
+    its batches are staged from the host."""
 
     def __init__(self, cfg, fed: FederatedData, batch_size: int, h: int,
                  seed: int = 0):
         self.cfg = cfg
         self.inner = FederatedBatcher(fed, batch_size, h, seed=seed)
-        self.next_round_indices = self.inner.next_round_indices
         self._pools = {}
+        if cfg.family != "vlm":
+            self.device_pool = lambda device: _token_pool(self, device)
+            self.next_round_indices = self.inner.next_round_indices
 
     def next_round(self):
         x, y = self.inner.next_round()
-        return {"tokens": x}, y
-
-    def device_pool(self, device):
-        return _token_pool(self, device)
+        inputs = {"tokens": x}
+        if self.cfg.family == "vlm":
+            inputs["image_embeds"] = np.zeros(
+                x.shape[:3] + (self.cfg.num_image_tokens, self.cfg.d_model),
+                np.float32)
+        return inputs, y
 
 
 def _token_pool(adapter, device):
@@ -116,9 +128,13 @@ def _token_pool(adapter, device):
 
 class LMPool:
     """Adapts a population data backend's token pool to the transformer's
-    input tree (the leaf mapping of :class:`LMBatcher`)."""
+    input tree (the leaf mapping of :class:`LMBatcher`); the vlm's inputs
+    are not poolable, and it refuses them with the reference's message."""
 
     def __init__(self, cfg, inner):
+        if cfg.family == "vlm":
+            raise ValueError("population mode needs poolable (token-only) "
+                             f"inputs; {cfg.name} is a vlm")
         self.cfg = cfg
         self.inner = inner
         self.stateless = inner.stateless
@@ -240,6 +256,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.size == "reduced":
         cfg = cfg.reduced()
+    if cfg.family == "audio":
+        raise SystemExit(
+            f"error: {cfg.name} trains on frame features, and this driver's "
+            "data are token sequences; the JAX driver fails here too, with "
+            "KeyError: 'features' at its first round (ROADMAP Queue 3, "
+            "\"Noted\"); launch.specs.train_batch_specs builds its inputs")
     # the hot spots go through the port's kernels: launched on the card, on
     # the CPU each wrapper runs its plain version
     cfg = cfg.with_(use_pallas=True)

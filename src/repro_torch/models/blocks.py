@@ -1,5 +1,7 @@
 """Per-layer blocks, init + apply (``repro.models.blocks``), for the dense,
-MoE, Mamba-1 and Mamba-2 kinds, in training, prefill and decode mode.
+MoE, Mamba-1 and Mamba-2 kinds, in training, prefill and decode mode (the
+vlm and audio families run dense blocks: M-RoPE positions for the vlm,
+non-causal attention for the encoder-only audio model).
 
 A block is ``(cfg, params, x, ctx, cache) -> (x, new_cache, aux_loss)``.
 Depth comes from params stacked on a leading layer axis (``model.py``).
@@ -78,9 +80,16 @@ def attn_apply(cfg: ModelConfig, p, x, ctx: Ctx, cache):
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"])
         k = L.rmsnorm(k, p["k_norm"])
-    pos_ids = (torch.arange(s, device=x.device) + ctx.pos)[None].expand(b, s)
-    q = L.apply_rope(q, pos_ids, cfg.rope_theta)
-    k = L.apply_rope(k, pos_ids, cfg.rope_theta)
+    # positions rebuilt from the shape and ctx.pos in every stage: M-RoPE's
+    # three streams for the vlm, one stream otherwise
+    if cfg.mrope_sections is not None:
+        pos_ids = L.mrope_pos_ids(cfg.num_image_tokens, b, s, ctx.pos,
+                                  x.device)
+    else:
+        pos_ids = (torch.arange(s, device=x.device) + ctx.pos)[None].expand(
+            b, s)
+    q = L.apply_rope(q, pos_ids, cfg.rope_theta, cfg.mrope_sections)
+    k = L.apply_rope(k, pos_ids, cfg.rope_theta, cfg.mrope_sections)
     new_cache = None
     if ctx.mode == "decode":
         # cache {"k"/"v": [B, cache_len, KH, hd]}: a ring buffer where the

@@ -46,7 +46,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (M-RoPE for qwen2-vl)
 # ---------------------------------------------------------------------------
 
 
@@ -56,16 +56,52 @@ def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(theta, exps)
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
-    """Rotate q/k.  x: [B,S,H,hd]; pos: [B,S] integer positions."""
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
+               mrope_sections=None):
+    """Rotate q/k.  x: [B,S,H,hd]; pos: [B,S] integer positions, or
+    ``[3,B,S]`` with ``mrope_sections`` (M-RoPE): the hd/2 frequency slots
+    split into (t, h, w) sections, section i's angles in fp32 from its own
+    stream ``pos[i]``, then concatenated."""
     hd = x.shape[-1]
     inv_freq = rope_inv_freq(hd, theta, x.device)            # [hd/2]
-    ang = pos[..., None].float() * inv_freq                  # [B,S,hd/2]
+    if mrope_sections is None:
+        ang = pos[..., None].float() * inv_freq              # [B,S,hd/2]
+    else:
+        if sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover head_dim / 2 = {hd // 2}")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(pos[i][..., None].float()
+                         * inv_freq[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)                       # [B,S,hd/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_pos_ids(num_image_tokens: int, b: int, s: int, offset,
+                  device=None):
+    """The M-RoPE position streams (t, h, w) ``[3, B, S]`` of the VLM stub,
+    the reference's exactly: the first ``num_image_tokens`` positions are
+    a square patch grid of side ``isqrt(p)`` (t = 0, h = pos // side, w =
+    pos % side); text positions restart at ``pos - p`` on all three
+    streams.  Every stage rebuilds them from the shape and ``offset`` (an
+    int or a 0-d device tensor: tensor ops only, no host value, as a
+    captured decode step needs) on ``device``; no position travels with
+    the smashed data."""
+    p = num_image_tokens
+    pos = torch.arange(s, device=device) + offset
+    side = max(1, math.isqrt(max(p, 1)))
+    is_img = pos < p
+    text = pos - p
+    ids = torch.stack([torch.where(is_img, 0, text),
+                       torch.where(is_img, pos // side, text),
+                       torch.where(is_img, pos % side, text)])   # [3,S]
+    return ids[:, None, :].expand(3, b, s)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +135,11 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     over q in chunks of ``chunk`` so the score matrix never materializes
     at [Sq, Skv]; a shorter last chunk takes the rows left (the reference
     asserts ``Sq % chunk == 0``: each row's arithmetic is the same).
+    With no mask at all (the encoder-only attention: not causal, no window,
+    no ``kv_len``) the softmax is ``torch.softmax``, one pass over the
+    scores where the masked form takes seven: the same function (the
+    masked form's ``+ 1e-30`` is below an fp32 ulp of a row sum >= 1), its
+    exp and division rounded by another kernel.
     """
     b, sq, h, hd = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -106,10 +147,14 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
     v = _repeat_kv(v, h // kh).float()
     scale = 1.0 / math.sqrt(hd)
     kv_pos = torch.arange(skv, device=q.device)
+    unmasked = not causal and not window and kv_len is None
 
     def block(qc, off):
         cq = qc.shape[1]
         scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k) * scale
+        if unmasked:
+            return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1),
+                                v).to(q.dtype)
         q_pos = off + torch.arange(cq, device=q.device)
         mask = torch.ones((cq, skv), dtype=torch.bool, device=q.device)
         if causal:

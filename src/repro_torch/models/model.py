@@ -1,9 +1,13 @@
 """Split model: client stage | cut | server stage (+ aux head)
-(``repro.models.model``), for the dense, MoE, ssm (Mamba-1) and hybrid
-(Mamba-2 with a shared attention block) families: training, and serving
-the merged model (``prefill``, ``decode_step``, ``full_forward``).
+(``repro.models.model``), for every family of the reference: dense, MoE,
+ssm (Mamba-1), hybrid (Mamba-2 with a shared attention block), the vlm
+(M-RoPE, stub patch embeddings) and audio (encoder-only, stub frame
+features): training, and serving the merged model (``prefill``,
+``decode_step``, ``full_forward``; the encoder-only audio model has no
+decode step).
 
-The *client stage* owns the embedding and the first ``cut`` blocks; the
+The *client stage* owns the embedding (the audio model's frame frontend
+in its place) and the first ``cut`` blocks; the
 *server stage* owns the remaining blocks, the final norm and the LM head.
 The *auxiliary network* (paper §IV-A) maps the cut-layer output to a task
 loss, so the client trains without server gradients.
@@ -97,9 +101,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     dtype = dtype_of(cfg.dtype)
     cplan, splan = stage_plans(cfg)
     d = cfg.d_model
-    client = {"blocks_stage": _stage_init(cfg, cplan, gen, dtype),
-              "embed": (torch.randn((cfg.vocab_size, d), generator=gen)
-                        * d ** -0.5).to(dtype)}
+    client = {"blocks_stage": _stage_init(cfg, cplan, gen, dtype)}
+    if cfg.family == "audio":       # the frame frontend, no token embedding
+        f = cfg.frontend_dim
+        client["frontend_w"] = (torch.randn((f, d), generator=gen)
+                                * f ** -0.5).to(dtype)
+        client["frontend_b"] = torch.zeros((d,), dtype=dtype)
+    else:
+        client["embed"] = (torch.randn((cfg.vocab_size, d), generator=gen)
+                           * d ** -0.5).to(dtype)
     server = {"blocks_stage": _stage_init(cfg, splan, gen, dtype),
               "ln_f": torch.ones((d,), dtype=dtype),
               "head": (torch.randn((d, cfg.vocab_size), generator=gen)
@@ -325,8 +335,26 @@ def _unstack(tree):
 
 
 def embed_inputs(cfg: ModelConfig, cp, inputs: Dict[str, Any]):
-    """inputs ``{"tokens": [B,S]}`` -> x [B,S,d]."""
-    return F.embedding(inputs["tokens"].long(), cp["embed"])
+    """The inputs -> x [B,S,d].
+
+    ``{"tokens": [B,S]}`` through the embedding; the vlm's also carry
+    ``"image_embeds": [B,P,d]``, the stub frontend's patch embeddings,
+    which replace the first P positions (cast to the activations' dtype);
+    the audio model's ``{"features": [B,S,frontend_dim]}`` go through the
+    frame frontend, ``features @ frontend_w + frontend_b``, in the
+    parameters' dtype.  (The reference's drawn features are fp32, and
+    jnp's type promotion runs a bf16 model's whole stack in fp32 on them;
+    its input specs declare them in the model's dtype, as here.)  No
+    position ids come out: the M-RoPE streams are rebuilt in each stage
+    (``blocks.attn_apply``)."""
+    if cfg.family == "audio":
+        w = cp["frontend_w"]
+        return inputs["features"].to(w.dtype) @ w + cp["frontend_b"]
+    x = F.embedding(inputs["tokens"].long(), cp["embed"])
+    if cfg.family == "vlm":
+        img = inputs["image_embeds"].to(x.dtype)
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +490,8 @@ def _pad_attn_caches(caches, cache_len: int):
 def prefill(cfg: ModelConfig, params, inputs, *, window: int = 0,
             cache_len: int = 0):
     """Full-sequence forward producing the caches and the last token's
-    logits ``[B, V]``.
+    logits ``[B, V]``.  ``inputs`` as :func:`embed_inputs` takes them (the
+    vlm's with its ``image_embeds``).
 
     ``cache_len``: if longer than the prompt (and no window), the
     attention caches are padded so decode can append ``cache_len - S``
@@ -496,7 +525,12 @@ def decode_step(cfg: ModelConfig, params, token, pos, caches, *,
     ctx = Ctx(cfg, "decode", pos=torch.as_tensor(pos, device=dev),
               window=window)
     cplan, splan = stage_plans(cfg)
-    x = embed_inputs(cfg, params["client"], {"tokens": token[:, None]})
+    inputs = {"tokens": token[:, None]}
+    if cfg.family == "vlm":         # no image position in a decoded token
+        inputs["image_embeds"] = torch.zeros(
+            (token.shape[0], 0, cfg.d_model), dtype=dtype_of(cfg.dtype),
+            device=dev)
+    x = embed_inputs(cfg, params["client"], inputs)
     x, _, ncc = stage_apply(cfg, cplan, params["client"]["blocks_stage"], x,
                             ctx, caches["client"])
     x, _, nsc = stage_apply(cfg, splan, params["server"]["blocks_stage"], x,

@@ -1,11 +1,14 @@
 """Minimal functional optimizers over parameter trees (``repro.optim``).
 
 ``make_optimizer(name)`` returns ``(init_fn, update_fn)`` where
-``update_fn(grads, opt_state, params, lr) -> (new_params, new_opt_state)``.
-Updates are out of place, so they compose with ``torch.func.vmap`` over
-stacked clients.  The round steps pass ``lr`` as a 0-d fp32 tensor on the
-params' device, so a captured round reads each round's lr (a Python
-float works too: the same fp32 products).
+``update_fn(grads, opt_state, params, lr, out=None) -> (new_params,
+new_opt_state)``.  Updates are out of place, so they compose with
+``torch.func.vmap`` over stacked clients; ``out`` (a tree like ``params``,
+``params`` itself where the caller owns them) lets an update write new
+params into its buffers instead (SGD does, for the leaves it slices), and
+the returned tree is the result either way.  The round steps pass ``lr``
+as a 0-d fp32 tensor on the params' device, so a captured round reads
+each round's lr (a Python float works too: the same fp32 products).
 """
 from __future__ import annotations
 
@@ -35,15 +38,19 @@ def clip_by_global_norm(grads, max_norm: float):
 SLICE_NUMEL = 1 << 26
 
 
-def sliced(fn, p, *rest):
+def sliced(fn, p, *rest, out=None):
     """``fn(p, *rest)``, elementwise, over slices of dim 0 when ``p`` has
-    SLICE_NUMEL elements or more: the same bits, smaller temporaries."""
+    SLICE_NUMEL elements or more: the same bits, smaller temporaries.
+    The slices are written into ``out`` where given (``p`` itself, for an
+    update in place: each slice after it was computed), else into a new
+    tensor; a smaller ``p`` always gives a new tensor."""
     if p.dim() == 0 or p.numel() < SLICE_NUMEL:
         return fn(p, *rest)
     rows = max(1, p.shape[0] * (SLICE_NUMEL // 2) // p.numel())
     first = fn(*(t[:rows] for t in (p, *rest)))
-    # new_empty of the first slice: batched under vmap as the result is
-    out = first.new_empty((p.shape[0],) + first.shape[1:])
+    if out is None:
+        # new_empty of the first slice: batched under vmap as the result is
+        out = first.new_empty((p.shape[0],) + first.shape[1:])
     out[:rows].copy_(first)
     del first
     for i in range(rows, p.shape[0], rows):
@@ -55,11 +62,14 @@ def sgd():
     def init(params):
         return ()
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, out=None):
         def step(p, g):
             return (p.float() - lr * g.float()).to(p.dtype)
-        new = tree_map(lambda p, g: sliced(step, p, g), params, grads)
-        return new, state
+        if out is None:
+            return tree_map(lambda p, g: sliced(step, p, g), params,
+                            grads), state
+        return tree_map(lambda p, g, o: sliced(step, p, g, out=o), params,
+                        grads, out), state
     return init, update
 
 
@@ -67,7 +77,7 @@ def momentum(beta: float = 0.9):
     def init(params):
         return {"m": tree_map(torch.zeros_like, params)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, out=None):
         m = tree_map(lambda m_, g: beta * m_ + g.to(m_.dtype), state["m"],
                      grads)
         new = tree_map(lambda p, m_: (p.float() - lr * m_).to(p.dtype),
@@ -85,7 +95,7 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         return {"m": f32(params), "v": f32(params),
                 "t": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, out=None):
         t = state["t"] + 1
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
                      state["m"], grads)

@@ -193,6 +193,33 @@ def test_sgd_slices_large_leaves_bitwise(monkeypatch, gdtype):
             sliced[k].float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+def test_sgd_out_takes_the_sliced_leaves_in_place(monkeypatch):
+    """``update(..., out=params)``: the leaves the step slices are written
+    into ``out`` (the same tensor returned), the others come back new, and
+    every leaf has the bits of the update without ``out``, per client
+    under ``vmap``."""
+    import repro_torch.optim as optim
+    rng = np.random.default_rng(5)
+    shapes = {"stack": (7, 5, 3, 2), "rows": (9, 4), "small": (3,)}
+    params = {k: torch.from_numpy(rng.normal(size=(2,) + s).astype(
+        np.float32)).to(torch.bfloat16) for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.normal(size=(2,) + s).astype(
+        np.float32)) for k, s in shapes.items()}
+    lr = torch.tensor(0.15, dtype=torch.float32)
+    _, upd = make_optimizer("sgd")
+    monkeypatch.setattr(optim, "SLICE_NUMEL", 32)
+    want = torch.func.vmap(lambda p, g: upd(g, (), p, lr)[0])(params, grads)
+    own = {k: v.clone() for k, v in params.items()}
+    ptrs = {k: v.data_ptr() for k, v in own.items()}
+    got = torch.func.vmap(lambda p, g: upd(g, (), p, lr, out=p)[0])(own,
+                                                                     grads)
+    for k in shapes:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(own[k], want[k] if k != "small" else params[k]), k
+    assert got["stack"].data_ptr() == ptrs["stack"]
+    assert got["small"].data_ptr() != ptrs["small"]
+
+
 def test_sgd_slices_unbatched_params_batched_grads(monkeypatch):
     """Under ``vmap`` with the params shared and the grads per client,
     the sliced step's result is per client, as the whole-leaf step's is."""

@@ -175,7 +175,8 @@ def test_table34_rows_equal_reference(jbench, tmp_path, monkeypatch):
     jrows = {r["arch"]: r for r in jt.transformer_table()}
     assert [r["arch"] for r in out["transformers"]] == [
         "zamba2-7b", "olmoe-1b-7b", "qwen3-0.6b", "qwen2-72b",
-        "falcon-mamba-7b", "qwen2-1.5b", "glm4-9b", "phi3.5-moe-42b-a6.6b"]
+        "qwen2-vl-72b", "falcon-mamba-7b", "qwen2-1.5b", "glm4-9b",
+        "phi3.5-moe-42b-a6.6b", "hubert-xlarge"]
     for r in out["transformers"]:
         assert r == jrows[r["arch"]]
     assert (tmp_path / "torch_table34_aux_params.json").exists()

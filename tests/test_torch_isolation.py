@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
-``chip_mutants.py`` import neither JAX nor the JAX package, so they run on
-a machine that has no JAX installed."""
+"""The PyTorch port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
+``chip_mutants.py`` and ``chip_ab.py`` import neither JAX nor the JAX
+package, so they run on a machine that has no JAX installed."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_mutants.py"]
+PORT_FILES = PACKAGE_FILES + [ROOT / p for p in (
+    "chip_smoke.py", "chip_mutants.py", "chip_ab.py")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
